@@ -1,0 +1,88 @@
+"""LocallyDense brain encoder in PyTorch: Glasser-region block-dense
+projection, eval mode.
+
+Counterpart of ``masters_thesis_tpu/models/locally_dense.py``. Groups are
+bucketed by padded width (``GroupLayout``, shared with the JAX package), and
+each bucket is one batched contraction:
+
+    xg    = xpad[:, idx_b]                        # (B, G_b, P_b); pad -> zero col
+    out_b = LeakyReLU(0.2)(einsum('bgp,gpd->bgd', xg, W_b) + b_b)
+    out   = BatchNorm(concat(out_b)[:, unpermute])          # (B, G, D)
+
+The gather is ``index_select`` and the contraction is ``einsum``: the JAX
+package leaves both to XLA, outside any Pallas kernel. BatchNorm in training
+mode and the pregathered input wait for ROADMAP M2.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from masters_thesis_tpu.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.models.common import (
+    BatchNorm,
+    leaky_relu,
+    truncated_normal,
+)
+
+
+def _bucket_kernel_init(sizes: np.ndarray, padded: int, out_dim: int,
+                        generator=None) -> torch.Tensor:
+    """he_normal per group with fan_in = true group size; padded rows zero."""
+    w = truncated_normal((len(sizes), padded, out_dim), 1.0, generator)
+    sizes_t = torch.as_tensor(sizes, dtype=torch.float32)
+    std = torch.sqrt(2.0 / sizes_t)[:, None, None]
+    mask = torch.arange(padded)[None, :, None] < sizes_t[:, None, None]
+    return torch.where(mask, w * std, torch.zeros(()))
+
+
+class LocallyDense(nn.Module):
+    """Bucketed block-dense encoder: (B, n_voxels) -> (B, n_groups, out_dim).
+
+    Parameters ``kernel_{b}`` (G_b, P_b, D) and ``bias_{b}`` (G_b, D) per
+    bucket, then ``input_bn`` over D."""
+
+    def __init__(self, layout: GroupLayout, out_dim: int = 32,
+                 pregathered: bool = False, generator=None):
+        super().__init__()
+        if pregathered:
+            raise NotImplementedError(
+                "LocallyDense(pregathered=True) is the training input path; "
+                "it is ported with training (ROADMAP M2)")
+        self.layout = layout
+        self.out_dim = out_dim
+        for b, bucket in enumerate(layout.buckets):
+            gb, pb = len(bucket.group_ids), bucket.padded
+            self.register_parameter(f"kernel_{b}", nn.Parameter(
+                _bucket_kernel_init(bucket.sizes, pb, out_dim, generator)))
+            self.register_parameter(
+                f"bias_{b}", nn.Parameter(torch.zeros(gb, out_dim)))
+            # static gather indices ride with .to(device) but stay out of
+            # the state dict, which mirrors the flax tree
+            self.register_buffer(
+                f"indices_{b}",
+                torch.as_tensor(bucket.indices.reshape(-1), dtype=torch.long),
+                persistent=False)
+        self.register_buffer(
+            "unpermute", torch.as_tensor(layout.unpermute, dtype=torch.long),
+            persistent=False)
+        self.input_bn = BatchNorm(out_dim)
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if training:
+            raise NotImplementedError(
+                "LocallyDense runs in eval mode; training-mode BatchNorm "
+                "comes with ROADMAP M2")
+        xpad = F.pad(x, (0, 1))       # column n_voxels is the zero pad slot
+        outs = []
+        for b, bucket in enumerate(self.layout.buckets):
+            gb, pb = len(bucket.group_ids), bucket.padded
+            idx = getattr(self, f"indices_{b}")
+            xg = xpad.index_select(1, idx).view(x.shape[0], gb, pb)
+            y = torch.einsum("bgp,gpd->bgd", xg, getattr(self, f"kernel_{b}"))
+            outs.append(leaky_relu(y + getattr(self, f"bias_{b}")))
+        out = torch.cat(outs, dim=1).index_select(1, self.unpermute)
+        return self.input_bn(out)

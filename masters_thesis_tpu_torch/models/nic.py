@@ -1,0 +1,147 @@
+"""NIC — the attention caption decoder, flagship LcNIC, in PyTorch.
+
+Counterpart of ``masters_thesis_tpu/models/nic.py`` for the lc_NIC
+configuration (AttemptFour/Model/lc_NIC.py:42-263):
+
+  features = LocallyDense(x)                             # (B, R, D)
+  for t < max_len:  ctx_t  = BahdanauAttention(h_t, features)
+                    h_t+1  = LSTM([ctx_t ; emb(word_t)])
+  logits = dense_out(LeakyReLU(dense_inter(h_seq)))      # -1e9 on padded vocab
+
+Submodule and parameter names follow the flax tree (``encoder``,
+``attention``, ``lstm``, ``embedding``, ``dense_inter``, ``dense_out``), so
+``transplant.from_flax`` loads a JAX checkpoint without a key map.
+
+The port covers the LSTM cell, the zero initial carry and a trainable
+embedding, in eval mode. Other cells, carries, embeddings and families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from masters_thesis_tpu.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.models.attention import BahdanauAttention
+from masters_thesis_tpu_torch.models.common import (
+    Dense,
+    embedding_init,
+    glorot_normal,
+    leaky_relu,
+    mask_padded_vocab,
+    pad_zero_cols,
+    pad_zero_rows,
+)
+from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
+from masters_thesis_tpu_torch.models.lstm import KerasLSTMCell
+
+
+class NIC(nn.Module):
+    """``true_vocab`` > 0 and < ``vocab_size`` marks a padded vocab axis:
+    padded embedding rows and head columns start at zero and padded logits
+    are masked to -1e9, as in the JAX package."""
+
+    def __init__(self, encoder: nn.Module, units: int = 512,
+                 embedding_text: int = 512, attn_units: int = 32,
+                 vocab_size: int = 5001, true_vocab: int = 0,
+                 max_length: int = 15, cell_type: str = "lstm",
+                 head_dim: int = 256, pretrained_embedding=None,
+                 learned_init_state: bool = False, generator=None):
+        super().__init__()
+        if cell_type != "lstm":
+            raise NotImplementedError(
+                f"cell_type={cell_type!r}: the GRU cell and its decode kernel "
+                "K3 are ported with the other families (ROADMAP M11)")
+        if learned_init_state:
+            raise NotImplementedError(
+                "learned_init_state is ported with the other families "
+                "(ROADMAP M11)")
+        if pretrained_embedding is not None:
+            raise NotImplementedError(
+                "pretrained (GloVe) embeddings are ported with the other "
+                "families (ROADMAP M11)")
+        self.units = units
+        self.vocab_size = vocab_size
+        self.true_vocab = true_vocab
+        self.max_length = max_length
+        tv = true_vocab or vocab_size
+        features_dim = encoder.out_dim
+
+        self.encoder = encoder
+        self.attention = BahdanauAttention(attn_units, features_dim, units,
+                                           generator)
+        self.lstm = KerasLSTMCell(features_dim + embedding_text, units,
+                                  generator)
+        self.embedding = nn.Parameter(pad_zero_rows(embedding_init, tv)(
+            (vocab_size, embedding_text), generator))
+        self.dense_inter = Dense(units, head_dim, glorot_normal, generator)
+        self.dense_out = Dense(head_dim, vocab_size,
+                               pad_zero_cols(glorot_normal, tv), generator)
+
+    # ---- pieces ----
+    def encode(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        return self.encoder(x, training=training)            # (B, R, D)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embedding)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        x = leaky_relu(self.dense_inter(h))
+        return mask_padded_vocab(self.dense_out(x), self.true_vocab)
+
+    # ---- teacher-forced forward (lc_NIC.call_attention), eval mode ----
+    def forward(self, inputs, tokens, a0, c0, training: bool = False):
+        """Returns (logits (B, T, V), attn (B, T, R))."""
+        if training:
+            raise NotImplementedError(
+                "the training forward (dropout, BatchNorm updates) is "
+                "ported with training (ROADMAP M5)")
+        features = self.encode(inputs)
+        emb = self.embed(tokens)                              # (B, T, E)
+        h, c = a0.float(), c0.float()
+        hseq, alphas = [], []
+        for t in range(tokens.shape[1]):
+            context, alpha = self.attention(h, features)
+            (h, c), out = self.lstm((h, c), torch.cat([context, emb[:, t]], -1))
+            hseq.append(out)
+            alphas.append(alpha[..., 0])
+        logits = self.head(torch.stack(hseq, dim=1))         # (B, T, V)
+        return logits, torch.stack(alphas, dim=1)
+
+    # ---- single decode step (shared by the greedy decoders) ----
+    def init_carry(self, features: torch.Tensor):
+        """Zeros, as the reference's a0/c0."""
+        z = torch.zeros(features.shape[0], self.units, dtype=features.dtype,
+                        device=features.device)
+        return z, z
+
+    def decode_step(self, h, c, features, token):
+        """One inference step. token: (B,) int.
+
+        Returns (h', c', logits (B, V), alpha (B, R))."""
+        context, alpha = self.attention(h, features)
+        x = torch.cat([context, self.embed(token)], dim=-1)
+        (h, c), _ = self.lstm((h, c), x)
+        return h, c, self.head(h), alpha[..., 0]
+
+
+def LcNIC(layout: GroupLayout, units: int = 512, group_size: int = 32,
+          embedding_text: int = 512, attn_units: int = 32,
+          vocab_size: int = 5001, max_length: int = 15,
+          pregathered: bool = False, generator=None, **kw) -> NIC:
+    """Flagship brain decoder (lc_NIC.py configuration), initialised on the
+    CPU from ``generator``; move it with ``.to(device)``. Extra kwargs pass
+    through to ``NIC``."""
+    return NIC(
+        encoder=LocallyDense(layout, out_dim=group_size,
+                             pregathered=pregathered, generator=generator),
+        units=units,
+        embedding_text=embedding_text,
+        attn_units=attn_units,
+        vocab_size=vocab_size,
+        max_length=max_length,
+        generator=generator,
+        **kw,
+    )

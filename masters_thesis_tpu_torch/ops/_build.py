@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
+a plain C interface, loaded with ``ctypes``. The library lands in
+``build/torch_kernels/`` at the repo root, named by a hash of the sources and
+flags, so an edit rebuilds and an unchanged tree reuses the build. Nothing
+here runs at import time: the CPU tests import every module of the port on
+machines without ``nvcc`` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# mtt_fused_greedy_decode: 23 pointers, 9 sizes, the device and the stream
+_SIGNATURES = {
+    "mtt_fused_greedy_decode": ([_P] * 23 + [_I] * 9 + [_I, _P], ctypes.c_int),
+    "mtt_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "port's CUDA kernels cannot be built")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"mtt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernels; raise if nvcc fails."""
+    out = library_path()
+    if not out.exists():
+        build(out)
+    lib = ctypes.CDLL(str(out))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def build(out: Path) -> float:
+    """Compile every ``csrc/*.cu`` into ``out``; returns the seconds taken.
+    The compiler's report (registers, spills) goes to ``out`` + ``.log``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    t0 = time.perf_counter()
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return time.perf_counter() - t0
+
+
+def check_error(code: int, what: str) -> None:
+    if code != 0:
+        msg = load_library().mtt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
