@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc``, holds
-the whole-decode kernel (K2) against its plain PyTorch version at flagship
-LcNIC width, serves three HTTP caption requests through the port's
-``Captioner`` and the shared caption server, and times the kernel, the plain
-version, the unfused greedy decoder and captions per second. Every number is
-printed beside the card's name and power limit. ``--profile`` adds a
-``torch.profiler`` table of device time by kernel for one served batch.
+Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
+``nvcc`` a source, in parallel), then drives both paths at flagship LcNIC
+width:
+
+- serving: holds the whole-decode kernel (K2) against its plain PyTorch
+  version, serves three HTTP caption requests through the port's
+  ``Captioner`` and the shared caption server, and times the kernel, the
+  plain version, the unfused greedy decoder and captions per second;
+- training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
+  on the card, holds the store row gather (K1) against its plain version and
+  a 3-step dropout-off trajectory through K1 against the same steps through
+  the plain gather, trains one epoch of 140 scanned steps with the scanned
+  validation pass through ``Trainer.fit``, and times K1, the plain gather
+  and the train step.
+
+Every number is printed beside the card's name and power limit.
+The device time of a train step, the sum of its kernels' times by
+``torch.profiler``, is printed in every run; ``--profile`` adds tables of
+device time by kernel for one served batch and for the scanned train steps.
 
 The weights are random, made from a seed, and spread by
 ``ops.fused_decode.spread_for_check`` so that every bias and BatchNorm
 statistic is live and the greedy words vary; the run fails if they do not.
 The flagship layout is the synthetic 360-group one of ``bench.py``. The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launches during serving, its error against the plain version and both
-times. Any failed phase raises, and the script then exits non-zero without
+its launches on its path (K2 while serving, K1 while training), its error
+against the plain version and both times. Any failed phase raises, and the script then exits non-zero without
 those lines. It needs CUDA and the rest of the repository beside it.
 """
 
@@ -48,6 +61,13 @@ MIN_NONEMPTY_SHARE = 0.9    # of the served captions
 REQUEST_ROWS = (1, 5, 64)   # .npy, JSON, .npy
 THROUGHPUT_ROWS = 4 * BATCH
 WINDOWS, WINDOW_S = 5, 2.0  # captions/s: repeated timing windows
+# training: configs/flagship_synth.yaml's 2,571 keys give 8,995 train pairs,
+# 140 steps of 64, and 1,925 val pairs, 30 batches
+TRAIN_KEYS = 2571
+SCAN_STEPS = 140
+EDGE_STEPS = 20             # the loss must fall from the first to the last
+TRAJ_STEPS, TRAJ_RTOL = 3, 1e-6
+STEP_WINDOW, STEP_REPS = 10, 5  # ms a step: calls of scanned steps, timed
 
 
 def card_line() -> str:
@@ -234,20 +254,298 @@ def throughput(captioner, rows: np.ndarray, card: str) -> float:
     return median
 
 
-def profile(captioner, rows: np.ndarray) -> None:
+# kernel name fragments -> the part of the work a kernel does, first match
+KERNEL_GROUPS = (
+    ("K1 gather_rows", ("gather_rows_kernel",)),
+    ("K2 decode chain", ("attention_kernel", "rows_kernel",
+                         "argmax_embed_kernel")),
+    ("GEMMs (cuBLAS)", ("gemm", "xmma", "splitkreduce")),
+    ("index, gather, scatter, embedding", ("index", "gather", "scatter",
+                                           "embedding")),
+    ("reductions, softmax, norms", ("reduce", "softmax", "norm")),
+    ("copies, fills, concatenation", ("memcpy", "memset", "copy", "fill",
+                                      "cat")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def device_time(fn, what: str, per: int = 1, unit: str = "call",
+                table: bool = False, rows: int = 15) -> float:
+    """Device time of one call of ``fn`` by ``torch.profiler``: the sum of
+    its kernels' times, over ``per`` (the ``unit``s the call makes), in ms.
+    Prints it beside the call's wall time under the profiler; ``table`` adds
+    the kernels grouped by what they do, a step each, and the busiest ops of
+    the whole call."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        captioner.caption(rows[:BATCH])
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"profile of {what}: {launches / per:.0f} kernels and {busy / per:.3f}"
+          f" ms of device time a {unit}, in {wall / per:.3f} ms of wall time a "
+          f"{unit} under the profiler (device busy {busy / wall:.1%})")
+    if table:
+        groups: dict[str, list] = {}
+        for e in kernels:
+            name = e.key.lower()
+            group = next((g for g, keys in KERNEL_GROUPS
+                          if any(k in name for k in keys)), "other")
+            acc = groups.setdefault(group, [0.0, 0])
+            acc[0] += e.self_device_time_total / 1e3
+            acc[1] += e.count
+        for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {group:36s} {ms / per:8.3f} ms {ms / busy:6.1%} "
+                  f"{n / per:8.1f} kernels a {unit}")
+        print(events.table(sort_by="self_cuda_time_total", row_limit=rows))
+    return busy / per
+
+
+# ---- training ----
+
+def flagship_train_data(device, cfg):
+    """The flagship store on the card, pregathered, in ``cfg.tpu.store_dtype``,
+    and the shared pipes.
+
+    The pairs and the tokenizer come from the shared ``synthetic_dataset``
+    at a small voxel width; the store's rows are drawn on the card from a
+    seeded generator and permuted there with ``GroupLayout.permute_rows``'s
+    indices. A host draw of 2,571 x 327,684 doubles, and its copy to the
+    card, would cost more than the rest of the phase."""
+    from masters_thesis_tpu.data.pairs import encode_pairs
+    from masters_thesis_tpu.data.pipeline import BatchPipeline
+    from masters_thesis_tpu.data.synthetic import (
+        synthetic_dataset,
+        synthetic_groups,
+    )
+    from masters_thesis_tpu.ops.group_layout import GroupLayout
+    from masters_thesis_tpu_torch.data.store import ArrayStore, permute_rows
+
+    layout = GroupLayout(synthetic_groups(N_VOXELS, N_GROUPS, seed=SEED),
+                         N_VOXELS)
+    _, pairs, tok, small, _ = synthetic_dataset(
+        n_keys=TRAIN_KEYS, n_voxels=8, n_groups=2,
+        top_k=WIDTHS["vocab_size"] - 1, seed=SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    raw = torch.randn(len(small), N_VOXELS, generator=gen, device=device)
+    store = ArrayStore(permute_rows(raw, layout), small.keys,
+                       dtype=cfg.tpu.store_dtype)
+    del raw
+    T = WIDTHS["max_length"]
+    train_pipe = BatchPipeline(encode_pairs(pairs["train"], tok, T), store,
+                               BATCH, seed=SEED)
+    val_pipe = BatchPipeline(encode_pairs(pairs["val"], tok, T), store,
+                             BATCH, seed=SEED, shuffle=False)
+    return layout, store, train_pipe, val_pipe
+
+
+def train_config(**kw):
+    from masters_thesis_tpu_torch.config import Config
+
+    cfg = Config(seed=SEED, epochs=1, batch_size=BATCH,
+                 max_length=WIDTHS["max_length"],
+                 top_k=WIDTHS["vocab_size"] - 1, units=WIDTHS["units"],
+                 attn_units=WIDTHS["attn_units"],
+                 group_size=WIDTHS["group_size"],
+                 embedding_text=WIDTHS["embedding_text"], **kw)
+    cfg.tpu.scan_steps = SCAN_STEPS
+    return cfg
+
+
+def check_gather(store, card: str) -> dict:
+    """K1 against its plain version on 64 rows of the real store, with
+    repeated ids and ids out of range, then both timed."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_reference,
+    )
+
+    data = store.device_array()
+    n = data.shape[0]
+    gen = torch.Generator(device=data.device).manual_seed(SEED)
+    ids = torch.randint(0, n, (BATCH,), generator=gen, device=data.device,
+                        dtype=torch.int32)
+    ids[1] = ids[0]
+    ids[2], ids[3], ids[4] = -3, n, n + 1000
+    got = gather_rows(data, ids)
+    torch.cuda.synchronize()
+    want = gather_rows_reference(data, ids)
+    err = float((got - want).abs().max())
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise RuntimeError(f"K1 differs from its plain version: max abs "
+                           f"error {err}, shapes {tuple(got.shape)} "
+                           f"{tuple(want.shape)}")
+    ids = torch.randint(0, n, (BATCH,), generator=gen, device=data.device,
+                        dtype=torch.int32)
+    ms = cuda_ms(lambda: gather_rows(data, ids), reps=50, warmup=5)
+    plain_ms = cuda_ms(lambda: gather_rows_reference(data, ids), reps=50,
+                       warmup=5)
+    moved = 2 * BATCH * data.shape[1] * data.element_size()
+    print(f"K1 vs plain on {BATCH} rows of the {n} x {data.shape[1]} "
+          f"{str(data.dtype)[6:]} store (repeated ids, ids -3, {n}, "
+          f"{n + 1000}): identical [{card}]")
+    print(f"K1 {ms * 1e3:.2f} us ({moved / ms / 1e6:.1f} GB/s read+write), "
+          f"plain index_select {plain_ms * 1e3:.2f} us "
+          f"({moved / plain_ms / 1e6:.1f} GB/s), batch of {BATCH} rows, "
+          f"{moved / 2e6:.1f} MB [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_trajectory(layout, store, pipe, device, card: str) -> None:
+    """Three dropout-off steps gathering their batches through K1 against
+    the same steps fed by the plain gather, from the same weights."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows_reference
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+    from masters_thesis_tpu_torch.train.state import init_model
+
+    cfg = train_config(dropout_features=0.0, dropout_text=0.0,
+                       dropout_attn=0.0, dropout_lstm=0.0, dropout_out=0.0)
+    rules = lc_nic_l2_rules(cfg)
+    tables = tuple(torch.as_tensor(t, device=device) for t in (
+        pipe.store_idx, pipe.pairs.tokens, pipe.targets))
+    sel = torch.as_tensor(np.stack([b["sel"] for _, b in zip(
+        range(TRAJ_STEPS), pipe.epoch(0))]), device=device)
+    a = init_model(cfg, layout, device, pregathered=True)
+    a, ma = steps.make_scanned_train_steps_from_tables(cfg, rules)(
+        a, store.device_array(), *tables, sel)
+    b = init_model(cfg, layout, device, pregathered=True)
+    one = steps.make_train_step(cfg, rules)
+    store_idx, tokens, target = tables
+    mb = []
+    for p in sel:
+        b, m = one(b, gather_rows_reference(store.device_array(),
+                                            store_idx[p]),
+                   tokens[p], target[p])
+        mb.append(m)
+    worst = 0.0
+    for key in ("loss", "total", "grad_norm"):
+        want = torch.stack([m[key] for m in mb])
+        worst = max(worst, float(((ma[key] - want).abs() / want.abs()).max()))
+    with torch.no_grad():
+        diff = torch.stack([torch.linalg.vector_norm(pa - pb) for pa, pb in
+                            zip(a.model.parameters(), b.model.parameters())])
+        norm = torch.stack([torch.linalg.vector_norm(p)
+                            for p in b.model.parameters()])
+        params = float(torch.linalg.vector_norm(diff)
+                       / torch.linalg.vector_norm(norm))
+    print(f"{TRAJ_STEPS}-step dropout-off trajectory, K1 vs plain gather: "
+          f"metrics max rel err {worst:.3e}, parameters rel err {params:.3e} "
+          f"(limit {TRAJ_RTOL}), losses {ma['loss'].tolist()} [{card}]")
+    if not (worst <= TRAJ_RTOL and params <= TRAJ_RTOL):
+        raise RuntimeError("the trajectory through K1 leaves the one through "
+                           "the plain gather")
+
+
+def train(device, card: str, with_profile: bool) -> dict:
+    """The training phase; returns K1's entry of the kernels line."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.loop import Callback, Trainer
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+    from masters_thesis_tpu_torch.train.state import init_model
+
+    class Rows(Callback):
+        """The per-step metric rows, as the batch hook delivers them."""
+
+        def __init__(self):
+            self.rows = []
+
+        def on_batch_end(self, trainer, step, logs):
+            self.rows.append(logs)
+
+    cfg = train_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    layout, store, train_pipe, val_pipe = flagship_train_data(device, cfg)
+    torch.cuda.synchronize()
+    data = store.device_array()
+    print(f"flagship store on the card: {tuple(data.shape)} "
+          f"{str(data.dtype)[6:]}, {data.numel() * data.element_size() / 1e9:.2f}"
+          f" GB, pregathered, built in {time.perf_counter() - t0:.1f} s; "
+          f"{len(train_pipe.pairs)} train pairs = {len(train_pipe)} steps, "
+          f"{len(val_pipe)} val batches of {BATCH}")
+    k1 = check_gather(store, card)
+    check_trajectory(layout, store, train_pipe, device, card)
+
+    rules = lc_nic_l2_rules(cfg)
+    state = init_model(cfg, layout, device, pregathered=True)
+    hook = Rows()
+    trainer = Trainer(cfg, steps.make_train_step(cfg, rules),
+                      steps.make_eval_step(cfg, rules), state, train_pipe,
+                      val_pipe, callbacks=[hook], store=store)
+    trainer.use_scanned_steps(
+        steps.make_scanned_train_steps_from_tables(cfg, rules), tables=True)
+    trainer.use_scanned_eval(
+        steps.make_scanned_eval_steps_from_tables(cfg, rules))
+    gather_rows.launches = 0
+    logs = trainer.fit()
+    launches = gather_rows.launches
+    losses = np.array([r["loss"] for r in hook.rows])
+    batches = len(train_pipe) + len(val_pipe)
+    first, last = losses[:EDGE_STEPS].mean(), losses[-EDGE_STEPS:].mean()
+    print(f"one flagship epoch through Trainer.fit (scan_steps {SCAN_STEPS}, "
+          f"dropout 0.2, Adam beta_2 0.98, clipnorm 0.1, L2): {len(losses)} "
+          f"steps, loss {first:.4f} (first {EDGE_STEPS}) -> {last:.4f} (last "
+          f"{EDGE_STEPS}), val_loss {logs['val_loss']:.4f}, val_accuracy "
+          f"{logs['val_accuracy']:.4f}; K1 launches {launches} (train + val "
+          f"batches {batches})")
+    print(f"train steps/s over the epoch: {logs['steps_per_sec']:.2f} "
+          f"(epoch {logs['epoch_time']:.2f} s with validation) [{card}]")
+    if len(losses) != len(train_pipe) or not np.isfinite(losses).all() \
+            or not np.isfinite(logs["val_loss"]):
+        raise RuntimeError("a training loss is not finite, or steps are "
+                           "missing")
+    if not last < first:
+        raise RuntimeError(f"the loss did not fall: {first} -> {last}")
+    if launches < batches:
+        raise RuntimeError(f"K1 launched {launches} times for {batches} "
+                           f"train and val batches")
+
+    # a step's time: CUDA events around calls of STEP_WINDOW scanned steps,
+    # STEP_REPS of them, then the kernels' own time in one more such call
+    scanned = steps.make_scanned_train_steps_from_tables(cfg, rules)
+    sel = torch.as_tensor(np.stack([b["sel"] for _, b in zip(
+        range(STEP_WINDOW), train_pipe.epoch(1))]), device=device)
+
+    def window():
+        scanned(state, data, *trainer._scan_tables, sel)
+
+    window()
+    wall = [cuda_ms(window, reps=1, warmup=0) / STEP_WINDOW
+            for _ in range(STEP_REPS)]
+    med = float(np.median(wall))
+    print(f"train step at B={BATCH}: {med:.3f} ms a step by CUDA events, "
+          f"median of {STEP_REPS} calls of {STEP_WINDOW} scanned steps (min "
+          f"{min(wall):.3f}, max {max(wall):.3f}; {1e3 / med:.2f} steps/s); "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    busy = device_time(window, f"{STEP_WINDOW} scanned train steps",
+                       per=STEP_WINDOW, unit="step", table=with_profile,
+                       rows=25)
+    if busy > 0:
+        print(f"train step device time {busy:.3f} ms a step (kernels, "
+              f"torch.profiler), {busy / med:.1%} of the median ms a step by "
+              f"CUDA events above [{card}]")
+    else:
+        print("train step device time: not measured (the profiler saw no "
+              "kernels)")
+    return {"launches": launches, **k1}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="print device time by kernel for one batch")
+                        help="print tables of device time by kernel for one "
+                        "served batch and for the scanned train steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -312,13 +610,20 @@ def main(argv=None) -> int:
 
     throughput(captioner, rows, card)
     if args.profile:
-        profile(captioner, rows)
+        device_time(lambda: captioner.caption(rows[:BATCH]),
+                    "one served batch", table=True)
+    del model, captioner, rows, betas
+    torch.cuda.empty_cache()
 
+    k1 = train(device, card, args.profile)
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
-        "launches": launches, **k2}]}))
+        "launches": launches, **k2}, {
+        "name": "gather_rows", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/gather.cu",
+        "replaces": "masters_thesis_tpu/ops/gather.py:49", **k1}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,15 +4,18 @@ for NVIDIA Hopper (H100).
 The JAX package beside it is the reference. This package mirrors its file
 layout and names, imports ``torch`` and never ``jax``, and reuses the JAX
 package's framework-free modules (``ops.group_layout``, ``data.tokenizer``,
-``data.synthetic``, ``evalsuite.tokens``, ``serve`` at module level,
-``server``) instead of copying them. Every Pallas kernel on a ported
+``data.synthetic``, ``data.pairs``, ``data.splits``, ``data.pipeline``,
+``evalsuite.tokens``, ``serve`` at module level, ``server``) instead of
+copying them. Every Pallas kernel on a ported
 path becomes a hand-written Hopper kernel under ``csrc/``, with a plain
 PyTorch version beside it.
 
-Ported so far: the LcNIC greedy serving path (``serve.Captioner`` ->
-``models.nic`` -> ``ops.fused_decode``) in fp32, eval mode. The JAX
-package's ``server.make_caption_server`` serves the port's ``Captioner`` as
-it is.
+Ported so far, in fp32: the LcNIC greedy serving path (``serve.Captioner``
+-> ``models.nic`` -> ``ops.fused_decode``, K2), which the JAX package's
+``server.make_caption_server`` serves as it is; and LcNIC training
+(``data.store`` -> ``ops.gather``, K1 -> ``models`` in training mode ->
+``train.losses``, ``train.optim``, ``train.steps`` -> ``train.loop.Trainer``
+over the shared ``BatchPipeline``).
 """
 
 from masters_thesis_tpu.version import __version__

@@ -1,5 +1,5 @@
 """Keras-parity building blocks in PyTorch: initialisers, activations,
-BatchNorm constants, and the two small layers every model shares.
+BatchNorm constants, dropout, and the two small layers every model shares.
 
 Counterpart of ``masters_thesis_tpu/models/common.py``. Initialisers take an
 explicit ``torch.Generator`` and return a new CPU tensor; they follow the
@@ -108,6 +108,22 @@ def leaky_relu(x: torch.Tensor,
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+def dropout(x: torch.Tensor, rate: float, generator=None,
+            training: bool = False) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training, keep each element with probability
+    1 - rate and scale kept ones by 1 / (1 - rate); the identity otherwise
+    and at rate 0. The mask is drawn from ``generator`` (on ``x``'s
+    device), so one seed gives one mask on either framework's side only."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def mask_padded_vocab(logits: torch.Tensor, true_vocab: int) -> torch.Tensor:
     """-1e9 on padded vocab slots (no-op when true_vocab covers the axis).
 
@@ -135,9 +151,15 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over the last axis, eval mode only: running
-    statistics ``mean``/``var`` are buffers (flax's ``batch_stats``),
-    ``scale``/``bias`` are parameters, epsilon is Keras' 1e-3."""
+    """flax ``nn.BatchNorm`` over the last axis with Keras' constants:
+    running statistics ``mean``/``var`` are buffers (flax's
+    ``batch_stats``), ``scale``/``bias`` are parameters.
+
+    In training, the statistics are those of the batch over every axis but
+    the last, the variance is the biased one, and the running statistics
+    move in place as ``ra = 0.99 ra + 0.01 batch``, as flax's do.
+    ``torch.nn.BatchNorm*`` would use the unbiased variance for the running
+    update and a momentum of 0.01 in the other sense."""
 
     def __init__(self, features: int, epsilon: float = BN_EPSILON):
         super().__init__()
@@ -147,6 +169,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = self.scale * torch.rsqrt(self.var + self.epsilon)
-        return (x - self.mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if training:
+            axes = tuple(range(x.ndim - 1))
+            var, mean = torch.var_mean(x, dim=axes, correction=0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.mean.mul_(m).add_((1 - m) * mean)
+                self.var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = self.scale * torch.rsqrt(var + self.epsilon)
+        return (x - mean) * mul + self.bias

@@ -1,5 +1,5 @@
 """LocallyDense brain encoder in PyTorch: Glasser-region block-dense
-projection, eval mode.
+projection.
 
 Counterpart of ``masters_thesis_tpu/models/locally_dense.py``. Groups are
 bucketed by padded width (``GroupLayout``, shared with the JAX package), and
@@ -8,10 +8,14 @@ each bucket is one batched contraction:
     xg    = xpad[:, idx_b]                        # (B, G_b, P_b); pad -> zero col
     out_b = LeakyReLU(0.2)(einsum('bgp,gpd->bgd', xg, W_b) + b_b)
     out   = BatchNorm(concat(out_b)[:, unpermute])          # (B, G, D)
+    out   = Dropout(out)                                    # training only
 
 The gather is ``index_select`` and the contraction is ``einsum``: the JAX
-package leaves both to XLA, outside any Pallas kernel. BatchNorm in training
-mode and the pregathered input wait for ROADMAP M2.
+package leaves both to XLA, outside any Pallas kernel. With
+``pregathered=True`` the input is already in the grouped padded layout
+(``GroupLayout.permute_rows``, or ``data.store.permute_rows`` on the device),
+and each bucket is the slice at ``layout.bucket_offsets[b]``: the training
+store is permuted once at upload, so a step skips the voxel gather.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 from masters_thesis_tpu.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
+    dropout,
     leaky_relu,
     truncated_normal,
 )
@@ -40,49 +45,66 @@ def _bucket_kernel_init(sizes: np.ndarray, padded: int, out_dim: int,
 
 
 class LocallyDense(nn.Module):
-    """Bucketed block-dense encoder: (B, n_voxels) -> (B, n_groups, out_dim).
+    """Bucketed block-dense encoder: (B, n_voxels) -> (B, n_groups, out_dim),
+    or (B, >= padded_total) -> (B, n_groups, out_dim) when ``pregathered``.
 
     Parameters ``kernel_{b}`` (G_b, P_b, D) and ``bias_{b}`` (G_b, D) per
-    bucket, then ``input_bn`` over D."""
+    bucket, then ``input_bn`` over D; ``dropout`` (dropout_features) follows
+    BatchNorm in training."""
 
     def __init__(self, layout: GroupLayout, out_dim: int = 32,
-                 pregathered: bool = False, generator=None):
+                 dropout: float = 0.2, pregathered: bool = False,
+                 generator=None):
         super().__init__()
-        if pregathered:
-            raise NotImplementedError(
-                "LocallyDense(pregathered=True) is the training input path; "
-                "it is ported with training (ROADMAP M2)")
         self.layout = layout
         self.out_dim = out_dim
+        self.dropout = dropout
+        self.pregathered = pregathered
         for b, bucket in enumerate(layout.buckets):
             gb, pb = len(bucket.group_ids), bucket.padded
             self.register_parameter(f"kernel_{b}", nn.Parameter(
                 _bucket_kernel_init(bucket.sizes, pb, out_dim, generator)))
             self.register_parameter(
                 f"bias_{b}", nn.Parameter(torch.zeros(gb, out_dim)))
-            # static gather indices ride with .to(device) but stay out of
-            # the state dict, which mirrors the flax tree
-            self.register_buffer(
-                f"indices_{b}",
-                torch.as_tensor(bucket.indices.reshape(-1), dtype=torch.long),
-                persistent=False)
+            if not pregathered:
+                # static gather indices ride with .to(device) but stay out
+                # of the state dict, which mirrors the flax tree
+                self.register_buffer(
+                    f"indices_{b}",
+                    torch.as_tensor(bucket.indices.reshape(-1),
+                                    dtype=torch.long),
+                    persistent=False)
         self.register_buffer(
             "unpermute", torch.as_tensor(layout.unpermute, dtype=torch.long),
             persistent=False)
         self.input_bn = BatchNorm(out_dim)
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        if training:
-            raise NotImplementedError(
-                "LocallyDense runs in eval mode; training-mode BatchNorm "
-                "comes with ROADMAP M2")
+    def _bucket_inputs(self, x: torch.Tensor):
+        """(B, G_b, P_b) input of every bucket."""
+        B = x.shape[0]
+        if self.pregathered:
+            # >= : a wider row's tail past padded_total is never read
+            if x.shape[-1] < self.layout.padded_total:
+                raise ValueError(f"pregathered input must be >= "
+                                 f"{self.layout.padded_total} wide, got "
+                                 f"{x.shape[-1]}")
+            offsets = self.layout.bucket_offsets
+            for b, bucket in enumerate(self.layout.buckets):
+                gb, pb = len(bucket.group_ids), bucket.padded
+                yield x[:, offsets[b]:offsets[b] + gb * pb].view(B, gb, pb)
+            return
         xpad = F.pad(x, (0, 1))       # column n_voxels is the zero pad slot
-        outs = []
         for b, bucket in enumerate(self.layout.buckets):
             gb, pb = len(bucket.group_ids), bucket.padded
             idx = getattr(self, f"indices_{b}")
-            xg = xpad.index_select(1, idx).view(x.shape[0], gb, pb)
+            yield xpad.index_select(1, idx).view(B, gb, pb)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None) -> torch.Tensor:
+        outs = []
+        for b, xg in enumerate(self._bucket_inputs(x)):
             y = torch.einsum("bgp,gpd->bgd", xg, getattr(self, f"kernel_{b}"))
             outs.append(leaky_relu(y + getattr(self, f"bias_{b}")))
         out = torch.cat(outs, dim=1).index_select(1, self.unpermute)
-        return self.input_bn(out)
+        out = self.input_bn(out, training)
+        return dropout(out, self.dropout, generator, training)

@@ -13,8 +13,13 @@ Submodule and parameter names follow the flax tree (``encoder``,
 ``transplant.from_flax`` loads a JAX checkpoint without a key map.
 
 The port covers the LSTM cell, the zero initial carry and a trainable
-embedding, in eval mode. Other cells, carries, embeddings and families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+embedding, in eval mode and in training. The training forward has flax's
+four dropout sites of the decoder, in its order: ``drop_input`` on the
+betas, ``drop_text`` on the embedded tokens, ``drop_lstm`` on each cell
+output (not on the carry) and ``drop_out`` after the head's LeakyReLU; the
+encoder and the attention hold the other two. Masks are drawn from the
+caller's ``torch.Generator``. Other cells, carries, embeddings and families
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from masters_thesis_tpu.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.models.attention import BahdanauAttention
 from masters_thesis_tpu_torch.models.common import (
     Dense,
+    dropout,
     embedding_init,
     glorot_normal,
     leaky_relu,
@@ -48,7 +54,10 @@ class NIC(nn.Module):
                  vocab_size: int = 5001, true_vocab: int = 0,
                  max_length: int = 15, cell_type: str = "lstm",
                  head_dim: int = 256, pretrained_embedding=None,
-                 learned_init_state: bool = False, generator=None):
+                 learned_init_state: bool = False,
+                 dropout_input: float = 0.0, dropout_text: float = 0.2,
+                 dropout_attn: float = 0.2, dropout_lstm: float = 0.2,
+                 dropout_out: float = 0.2, generator=None):
         super().__init__()
         if cell_type != "lstm":
             raise NotImplementedError(
@@ -66,12 +75,16 @@ class NIC(nn.Module):
         self.vocab_size = vocab_size
         self.true_vocab = true_vocab
         self.max_length = max_length
+        self.dropout_input = dropout_input
+        self.dropout_text = dropout_text
+        self.dropout_lstm = dropout_lstm
+        self.dropout_out = dropout_out
         tv = true_vocab or vocab_size
         features_dim = encoder.out_dim
 
         self.encoder = encoder
         self.attention = BahdanauAttention(attn_units, features_dim, units,
-                                           generator)
+                                           dropout_attn, generator)
         self.lstm = KerasLSTMCell(features_dim + embedding_text, units,
                                   generator)
         self.embedding = nn.Parameter(pad_zero_rows(embedding_init, tv)(
@@ -81,33 +94,38 @@ class NIC(nn.Module):
                                pad_zero_cols(glorot_normal, tv), generator)
 
     # ---- pieces ----
-    def encode(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        return self.encoder(x, training=training)            # (B, R, D)
+    def encode(self, x: torch.Tensor, training: bool = False,
+               generator=None) -> torch.Tensor:
+        x = dropout(x, self.dropout_input, generator, training)
+        return self.encoder(x, training, generator)          # (B, R, D)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens, self.embedding)
 
-    def head(self, h: torch.Tensor) -> torch.Tensor:
+    def head(self, h: torch.Tensor, training: bool = False,
+             generator=None) -> torch.Tensor:
         x = leaky_relu(self.dense_inter(h))
+        x = dropout(x, self.dropout_out, generator, training)
         return mask_padded_vocab(self.dense_out(x), self.true_vocab)
 
-    # ---- teacher-forced forward (lc_NIC.call_attention), eval mode ----
-    def forward(self, inputs, tokens, a0, c0, training: bool = False):
-        """Returns (logits (B, T, V), attn (B, T, R))."""
-        if training:
-            raise NotImplementedError(
-                "the training forward (dropout, BatchNorm updates) is "
-                "ported with training (ROADMAP M5)")
-        features = self.encode(inputs)
+    # ---- teacher-forced forward (lc_NIC.call_attention) ----
+    def forward(self, inputs, tokens, a0, c0, training: bool = False,
+                generator=None):
+        """Returns (logits (B, T, V), attn (B, T, R)). ``training`` turns on
+        dropout, with masks from ``generator``, and BatchNorm's batch
+        statistics, whose running averages move in place."""
+        features = self.encode(inputs, training, generator)
         emb = self.embed(tokens)                              # (B, T, E)
+        emb = dropout(emb, self.dropout_text, generator, training)
         h, c = a0.float(), c0.float()
         hseq, alphas = [], []
         for t in range(tokens.shape[1]):
-            context, alpha = self.attention(h, features)
+            context, alpha = self.attention(h, features, training, generator)
             (h, c), out = self.lstm((h, c), torch.cat([context, emb[:, t]], -1))
-            hseq.append(out)
+            hseq.append(dropout(out, self.dropout_lstm, generator, training))
             alphas.append(alpha[..., 0])
-        logits = self.head(torch.stack(hseq, dim=1))         # (B, T, V)
+        logits = self.head(torch.stack(hseq, dim=1), training,
+                           generator)                         # (B, T, V)
         return logits, torch.stack(alphas, dim=1)
 
     # ---- single decode step (shared by the greedy decoders) ----
@@ -130,18 +148,31 @@ class NIC(nn.Module):
 def LcNIC(layout: GroupLayout, units: int = 512, group_size: int = 32,
           embedding_text: int = 512, attn_units: int = 32,
           vocab_size: int = 5001, max_length: int = 15,
+          dropout_input: float = 0.0, dropout_features: float = 0.2,
+          dropout_text: float = 0.2, dropout_attn: float = 0.2,
+          dropout_lstm: float = 0.2, dropout_out: float = 0.2,
           pregathered: bool = False, generator=None, **kw) -> NIC:
     """Flagship brain decoder (lc_NIC.py configuration), initialised on the
     CPU from ``generator``; move it with ``.to(device)``. Extra kwargs pass
-    through to ``NIC``."""
+    through to ``NIC``.
+
+    ``pregathered=True`` takes inputs already in the grouped padded layout
+    (the training store, permuted once at upload). Same parameters either
+    way."""
     return NIC(
         encoder=LocallyDense(layout, out_dim=group_size,
+                             dropout=dropout_features,
                              pregathered=pregathered, generator=generator),
         units=units,
         embedding_text=embedding_text,
         attn_units=attn_units,
         vocab_size=vocab_size,
         max_length=max_length,
+        dropout_input=dropout_input,
+        dropout_text=dropout_text,
+        dropout_attn=dropout_attn,
+        dropout_lstm=dropout_lstm,
+        dropout_out=dropout_out,
         generator=generator,
         **kw,
     )

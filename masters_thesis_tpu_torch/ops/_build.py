@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, loaded with ``ctypes``. The library lands in
+Each source compiles with its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the repo root, named by a hash of the sources and
 flags, so an edit rebuilds and an unchanged tree reuses the build. Nothing
 here runs at import time: the CPU tests import every module of the port on
@@ -24,12 +25,14 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# mtt_fused_greedy_decode: 23 pointers, 9 sizes, the device and the stream
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# mtt_fused_greedy_decode: 23 pointers, 9 sizes, the device and the stream;
+# mtt_gather_rows: store, ids, out, 4 byte sizes, rows, id width, device, stream
 _SIGNATURES = {
     "mtt_fused_greedy_decode": ([_P] * 23 + [_I] * 9 + [_I, _P], ctypes.c_int),
+    "mtt_gather_rows": ([_P] * 3 + [_L] * 4 + [_I] * 3 + [_P], ctypes.c_int),
     "mtt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -74,25 +77,33 @@ def load_library() -> ctypes.CDLL:
 
 def build(out: Path) -> float:
     """Compile every ``csrc/*.cu`` into ``out``; returns the seconds taken.
-    The compiler's report (registers, spills) goes to ``out`` + ``.log``."""
+    One ``nvcc`` a source, all running at once, then one link. The
+    compilers' reports (registers, spills) go to ``out`` + ``.log``."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in _sources() if s.suffix == ".cu"]
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent build never
+    # compile to private names, then rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src),
+                                   "-o", obj], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(cu, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+                    f"{log}")
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.run([_nvcc(), "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
+                               f"\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, out)
     return time.perf_counter() - t0
 
 

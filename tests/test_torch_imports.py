@@ -1,8 +1,8 @@
 """The port imports on a machine without JAX: in a fresh interpreter with
 jax, jaxlib, flax, optax, orbax and yaml blocked by a meta-path finder, the
-package, its serving modules and the reference modules that
-``chip_smoke.py`` shares import, and importing them neither loads triton nor
-builds a kernel."""
+package, its serving and training modules and the reference modules that
+they and ``chip_smoke.py`` share import, and importing them neither loads
+triton nor builds a kernel."""
 
 import os
 import subprocess
@@ -20,12 +20,22 @@ MODULES = [
     "masters_thesis_tpu_torch.ops",
     "masters_thesis_tpu_torch.ops._build",
     "masters_thesis_tpu_torch.ops.fused_decode",
+    "masters_thesis_tpu_torch.ops.gather",
     "masters_thesis_tpu_torch.decode.greedy",
     "masters_thesis_tpu_torch.transplant",
     "masters_thesis_tpu_torch.serve",
-    # shared from the reference by chip_smoke.py
+    "masters_thesis_tpu_torch.config",
+    "masters_thesis_tpu_torch.data.store",
+    "masters_thesis_tpu_torch.train.losses",
+    "masters_thesis_tpu_torch.train.optim",
+    "masters_thesis_tpu_torch.train.state",
+    "masters_thesis_tpu_torch.train.steps",
+    "masters_thesis_tpu_torch.train.loop",
+    # shared from the reference by the training path and chip_smoke.py
     "masters_thesis_tpu.server",
     "masters_thesis_tpu.data.pairs",
+    "masters_thesis_tpu.data.pipeline",
+    "masters_thesis_tpu.data.splits",
     "masters_thesis_tpu.data.synthetic",
     "masters_thesis_tpu.data.tokenizer",
 ]
@@ -77,12 +87,14 @@ def test_import_loads_no_triton_and_builds_nothing(imported):
 
 
 def test_port_shares_only_framework_free_modules_of_the_reference(imported):
-    """What the port takes from the JAX package: the six modules named as
-    framework-free, and the package plumbing they pull in."""
+    """What the port takes from the JAX package: the modules named as
+    framework-free (ROADMAP's list, with the training slice's pipeline,
+    pairs and splits), and the package plumbing they pull in."""
     shared = {m for m in imported["loaded"]
               if m.startswith("masters_thesis_tpu.")}
     for needed in ("ops.group_layout", "data.tokenizer", "data.synthetic",
-                   "evalsuite.tokens", "serve", "server"):
+                   "evalsuite.tokens", "serve", "server", "data.pipeline",
+                   "data.pairs", "data.splits"):
         assert f"masters_thesis_tpu.{needed}" in shared
     for never in ("config", "experiment", "models", "decode", "train",
                   "ops.fused_decode", "ops.gather"):

@@ -1,7 +1,8 @@
-"""The whole-decode CUDA kernel (K2) against its plain PyTorch version on the
-card, at a small shape and at flagship LcNIC width, and through the greedy
-decoders. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA
-Hopper GPU and skips without one.
+"""The port's CUDA kernels against their plain PyTorch versions on the card:
+the whole-decode kernel (K2) at a small shape and at flagship LcNIC width
+and through the greedy decoders; the store row gather (K1) at small and
+flagship widths and through three train steps. A CUDA kernel has no CPU
+mode, so every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -122,3 +123,117 @@ def test_kernel_refuses_attention_wider_than_a_block(cuda):
     with pytest.raises(RuntimeError, match="must be <= 256"):
         fused_decode.fused_greedy_decode(*args, max_length=2)
     assert fused_decode.fused_greedy_decode.launches == before
+
+
+# ---- K1: the store row gather ----
+
+GATHER_SHAPES = {
+    # (store rows, row width, copied width): odd widths force narrow vectors
+    "small": (37, 333, 333),
+    "small-cut": (37, 333, 201),
+    "flagship-raw": (40, 327_684, 327_684),
+    "flagship-pregathered": (40, 472_576, 472_576),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(GATHER_SHAPES))
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_gather_kernel_matches_plain_version(cuda, shape, dtype, id_dtype):
+    """Repeated ids, odd rows (a bf16 raw row is not a multiple of 16 B)
+    and ids past both ends (clamped): equal to the plain version."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_reference,
+    )
+
+    n, w, width = GATHER_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    store = torch.randn(n, w, generator=gen, device=cuda).to(dtype)
+    ids = torch.tensor([1, 3, 3, 0, n - 1, -5, n + 9, 7, 5, 5, 2 * n],
+                       dtype=id_dtype, device=cuda)
+    before = gather_rows.launches
+    got = gather_rows(store, ids, width)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert got.shape == (len(ids), width) and got.is_contiguous()
+    assert torch.equal(got, gather_rows_reference(store, ids, width))
+
+
+def test_gather_kernel_reads_a_strided_store_and_refuses_bad_input(cuda):
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_reference,
+    )
+
+    base = torch.randn(9, 130, device=cuda)
+    store = base[1:, 3:100]              # row pitch 130, odd base offset
+    ids = torch.tensor([7, 0, 3, 3], device=cuda)
+    assert torch.equal(gather_rows(store, ids),
+                       gather_rows_reference(store, ids))
+    before = gather_rows.launches
+    with pytest.raises(ValueError, match="store"):
+        gather_rows(torch.zeros(2, 3, 4, device=cuda), ids)
+    with pytest.raises(ValueError, match="idx"):
+        gather_rows(base, ids.float())
+    with pytest.raises(ValueError, match="width"):
+        gather_rows(base, ids, 131)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_rows(base, ids.cpu())
+    assert gather_rows.launches == before
+
+
+def test_scanned_steps_through_the_kernel_follow_the_plain_gather(cuda):
+    """Three dropout-off steps gathering their batches by K1 against the
+    same steps fed by the plain gather: within 1e-6 relative (the backward
+    of the embedding may sum in another order on the card)."""
+    import numpy as np
+
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.data.store import permute_rows
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_reference,
+    )
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+    from masters_thesis_tpu_torch.train.state import init_model
+
+    cfg = Config(batch_size=6, max_length=6, top_k=39, units=16,
+                 attn_units=8, group_size=4, embedding_text=8, alpha=1e-3,
+                 dropout_features=0.0, dropout_text=0.0, dropout_attn=0.0,
+                 dropout_lstm=0.0, dropout_out=0.0)
+    layout = GroupLayout(synthetic_groups(500, 8, seed=0), 500)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    store = permute_rows(torch.randn(20, 500, generator=gen, device=cuda),
+                         layout)
+    rng = np.random.default_rng(0)
+    store_idx = torch.as_tensor(rng.integers(0, 20, 30), dtype=torch.int32,
+                                device=cuda)
+    tokens = torch.as_tensor(rng.integers(1, 40, (30, 6)), device=cuda)
+    target = torch.roll(tokens, -1, 1)
+    sel = torch.as_tensor(np.stack([rng.permutation(30)[:6]
+                                    for _ in range(3)]), device=cuda)
+    rules = lc_nic_l2_rules(cfg)
+    a = init_model(cfg, layout, cuda, pregathered=True)
+    b = init_model(cfg, layout, cuda, pregathered=True)
+    before = gather_rows.launches
+    a, ma = steps.make_scanned_train_steps_from_tables(cfg, rules)(
+        a, store, store_idx, tokens, target, sel)
+    assert gather_rows.launches == before + 3
+    one = steps.make_train_step(cfg, rules)
+    mb = []
+    for p in sel:
+        b, m = one(b, gather_rows_reference(store, store_idx[p]), tokens[p],
+                   target[p])
+        mb.append(m)
+    for key in ma:
+        want = torch.stack([m[key] for m in mb])
+        assert torch.allclose(ma[key], want, rtol=1e-6, atol=0), key
+    with torch.no_grad():
+        diff = torch.stack([torch.linalg.vector_norm(pa - pb) for pa, pb in
+                            zip(a.model.parameters(), b.model.parameters())])
+        norm = torch.stack([torch.linalg.vector_norm(p)
+                            for p in b.model.parameters()])
+    assert torch.linalg.vector_norm(diff) <= 1e-6 * torch.linalg.vector_norm(
+        norm)

@@ -157,18 +157,9 @@ def test_teacher_forced_forward_matches_flax():
     (dict(cell_type="gru"), "M11"),
     (dict(learned_init_state=True), "M11"),
     (dict(pretrained_embedding=np.zeros((VOCAB, EMB), np.float32)), "M11"),
-    (dict(pregathered=True), "M2"),
 ])
 def test_unported_variants_name_their_roadmap_item(kw, item):
     layout = GroupLayout(synthetic_groups(64, 4), 64)
     with pytest.raises(NotImplementedError, match=item):
         LcNIC(layout, units=UNITS, group_size=GSIZE, embedding_text=EMB,
               attn_units=ATTN, vocab_size=VOCAB, **kw)
-
-
-def test_training_mode_is_not_ported_yet():
-    _, _, tmodel, betas, tokens = _pair()
-    a0 = torch.zeros(len(betas), UNITS)
-    with pytest.raises(NotImplementedError, match="M5"):
-        tmodel(torch.from_numpy(betas), torch.from_numpy(tokens).long(), a0,
-               a0, training=True)
