@@ -5,14 +5,19 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives both paths at flagship LcNIC
-width:
+``nvcc`` a source, in parallel), then drives three paths, each at the full
+width of its model:
 
-- serving: holds the whole-decode kernel (K2) against its plain PyTorch
-  version, serves three HTTP caption requests through the port's
-  ``Captioner`` and the shared caption server, and times the kernel, the
-  plain version, the unfused greedy decoder and captions per second;
-- training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
+- LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
+  PyTorch version, serves three HTTP caption requests through the port's
+  ``Captioner`` and caption server, and times the kernel, the plain
+  version, the unfused greedy decoder and captions per second;
+- CnnRnn serving (GRU, on (64, 2048) InceptionV3 patch rows): holds the GRU
+  whole-decode kernel (K3) against its plain version for both values of
+  ``gru_zero_state``, serves 256 host rows through ``Captioner`` and one
+  ``.npy`` request through the server, and times K3, its plain version and
+  captions per second;
+- LcNIC training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
   on the card, holds the store row gather (K1) against its plain version and
   a 3-step dropout-off trajectory through K1 against the same steps through
   the plain gather, trains one epoch of 140 scanned steps with the scanned
@@ -27,11 +32,16 @@ device time by kernel for one served batch and for the scanned train steps.
 The weights are random, made from a seed, and spread by
 ``ops.fused_decode.spread_for_check`` so that every bias and BatchNorm
 statistic is live and the greedy words vary; the run fails if they do not.
-The flagship layout is the synthetic 360-group one of ``bench.py``. The last line is the JSON object
-``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launches on its path (K2 while serving, K1 while training), its error
-against the plain version and both times. Any failed phase raises, and the script then exits non-zero without
-those lines. It needs CUDA and the rest of the repository beside it.
+The flagship layout is the synthetic 360-group one of ``bench.py``. The last
+line is the JSON object ``{"ok": true, "device": {...}}``; the line before
+it lists each kernel with its launches on its path (K2 while serving LcNIC,
+K3 while serving CnnRnn, K1 while training), its error against the plain
+version, both times, the least time the card could take for the same work
+(``bound_ms``, from the bytes and operations of this run's inputs) and,
+where one PyTorch call computes the same function, that call's time. Any
+failed phase raises, and the script then exits non-zero without those
+lines. It needs CUDA and the rest of the repository beside it; it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +71,13 @@ MIN_NONEMPTY_SHARE = 0.9    # of the served captions
 REQUEST_ROWS = (1, 5, 64)   # .npy, JSON, .npy
 THROUGHPUT_ROWS = 4 * BATCH
 WINDOWS, WINDOW_S = 5, 2.0  # captions/s: repeated timing windows
+# CnnRnn (configs/cnn_rnn.yaml, experiment.py:408-413): InceptionV3 patches
+CNN_RNN_WIDTHS = dict(embed_dim=256, units=512, vocab_size=5001,
+                      max_length=15, n_patches=64, in_channels=2048)
+CNN_RNN_REQUEST_ROWS = 5    # one .npy request through the server
+# the card's peaks (H100 SXM datasheet: dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 # training: configs/flagship_synth.yaml's 2,571 keys give 8,995 train pairs,
 # 140 steps of 64, and 1,925 val pairs, 30 batches
 TRAIN_KEYS = 2571
@@ -92,6 +109,36 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that must move
+    ``nbytes`` and do ``flops`` fp32 operations: the larger of the two
+    times at the card's peaks, and which of them it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def decode_bound(cell: str, inputs, opts: dict, T: int, vocab: int) -> dict:
+    """``bound`` of one whole greedy decode on ``inputs`` (the kernel's
+    arguments): each input read once (the head's and the embedding's true
+    vocab only; no Wh under zero state, whose cell never reads it), words
+    and alphas written once, and per row and step the fp32 multiply-adds of
+    the attention (h W2, the scores, the context), the cell and the head."""
+    from masters_thesis_tpu_torch.ops.fused_decode import DECODE_ARGS
+
+    a = dict(zip(DECODE_ARGS[cell], inputs))
+    B, R, A = a["pre"].shape
+    D, (U, H) = a["features"].shape[2], a["wi"].shape
+    skip = {"wo", "bo"} | ({"wh"} if opts.get("zero_state") else set())
+    read = sum(t.numel() for n, t in a.items() if n not in skip)
+    read += H * vocab + vocab
+    written = B * T * (1 + R)
+    cell_fma = a["wx"].numel() + (0 if "wh" in skip else a["wh"].numel())
+    fma = B * T * (U * A + R * A + R * D + cell_fma + U * H + H * vocab)
+    return bound(4 * (read + written), 2 * fma)
+
+
 def build_kernels() -> None:
     from masters_thesis_tpu_torch.ops import _build
 
@@ -105,10 +152,10 @@ def build_kernels() -> None:
 
 
 def flagship_model(device):
-    from masters_thesis_tpu.data.synthetic import synthetic_groups
-    from masters_thesis_tpu.ops.group_layout import GroupLayout
+    from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
     from masters_thesis_tpu_torch.models.nic import LcNIC
     from masters_thesis_tpu_torch.ops.fused_decode import spread_for_check
+    from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
     layout = GroupLayout(synthetic_groups(N_VOXELS, N_GROUPS, seed=SEED),
                          N_VOXELS)
@@ -119,22 +166,30 @@ def flagship_model(device):
 
 
 @torch.inference_mode()
-def check_kernel(model, betas, card: str) -> dict:
-    """K2 against its plain version on the same inputs, on the card."""
+def check_kernel(model, rows, card: str, label: str,
+                 timed: bool = True) -> dict:
+    """The model's decode kernel (K2 or K3) against its plain version on the
+    same inputs, on the card, and both against the plain version in
+    float64; with ``timed``, then both timed, and the
+    fused decoder with the encoder against the unfused one. Returns the
+    kernel's entry of the kernels line, less its launches."""
+    from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
-    T = model.max_length
-    inputs = fd.decode_inputs(model, betas, 1)
-    words, alphas = fd.fused_greedy_decode(*inputs, max_length=T)
+    T, V = model.max_length, model.vocab_size
+    kernel, reference = fd.decode_kernel(model)
+    opts = fd.decode_options(model)
+    inputs = fd.decode_inputs(model, rows, 1)
+    words, alphas = kernel(*inputs, max_length=T, **opts)
     torch.cuda.synchronize()
-    ref_words, ref_alphas, margins = fd.fused_greedy_decode_reference(
-        *inputs, max_length=T, return_margins=True)
-    B, R = len(betas), inputs[0].shape[1]
+    ref_words, ref_alphas, margins = reference(
+        *inputs, max_length=T, return_margins=True, **opts)
+    B, R = len(rows), inputs[0].shape[1]
     if words.shape != (B, T) or alphas.shape != (B, T, R):
         raise RuntimeError(f"kernel output shapes {tuple(words.shape)}, "
                            f"{tuple(alphas.shape)}; expected {(B, T)}, "
                            f"{(B, T, R)}")
-    if not (0 <= int(words.min()) and int(words.max()) < WIDTHS["vocab_size"]):
+    if not (0 <= int(words.min()) and int(words.max()) < V):
         raise RuntimeError("kernel produced an id outside the vocabulary")
     sums = alphas.sum(-1)
     if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
@@ -143,7 +198,7 @@ def check_kernel(model, betas, card: str) -> dict:
         words, alphas, ref_words, ref_alphas, margins,
         alpha_atol=ALPHA_ATOL, tie_margin=TIE_MARGIN)
     distinct = len(torch.unique(ref_words))
-    print(f"K2 vs plain at B={B} R={R} T={T} V={WIDTHS['vocab_size']}: "
+    print(f"{label} vs plain at B={B} R={R} T={T} V={V}: "
           f"max |alpha err| {report['max_abs_err']:.3e} (limit {ALPHA_ATOL}), "
           f"rows identical {B - report['near_tie_rows']}/{B}, near-tie rows "
           f"{report['near_tie_rows']} (margin < {TIE_MARGIN}), distinct "
@@ -153,25 +208,50 @@ def check_kernel(model, betas, card: str) -> dict:
     if report["bad_rows"]:
         raise RuntimeError(f"kernel disagrees with its plain version on rows "
                            f"{report['bad_rows']}: {report}")
+    # a second witness: the kernel and the plain version each against the
+    # plain version in float64, so that the limit is seen to sit above the
+    # fp32 rounding of both and not only above their difference
+    wide = [t.double() if t.is_floating_point() else t for t in inputs]
+    words64, alphas64, margins64 = reference(
+        *wide, max_length=T, return_margins=True, **opts)
+    vs64 = {who: fd.compare_with_reference(
+        w, a.double(), words64, alphas64, margins64,
+        alpha_atol=ALPHA_ATOL, tie_margin=TIE_MARGIN)
+        for who, w, a in (("kernel", words, alphas),
+                          ("plain", ref_words, ref_alphas))}
+    print(f"{label} and its plain version vs the plain version in float64: "
+          f"max |alpha err| {vs64['kernel']['max_abs_err']:.3e} and "
+          f"{vs64['plain']['max_abs_err']:.3e} (limit {ALPHA_ATOL}), "
+          f"near-tie rows {vs64['kernel']['near_tie_rows']} and "
+          f"{vs64['plain']['near_tie_rows']} [{card}]")
+    for who, rep in vs64.items():
+        if rep["bad_rows"]:
+            raise RuntimeError(f"the {who} decode disagrees with the float64 "
+                               f"plain version on rows {rep['bad_rows']}: "
+                               f"{rep}")
     if distinct < MIN_DISTINCT_WORDS:
         raise RuntimeError(f"the check's greedy words are degenerate: "
                            f"{distinct} distinct < {MIN_DISTINCT_WORDS}")
+    entry = {"max_abs_err": report["max_abs_err"]}
+    if not timed:
+        return entry
 
-    ms = cuda_ms(lambda: fd.fused_greedy_decode(*inputs, max_length=T))
-    plain_ms = cuda_ms(lambda: fd.fused_greedy_decode_reference(
-        *inputs, max_length=T))
+    ms = cuda_ms(lambda: kernel(*inputs, max_length=T, **opts))
+    plain_ms = cuda_ms(lambda: reference(*inputs, max_length=T, **opts))
     fused = fd.make_whole_fused_greedy_decoder(model, T)
-    from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
-
     unfused = make_greedy_decoder(model, T)
-    fused_e2e = cuda_ms(lambda: fused(betas, 1))
-    unfused_e2e = cuda_ms(lambda: unfused(betas, 1))
-    print(f"decode loop at B={B}, T={T}: K2 kernel {ms:.4f} ms, plain version "
-          f"{plain_ms:.4f} ms [{card}]")
-    print(f"greedy decode with encoder at B={B}: fused (K2) {fused_e2e:.4f} ms,"
-          f" unfused decode/greedy.py {unfused_e2e:.4f} ms [{card}]")
-    return {"max_abs_err": report["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms}
+    fused_e2e = cuda_ms(lambda: fused(rows, 1))
+    unfused_e2e = cuda_ms(lambda: unfused(rows, 1))
+    cell = model.cell_type
+    work = decode_bound(cell, inputs, opts, T, V)
+    print(f"decode loop at B={B}, T={T}: {label} kernel {ms:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms, bound {work['bound_ms']:.4f} ms (by "
+          f"{work['bound_by']}) [{card}]")
+    print(f"greedy decode with encoder at B={B}: fused ({label}) "
+          f"{fused_e2e:.4f} ms, unfused decode/greedy.py {unfused_e2e:.4f} ms "
+          f"[{card}]")
+    return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
+            "library_ms": None}
 
 
 def _post(url: str, body: bytes, content_type: str) -> dict:
@@ -189,10 +269,12 @@ def _npy(rows: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def serve(captioner, rows: np.ndarray, card: str) -> list[str]:
-    """Three POST /caption requests through the shared HTTP server; returns
-    the captions, one per row, in row order."""
-    from masters_thesis_tpu.server import make_caption_server
+def serve(captioner, rows: np.ndarray, card: str,
+          request_rows=REQUEST_ROWS) -> list[str]:
+    """POST /caption requests of ``request_rows`` rows each (the second as
+    JSON, the others as .npy) through the port's HTTP server; returns the
+    captions, one per row, in row order."""
+    from masters_thesis_tpu_torch.server import make_caption_server
 
     server = make_caption_server(captioner, port=0)
     host, port = server.server_address[:2]
@@ -200,9 +282,9 @@ def serve(captioner, rows: np.ndarray, card: str) -> list[str]:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        bounds = np.cumsum((0,) + REQUEST_ROWS)
+        bounds = np.cumsum((0,) + tuple(request_rows))
         answers = []
-        for i, n in enumerate(REQUEST_ROWS):
+        for i, n in enumerate(request_rows):
             part = rows[bounds[i]:bounds[i + 1]]
             t0 = time.perf_counter()
             if i == 1:
@@ -223,8 +305,8 @@ def serve(captioner, rows: np.ndarray, card: str) -> list[str]:
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as resp:
             stats = json.loads(resp.read().decode())
         print(f"GET /stats: {stats}")
-        if (stats["requests"] != len(REQUEST_ROWS)
-                or stats["rows"] != sum(REQUEST_ROWS)):
+        if (stats["requests"] != len(request_rows)
+                or stats["rows"] != sum(request_rows)):
             raise RuntimeError(f"/stats does not count the requests: {stats}")
     finally:
         server.shutdown()
@@ -234,7 +316,8 @@ def serve(captioner, rows: np.ndarray, card: str) -> list[str]:
     return answers
 
 
-def throughput(captioner, rows: np.ndarray, card: str) -> float:
+def throughput(captioner, rows: np.ndarray, card: str,
+               label: str = "") -> float:
     """Captions/s over ``WINDOWS`` windows of at least ``WINDOW_S`` s of
     ``caption`` calls; prints the median and the spread across windows."""
     captioner.caption(rows[:BATCH])                      # warm
@@ -246,7 +329,7 @@ def throughput(captioner, rows: np.ndarray, card: str) -> float:
             n += len(rows)
         rates.append(n / seconds)
     median = float(np.median(rates))
-    print(f"greedy captions/s through Captioner (batch {BATCH}, "
+    print(f"{label}greedy captions/s through Captioner (batch {BATCH}, "
           f"{len(rows)} host rows a call, fp32): median {median:.1f} over "
           f"{WINDOWS} windows of >= {WINDOW_S} s, min {min(rates):.1f}, max "
           f"{max(rates):.1f}, spread {(max(rates) - min(rates)) / median:.1%}"
@@ -257,8 +340,8 @@ def throughput(captioner, rows: np.ndarray, card: str) -> float:
 # kernel name fragments -> the part of the work a kernel does, first match
 KERNEL_GROUPS = (
     ("K1 gather_rows", ("gather_rows_kernel",)),
-    ("K2 decode chain", ("attention_kernel", "rows_kernel",
-                         "argmax_embed_kernel")),
+    ("K2/K3 decode chain", ("attention_kernel", "rows_kernel",
+                            "argmax_embed_kernel")),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "splitkreduce")),
     ("index, gather, scatter, embedding", ("index", "gather", "scatter",
                                            "embedding")),
@@ -309,34 +392,97 @@ def device_time(fn, what: str, per: int = 1, unit: str = "call",
     return busy / per
 
 
+# ---- CnnRnn serving ----
+
+def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
+    """The CnnRnn serving phase; returns K3's entry of the kernels line."""
+    from masters_thesis_tpu_torch.models.nic import CnnRnnNIC
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = CnnRnnNIC(generator=gen, **CNN_RNN_WIDTHS)
+    fd.spread_for_check(model, gen)
+    model = model.to(device).eval()
+    row_shape = model.encoder.row_shape
+    mb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
+    print(f"CnnRnn (GRU) on {row_shape} patch rows: embed "
+          f"{CNN_RNN_WIDTHS['embed_dim']}, units {model.units}, attention "
+          f"{model.attention.W1.kernel.shape[1]}, vocab {model.vocab_size}, "
+          f"zero-state GRU {model.gru_zero_state}; {mb:.1f} MB fp32")
+
+    dev_gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = torch.randn(BATCH, *row_shape, generator=dev_gen, device=device)
+    # the family's default (zero state) last, so that it is the one timed
+    model.gru_zero_state = False
+    errs = [check_kernel(model, rows, card, "K3 (carried GRU state)",
+                         timed=False)["max_abs_err"]]
+    model.gru_zero_state = True
+    k3 = check_kernel(model, rows, card, "K3 (zero-state GRU)")
+    k3["max_abs_err"] = max(errs + [k3["max_abs_err"]])
+
+    captioner = Captioner(model, tok, model.units, model.max_length,
+                          batch_size=BATCH, device=device)
+    host = np.random.default_rng(SEED).standard_normal(
+        (THROUGHPUT_ROWS, *row_shape), dtype=np.float32)
+    fd.fused_greedy_decode_gru.launches = 0
+    captions = captioner.caption(host)
+    served = serve(captioner, host, card, request_rows=(CNN_RNN_REQUEST_ROWS,))
+    launches = fd.fused_greedy_decode_gru.launches
+    print(f"K3 launches while serving {len(host)} rows through Captioner and "
+          f"{CNN_RNN_REQUEST_ROWS} through the server: {launches}")
+    if launches < 1:
+        raise RuntimeError("CnnRnn serving never launched the GRU kernel")
+    if len(captions) != len(host) or not all(
+            isinstance(c, str) for c in captions):
+        raise RuntimeError("Captioner.caption did not return one caption a "
+                           "row")
+    if served != captions[:len(served)]:
+        raise RuntimeError("served CnnRnn captions differ from "
+                           "Captioner.caption on the same rows")
+    nonempty = sum(map(bool, captions)) / len(captions)
+    print(f"served captions equal Captioner.caption on the same rows; "
+          f"{nonempty:.1%} of {len(captions)} non-empty (floor "
+          f"{MIN_NONEMPTY_SHARE:.0%}), {len(set(captions))} distinct, e.g. "
+          f"{captions[0]!r}")
+    if nonempty < MIN_NONEMPTY_SHARE:
+        raise RuntimeError(f"only {nonempty:.1%} of the CnnRnn captions are "
+                           f"non-empty")
+    throughput(captioner, host, card, label="CnnRnn ")
+    if with_profile:
+        device_time(lambda: captioner.caption(host[:BATCH]),
+                    "one served CnnRnn batch", table=True)
+    return {"launches": launches, **k3}
+
+
 # ---- training ----
 
 def flagship_train_data(device, cfg):
     """The flagship store on the card, pregathered, in ``cfg.tpu.store_dtype``,
     and the shared pipes.
 
-    The pairs and the tokenizer come from the shared ``synthetic_dataset``
-    at a small voxel width; the store's rows are drawn on the card from a
-    seeded generator and permuted there with ``GroupLayout.permute_rows``'s
+    The pairs and the tokenizer come from ``synthetic_dataset`` at a small
+    voxel width; the store's rows are drawn on the card from a seeded
+    generator and permuted there with ``GroupLayout.permute_rows``'s
     indices. A host draw of 2,571 x 327,684 doubles, and its copy to the
     card, would cost more than the rest of the phase."""
-    from masters_thesis_tpu.data.pairs import encode_pairs
-    from masters_thesis_tpu.data.pipeline import BatchPipeline
-    from masters_thesis_tpu.data.synthetic import (
+    from masters_thesis_tpu_torch.data.pairs import encode_pairs
+    from masters_thesis_tpu_torch.data.pipeline import BatchPipeline
+    from masters_thesis_tpu_torch.data.store import ArrayStore, permute_rows
+    from masters_thesis_tpu_torch.data.synthetic import (
         synthetic_dataset,
         synthetic_groups,
     )
-    from masters_thesis_tpu.ops.group_layout import GroupLayout
-    from masters_thesis_tpu_torch.data.store import ArrayStore, permute_rows
+    from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
     layout = GroupLayout(synthetic_groups(N_VOXELS, N_GROUPS, seed=SEED),
                          N_VOXELS)
-    _, pairs, tok, small, _ = synthetic_dataset(
+    _, pairs, tok, _, keys, _ = synthetic_dataset(
         n_keys=TRAIN_KEYS, n_voxels=8, n_groups=2,
         top_k=WIDTHS["vocab_size"] - 1, seed=SEED)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    raw = torch.randn(len(small), N_VOXELS, generator=gen, device=device)
-    store = ArrayStore(permute_rows(raw, layout), small.keys,
+    raw = torch.randn(len(keys), N_VOXELS, generator=gen, device=device)
+    store = ArrayStore(permute_rows(raw, layout), keys, device=device,
                        dtype=cfg.tpu.store_dtype)
     del raw
     T = WIDTHS["max_length"]
@@ -362,7 +508,8 @@ def train_config(**kw):
 
 def check_gather(store, card: str) -> dict:
     """K1 against its plain version on 64 rows of the real store, with
-    repeated ids and ids out of range, then both timed."""
+    repeated ids and ids out of range, then both timed, and one
+    ``index_select`` on the same ids as the library's yardstick."""
     from masters_thesis_tpu_torch.ops.gather import (
         gather_rows,
         gather_rows_reference,
@@ -388,15 +535,22 @@ def check_gather(store, card: str) -> dict:
     ms = cuda_ms(lambda: gather_rows(data, ids), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: gather_rows_reference(data, ids), reps=50,
                        warmup=5)
+    ids_long = ids.long()
+    library_ms = cuda_ms(lambda: data.index_select(0, ids_long), reps=50,
+                         warmup=5)
     moved = 2 * BATCH * data.shape[1] * data.element_size()
+    work = bound(moved + ids.numel() * ids.element_size(), 0)
     print(f"K1 vs plain on {BATCH} rows of the {n} x {data.shape[1]} "
           f"{str(data.dtype)[6:]} store (repeated ids, ids -3, {n}, "
           f"{n + 1000}): identical [{card}]")
     print(f"K1 {ms * 1e3:.2f} us ({moved / ms / 1e6:.1f} GB/s read+write), "
-          f"plain index_select {plain_ms * 1e3:.2f} us "
-          f"({moved / plain_ms / 1e6:.1f} GB/s), batch of {BATCH} rows, "
+          f"plain clamp + index_select {plain_ms * 1e3:.2f} us "
+          f"({moved / plain_ms / 1e6:.1f} GB/s), index_select alone "
+          f"{library_ms * 1e3:.2f} us, bound {work['bound_ms'] * 1e3:.2f} us "
+          f"(by {work['bound_by']}), batch of {BATCH} rows, "
           f"{moved / 2e6:.1f} MB [{card}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
+            "library_ms": library_ms}
 
 
 def check_trajectory(layout, store, pipe, device, card: str) -> None:
@@ -551,9 +705,9 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 1
-    from masters_thesis_tpu.data.pairs import clean_caption
-    from masters_thesis_tpu.data.synthetic import synthetic_captions
-    from masters_thesis_tpu.data.tokenizer import Tokenizer
+    from masters_thesis_tpu_torch.data.pairs import clean_caption
+    from masters_thesis_tpu_torch.data.synthetic import synthetic_captions
+    from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
     from masters_thesis_tpu_torch.ops import fused_decode as fd
     from masters_thesis_tpu_torch.serve import Captioner
 
@@ -576,7 +730,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
-    k2 = check_kernel(model, betas, card)
+    k2 = check_kernel(model, betas, card, "K2")
 
     # synthetic captions plus a made-up lexicon, so every id of the
     # vocabulary names a word and the served captions are not empty
@@ -587,7 +741,7 @@ def main(argv=None) -> int:
                      + [" ".join(f"w{i}" for i in range(WIDTHS["vocab_size"]))])
     tok.install_pad()
     captioner = Captioner(model, tok, WIDTHS["units"], WIDTHS["max_length"],
-                          batch_size=BATCH)
+                          batch_size=BATCH, device=device)
     rows = np.random.default_rng(SEED).standard_normal(
         (THROUGHPUT_ROWS, N_VOXELS), dtype=np.float32)
 
@@ -615,12 +769,18 @@ def main(argv=None) -> int:
     del model, captioner, rows, betas
     torch.cuda.empty_cache()
 
+    k3 = cnn_rnn(device, tok, card, args.profile)
+    torch.cuda.empty_cache()
+
     k1 = train(device, card, args.profile)
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
         "launches": launches, **k2}, {
+        "name": "fused_greedy_decode_gru", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "masters_thesis_tpu/ops/fused_decode.py:276", **k3}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
         "replaces": "masters_thesis_tpu/ops/gather.py:49", **k1}]}))

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from masters_thesis_tpu_torch.device import resolve_device
 from masters_thesis_tpu_torch.ops.gather import gather_rows
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -54,9 +55,10 @@ def permute_rows(data: torch.Tensor, layout, chunk: int = 256) -> torch.Tensor:
 
 
 class ArrayStore:
-    """Dense (N, W) row store on ``device``, with key -> row lookup.
-    ``dtype`` ('float32' | 'bfloat16', ``tpu.store_dtype``) casts the rows
-    at upload; by default they keep their own."""
+    """Dense (N, W) row store on ``device`` (by default ``cuda``; pass
+    ``device="cpu"`` for the CPU), with key -> row lookup. ``dtype``
+    ('float32' | 'bfloat16', ``tpu.store_dtype``) casts the rows at upload;
+    by default they keep their own."""
 
     device_resident = True
 
@@ -72,8 +74,8 @@ class ArrayStore:
         data = torch.as_tensor(data)
         if data.ndim != 2:
             raise ValueError(f"expected (N, W) rows, got {tuple(data.shape)}")
-        self.data = data.to(device=device or data.device,
-                            dtype=store_dtype(dtype) if dtype else data.dtype)
+        dtype = store_dtype(dtype) if dtype else data.dtype
+        self.data = data.to(device=resolve_device(device), dtype=dtype)
         self.device = self.data.device
         self.n_cols = int(self.data.shape[1])
 

@@ -23,6 +23,9 @@ BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
 NEGATIVE_SLOPE = 0.2  # LeakyReLU(0.2) throughout lc_NIC
 VOCAB_PAD_NEG = -1e9
+# the head's and the attention's activations by name, as the negative slope
+# that the decode kernels and their plain versions take (1: identity)
+ACTIVATION_SLOPES = {"leaky_relu": NEGATIVE_SLOPE, "relu": 0.0, "linear": 1.0}
 
 # jax.nn.initializers' truncated-normal std correction (truncation at ±2)
 _TRUNC_STD = 0.87962566103423978
@@ -106,6 +109,18 @@ def pad_zero_cols(init, true_cols: int):
 def leaky_relu(x: torch.Tensor,
                negative_slope: float = NEGATIVE_SLOPE) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+def activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``leaky_relu`` (slope 0.2), ``relu`` or ``linear`` (identity)."""
+    if name == "leaky_relu":
+        return leaky_relu(x)
+    if name == "relu":
+        return torch.relu(x)
+    if name == "linear":
+        return x
+    raise ValueError(f"activation {name!r}: expected one of "
+                     f"{sorted(ACTIVATION_SLOPES)}")
 
 
 def dropout(x: torch.Tensor, rate: float, generator=None,

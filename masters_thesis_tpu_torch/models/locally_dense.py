@@ -2,7 +2,7 @@
 projection.
 
 Counterpart of ``masters_thesis_tpu/models/locally_dense.py``. Groups are
-bucketed by padded width (``GroupLayout``, shared with the JAX package), and
+bucketed by padded width (``GroupLayout``, the port's copy), and
 each bucket is one batched contraction:
 
     xg    = xpad[:, idx_b]                        # (B, G_b, P_b); pad -> zero col
@@ -25,13 +25,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from masters_thesis_tpu.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
     dropout,
     leaky_relu,
     truncated_normal,
 )
+from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
 
 def _bucket_kernel_init(sizes: np.ndarray, padded: int, out_dim: int,
@@ -78,6 +78,11 @@ class LocallyDense(nn.Module):
             "unpermute", torch.as_tensor(layout.unpermute, dtype=torch.long),
             persistent=False)
         self.input_bn = BatchNorm(out_dim)
+
+    @property
+    def row_shape(self) -> tuple[int]:
+        """The shape of one raw (not pregathered) input row."""
+        return (self.layout.n_voxels,)
 
     def _bucket_inputs(self, x: torch.Tensor):
         """(B, G_b, P_b) input of every bucket."""

@@ -1,13 +1,25 @@
-"""LSTM cell with exact Keras semantics, in PyTorch.
+"""LSTM and GRU cells with exact Keras semantics, in PyTorch.
 
-Counterpart of ``masters_thesis_tpu/models/lstm.py``:
+Counterpart of ``masters_thesis_tpu/models/lstm.py``.
+
+LSTM (``KerasLSTMCell``, parameters ``lstm/*``):
 
 - gate packing order: [i | f | c̄ | o]
 - kernel (in, 4U) glorot_uniform; recurrent (U, 4U) orthogonal
 - bias zeros with unit forget bias (f-slice = 1)
 - c' = sigmoid(f)·c + sigmoid(i)·tanh(c̄);  h' = sigmoid(o)·tanh(c')
 
-The carry (h, c) stays fp32. The Keras GRU cell waits for ROADMAP M11.
+GRU (``KerasGRUCell``, parameters ``gru/*``), Keras ``reset_after=True`` as
+the CNN_RNN decoder uses it (CNN_RNN/model.py:67-115):
+
+- gate packing order: [z | r | h̄]
+- kernel (in, 3U) glorot_uniform; recurrent (U, 3U) orthogonal
+- bias (2, 3U) zeros: row 0 the input bias, row 1 the recurrent bias
+- xz = x·kernel + bias[0];  hz = h·recurrent + bias[1]
+- z = sigmoid(xz_z + hz_z);  r = sigmoid(xz_r + hz_r)
+- h̄ = tanh(xz_h + r·hz_h);  h' = z·h + (1 − z)·h̄
+
+The carry stays fp32.
 """
 
 from __future__ import annotations
@@ -40,3 +52,26 @@ class KerasLSTMCell(nn.Module):
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         return (h_new, c_new), h_new.to(z.dtype)
+
+
+class KerasGRUCell(nn.Module):
+    def __init__(self, in_features: int, units: int, generator=None):
+        super().__init__()
+        self.units = units
+        self.kernel = nn.Parameter(
+            glorot_uniform((in_features, 3 * units), generator))
+        self.recurrent_kernel = nn.Parameter(
+            orthogonal((units, 3 * units), generator))
+        self.bias = nn.Parameter(torch.zeros(2, 3 * units))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor):
+        """h: (B, U); x: (B, F). Returns (h', h')."""
+        xz = x @ self.kernel + self.bias[0]
+        hz = h.to(x.dtype) @ self.recurrent_kernel + self.bias[1]
+        xz_z, xz_r, xz_h = torch.chunk(xz, 3, dim=-1)
+        hz_z, hz_r, hz_h = torch.chunk(hz, 3, dim=-1)
+        z = torch.sigmoid(xz_z + hz_z)
+        r = torch.sigmoid(xz_r + hz_r)
+        hh = torch.tanh(xz_h + r * hz_h)
+        h_new = z * h + (1 - z) * hh
+        return h_new, h_new.to(xz.dtype)

@@ -1,4 +1,3 @@
-# the bucketed group layout is framework-free: shared with the JAX package
-from masters_thesis_tpu.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
 __all__ = ["GroupLayout"]

@@ -1,21 +1,30 @@
-"""The whole greedy decode loop as one hand-written CUDA kernel chain (K2).
+"""The whole greedy decode loop as one hand-written CUDA kernel chain, for
+both cells of the NIC family: K2 (LSTM) and K3 (GRU).
 
-Counterpart of ``masters_thesis_tpu/ops/fused_decode.py``. The kernel is
-``csrc/fused_decode.cu`` (its header says what bounds it on Hopper and how
-the design answers that); ``fused_greedy_decode_reference`` is the same
-computation in plain PyTorch:
+Counterpart of ``masters_thesis_tpu/ops/fused_decode.py``. The kernels are
+in ``csrc/fused_decode.cu`` (its header says what bounds them on Hopper and
+how the design answers that); ``fused_greedy_decode_reference`` and
+``fused_greedy_decode_gru_reference`` are the same computations in plain
+PyTorch:
 
-    per step:  alpha  = softmax(vᵀ tanh(pre + lrelu(h W2 + b2)) + bv)
+    per step:  alpha  = softmax(vᵀ tanh(pre + act_a(h W2 + b2)) + bv)
                ctx    = Σ alpha · features
-               h, c   = LSTM([ctx ; emb], h, c)
-               logits = lrelu(h W_i + b_i) W_o + b_o
+               h(, c) = cell([ctx ; emb], h(, c))
+               logits = act_h(h W_i + b_i) W_o + b_o
                word   = argmax(logits)          (first index on ties)
                emb    = E[word]
 
-``fused_greedy_decode`` takes the plain version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises. There is no fallback.
+``act_a`` and ``act_h`` are LeakyReLU with a negative slope taken from the
+model, as the JAX kernel takes them: 0.2 (leaky_relu), 0 (relu) or 1
+(linear, the identity). The LSTM cell is Keras' [i|f|g|o]; the GRU cell is
+Keras' reset_after [z|r|h̄] with separate input and recurrent biases, and
+under ``zero_state`` (the CnnRnn quirk) it restarts from zeros every step,
+so hz = b_rec and the carried h feeds only the next step's attention.
 
-Unlike the TPU kernel, regions are not padded (that served TPU sublanes)
+The wrappers take the plain version for CPU tensors only; for CUDA tensors
+they launch the kernel or raise. There is no fallback.
+
+Unlike the TPU kernels, regions are not padded (that served TPU sublanes)
 and the re-embedding is a row gather, not a one-hot matmul.
 """
 
@@ -24,7 +33,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from masters_thesis_tpu_torch.models.common import leaky_relu
+from masters_thesis_tpu_torch.models.common import (
+    ACTIVATION_SLOPES,
+    BatchNorm,
+    leaky_relu,
+)
 
 PAD_NEG = -1e30      # padded-vocab bias: never wins the argmax
 VOCAB_MULTIPLE = 128
@@ -34,28 +47,22 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def fused_greedy_decode_reference(pre, features, w2, b2, v, bv, wx, wh, b,
-                                  wi, bi, wo, bo, emb_table, emb0, h0, c0, *,
-                                  max_length: int,
-                                  return_margins: bool = False):
-    """Plain PyTorch version of the kernel. Returns (words (B, T) int32,
-    alphas (B, T, R) fp32); with ``return_margins`` also the top-2 logit
-    margin of every step (B, T), which tells a near-tie from a fault when
-    the kernel's summation order picks another word."""
+def _greedy_loop(cell, pre, features, w2, b2, v, bv, wi, bi, wo, bo,
+                 emb_table, emb0, h0, *, max_length: int, slope: float,
+                 attn_slope: float, return_margins: bool):
+    """The plain versions' shared loop; ``cell(x, h) -> h'`` is the cell
+    on x = [ctx ; emb]."""
     B = pre.shape[0]
-    h, c = h0, c0
+    h = h0
     emb = emb0.expand(B, -1)
     words, alphas, margins = [], [], []
     for _ in range(max_length):
-        hw = leaky_relu(h @ w2 + b2)
+        hw = leaky_relu(h @ w2 + b2, attn_slope)
         e = torch.tanh(pre + hw[:, None, :]) @ v + bv           # (B, R)
         alpha = torch.softmax(e, dim=1)
         ctx = torch.sum(alpha[:, :, None] * features, dim=1)     # (B, D)
-        z = torch.cat([ctx, emb], dim=-1) @ wx + h @ wh + b
-        i, f, g, o = torch.chunk(z, 4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        logits = leaky_relu(h @ wi + bi) @ wo + bo
+        h = cell(torch.cat([ctx, emb], dim=-1), h)
+        logits = leaky_relu(h @ wi + bi, slope) @ wo + bo
         nxt = torch.argmax(logits, dim=-1)
         emb = emb_table[nxt]
         words.append(nxt)
@@ -67,132 +74,273 @@ def fused_greedy_decode_reference(pre, features, w2, b2, v, bv, wx, wh, b,
     return out + (torch.stack(margins, 1),) if return_margins else out
 
 
-def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
-                        bo, emb_table, emb0, h0, c0, *, max_length: int):
-    """Run every greedy step for (B, R, ·) inputs.
+def fused_greedy_decode_reference(pre, features, w2, b2, v, bv, wx, wh, b,
+                                  wi, bi, wo, bo, emb_table, emb0, h0, c0, *,
+                                  max_length: int, slope: float = 0.2,
+                                  attn_slope: float = 0.2,
+                                  return_margins: bool = False):
+    """Plain PyTorch version of K2. Returns (words (B, T) int32, alphas
+    (B, T, R) fp32); with ``return_margins`` also the top-2 logit margin of
+    every step (B, T), which tells a near-tie from a fault when the
+    kernel's summation order picks another word."""
+    c = c0
 
-    pre (B, R, A) = lrelu(features W1 + b1); features (B, R, D); w2 (U, A);
+    def lstm(x, h):
+        nonlocal c
+        z = x @ wx + h @ wh + b
+        i, f, g, o = torch.chunk(z, 4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c)
+
+    return _greedy_loop(lstm, pre, features, w2, b2, v, bv, wi, bi, wo, bo,
+                        emb_table, emb0, h0, max_length=max_length,
+                        slope=slope, attn_slope=attn_slope,
+                        return_margins=return_margins)
+
+
+def fused_greedy_decode_gru_reference(pre, features, w2, b2, v, bv, wx, wh,
+                                      b_in, b_rec, wi, bi, wo, bo, emb_table,
+                                      emb0, h0, *, max_length: int,
+                                      slope: float = 1.0,
+                                      attn_slope: float = 1.0,
+                                      zero_state: bool = False,
+                                      return_margins: bool = False):
+    """Plain PyTorch version of K3; returns as
+    ``fused_greedy_decode_reference`` does."""
+
+    def gru(x, h):
+        xz_z, xz_r, xz_h = torch.chunk(x @ wx + b_in, 3, dim=-1)
+        if zero_state:           # h @ wh is 0: the recurrent part is b_rec
+            h = torch.zeros_like(h)
+            hz = b_rec.expand(h.shape[0], -1)
+        else:
+            hz = h @ wh + b_rec
+        hz_z, hz_r, hz_h = torch.chunk(hz, 3, dim=-1)
+        z = torch.sigmoid(xz_z + hz_z)
+        r = torch.sigmoid(xz_r + hz_r)
+        hh = torch.tanh(xz_h + r * hz_h)
+        return z * h + (1.0 - z) * hh
+
+    return _greedy_loop(gru, pre, features, w2, b2, v, bv, wi, bi, wo, bo,
+                        emb_table, emb0, h0, max_length=max_length,
+                        slope=slope, attn_slope=attn_slope,
+                        return_margins=return_margins)
+
+
+def _plain_or_kernel(name: str, args) -> bool:
+    """True for all-CPU tensors (the plain version); False for one CUDA
+    device (the kernel); raises on anything else."""
+    devices = {a.device for a in args}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{name} needs every tensor on one CUDA device or all on the "
+            f"CPU; got {sorted(map(str, devices))}")
+    return False
+
+
+def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
+                        bo, emb_table, emb0, h0, c0, *, max_length: int,
+                        slope: float = 0.2, attn_slope: float = 0.2):
+    """K2: every greedy step of an LSTM NIC for (B, R, ·) inputs.
+
+    pre (B, R, A) = act_a(features W1 + b1); features (B, R, D); w2 (U, A);
     b2, v (A,); bv (1,); wx (D+E, 4U); wh (U, 4U); b (4U,); wi (U, H);
     bi (H,); wo (H, Vp); bo (Vp,) with -1e30 on padded ids; emb_table
-    (V, E); emb0 (E,); h0, c0 (B, U).
+    (V, E); emb0 (E,); h0, c0 (B, U). ``slope`` and ``attn_slope`` are the
+    negative slopes of the head's and the attention's activations.
     Returns (words (B, T) int32, alphas (B, T, R) fp32).
 
     ``fused_greedy_decode.launches`` counts the kernel chain's launches."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
             emb_table, emb0, h0, c0)
-    devices = {a.device for a in args}
-    if devices == {torch.device("cpu")}:
-        return fused_greedy_decode_reference(*args, max_length=max_length)
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(
-            f"fused_greedy_decode needs every tensor on one CUDA device or "
-            f"all on the CPU; got {sorted(map(str, devices))}")
-    return _launch(*args, max_length=max_length)
+    if _plain_or_kernel("fused_greedy_decode", args):
+        return fused_greedy_decode_reference(
+            *args, max_length=max_length, slope=slope, attn_slope=attn_slope)
+    out = _launch("lstm", args, max_length=max_length, slope=slope,
+                  attn_slope=attn_slope)
+    fused_greedy_decode.launches += 1
+    return out
 
 
 fused_greedy_decode.launches = 0
 
 
-def _launch(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
-            emb_table, emb0, h0, c0, *, max_length: int):
+def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
+                            b_rec, wi, bi, wo, bo, emb_table, emb0, h0, *,
+                            max_length: int, slope: float = 1.0,
+                            attn_slope: float = 1.0,
+                            zero_state: bool = False):
+    """K3: every greedy step of a GRU NIC, the arguments of
+    ``fused_greedy_decode`` with wx (D+E, 3U), wh (U, 3U), the input and
+    recurrent biases b_in, b_rec (3U,) in place of b, and no c0.
+    ``zero_state`` restarts the recurrence from zeros every step.
+
+    ``fused_greedy_decode_gru.launches`` counts the kernel chain's
+    launches."""
+    args = (pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi, wo,
+            bo, emb_table, emb0, h0)
+    if _plain_or_kernel("fused_greedy_decode_gru", args):
+        return fused_greedy_decode_gru_reference(
+            *args, max_length=max_length, slope=slope, attn_slope=attn_slope,
+            zero_state=zero_state)
+    out = _launch("gru", args, max_length=max_length, slope=slope,
+                  attn_slope=attn_slope, zero_state=zero_state)
+    fused_greedy_decode_gru.launches += 1
+    return out
+
+
+fused_greedy_decode_gru.launches = 0
+
+
+# the positional arguments of each cell's kernel, in order
+DECODE_ARGS = {
+    "lstm": ("pre features w2 b2 v bv wx wh b wi bi wo bo emb_table emb0 h0 "
+             "c0").split(),
+    "gru": ("pre features w2 b2 v bv wx wh b_in b_rec wi bi wo bo emb_table "
+            "emb0 h0").split(),
+}
+
+
+def _launch(cell: str, args, *, max_length: int, slope: float,
+            attn_slope: float, zero_state: bool = False):
     from masters_thesis_tpu_torch.ops import _build
 
-    device = pre.device
+    a = dict(zip(DECODE_ARGS[cell], args))
+    device = a["pre"].device
     if torch.cuda.get_device_capability(device) != (9, 0):
         raise RuntimeError(
-            f"the decode kernel is built for sm_90a (Hopper); "
+            f"the decode kernels are built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(device)} is "
             f"sm_{''.join(map(str, torch.cuda.get_device_capability(device)))}")
-    B, R, A = pre.shape
-    D = features.shape[2]
-    U = h0.shape[1]
-    E = emb_table.shape[1]
-    H, Vp = wo.shape
-    expected = {
-        "pre": (pre, (B, R, A)), "features": (features, (B, R, D)),
-        "w2": (w2, (U, A)), "b2": (b2, (A,)), "v": (v, (A,)), "bv": (bv, (1,)),
-        "wx": (wx, (D + E, 4 * U)), "wh": (wh, (U, 4 * U)), "b": (b, (4 * U,)),
-        "wi": (wi, (U, H)), "bi": (bi, (H,)), "wo": (wo, (H, Vp)),
-        "bo": (bo, (Vp,)), "emb_table": (emb_table, (emb_table.shape[0], E)),
-        "emb0": (emb0, (E,)), "h0": (h0, (B, U)), "c0": (c0, (B, U)),
-    }
-    for name, (t, shape) in expected.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 {shape}, got "
+    B, R, A = a["pre"].shape
+    D = a["features"].shape[2]
+    U = a["w2"].shape[0]
+    V, E = a["emb_table"].shape
+    H, Vp = a["wo"].shape
+    G = 3 if cell == "gru" else 4          # gates a unit
+    shapes = {
+        "pre": (B, R, A), "features": (B, R, D), "w2": (U, A), "b2": (A,),
+        "v": (A,), "bv": (1,), "wx": (D + E, G * U), "wh": (U, G * U),
+        "b": (G * U,), "b_in": (G * U,), "b_rec": (G * U,), "wi": (U, H),
+        "bi": (H,), "wo": (H, Vp), "bo": (Vp,), "emb_table": (V, E),
+        "emb0": (E,), "h0": (B, U), "c0": (B, U)}
+    for name, t in a.items():
+        if tuple(t.shape) != shapes[name] or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 {shapes[name]}, got "
                              f"{t.dtype} {tuple(t.shape)}")
 
     lib = _build.load_library()
     # Copies and scratch freed on return stay safe: the caching allocator
     # hands their memory only to work queued after these kernels on the
     # same stream.
-    c = lambda t: t.contiguous()  # noqa: E731
-    inputs = [c(t) for t in (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi,
-                             wo, bo, emb_table)]
+    inputs = [t.contiguous() for name, t in a.items()
+              if name not in ("emb0", "h0", "c0")]
     empty = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
-    emb = emb0.expand(B, E).contiguous()
-    h_a, cell = h0.contiguous().clone(), c0.contiguous().clone()
-    scratch = [emb, h_a, empty(B, U), cell, empty(B, D), empty(B, H),
+    emb = a["emb0"].expand(B, E).contiguous()
+    h_a = a["h0"].contiguous().clone()
+    cell_state = [a["c0"].contiguous().clone()] if cell == "lstm" else []
+    scratch = [emb, h_a, empty(B, U), *cell_state, empty(B, D), empty(B, H),
                empty(B, Vp)]
     words = torch.empty(B, max_length, dtype=torch.int32, device=device)
     alphas = empty(B, max_length, R)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    code = lib.mtt_fused_greedy_decode(
-        *(t.data_ptr() for t in inputs + scratch + [words, alphas]),
-        B, R, A, D, E, U, H, Vp, max_length, index,
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check_error(code, "fused_greedy_decode")
-    fused_greedy_decode.launches += 1
+    pointers = [t.data_ptr() for t in inputs + scratch + [words, alphas]]
+    sizes = [B, R, A, D, E, U, H, Vp, max_length]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if cell == "gru":
+        code = lib.mtt_fused_greedy_decode_gru(
+            *pointers, *sizes, int(zero_state), slope, attn_slope, index,
+            stream)
+    else:
+        code = lib.mtt_fused_greedy_decode(*pointers, *sizes, slope,
+                                           attn_slope, index, stream)
+    _build.check_error(code, f"fused greedy decode ({cell})")
     return words, alphas
 
 
+def decode_options(model) -> dict:
+    """The keyword options of the model's decode kernel: the activations'
+    negative slopes (leaky_relu 0.2, relu 0, linear 1), as the JAX package
+    maps them, and for a GRU the zero-state quirk."""
+    opts = {"slope": ACTIVATION_SLOPES[model.head_activation],
+            "attn_slope": ACTIVATION_SLOPES[model.attn_inner_activation]}
+    if model.cell_type == "gru":
+        opts["zero_state"] = model.gru_zero_state
+    return opts
+
+
+def decode_kernel(model):
+    """(kernel wrapper, its plain version) for the model's cell: K2 for an
+    LSTM, K3 for a GRU."""
+    if model.cell_type == "gru":
+        return fused_greedy_decode_gru, fused_greedy_decode_gru_reference
+    return fused_greedy_decode, fused_greedy_decode_reference
+
+
 def extract_decode_params(model) -> dict:
-    """Attention, LSTM, head and embedding weights of a port ``NIC``, named
+    """Attention, cell, head and embedding weights of a port ``NIC``, named
     as in the JAX package's ``extract_decode_params``."""
     attn = model.attention
-    return {
+    out = {
         "w1": attn.W1.kernel, "b1": attn.W1.bias,
         "w2": attn.W2.kernel, "b2": attn.W2.bias,
         "v": attn.V.kernel[:, 0], "bv": attn.V.bias,
-        "wx": model.lstm.kernel, "wh": model.lstm.recurrent_kernel,
-        "b": model.lstm.bias,
+        "wx": model.cell.kernel, "wh": model.cell.recurrent_kernel,
         "wi": model.dense_inter.kernel, "bi": model.dense_inter.bias,
         "wo": model.dense_out.kernel, "bo": model.dense_out.bias,
         "embedding": model.embedding,
     }
+    if model.cell_type == "gru":
+        out.update(b_in=model.gru.bias[0], b_rec=model.gru.bias[1])
+    else:
+        out.update(b=model.lstm.bias)
+    return out
 
 
 def decode_inputs(model, betas: torch.Tensor, start_id: int) -> tuple:
-    """The arguments of ``fused_greedy_decode`` for ``betas`` (B, N).
+    """The positional arguments of the model's decode kernel
+    (``decode_kernel``) for ``betas`` (B, ...).
 
-    Encodes, precomputes ``pre = lrelu(features W1 + b1)``, pads the vocab
+    Encodes, precomputes ``pre = act_a(features W1 + b1)``, pads the vocab
     axis to a multiple of 128 with bias -1e30 from ``model.true_vocab`` on,
     and takes the start embedding and the model's initial carry."""
     sp = extract_decode_params(model)
     features = model.encode(betas)
-    pre = leaky_relu(features @ sp["w1"] + sp["b1"])
+    pre = leaky_relu(features @ sp["w1"] + sp["b1"],
+                     ACTIVATION_SLOPES[model.attn_inner_activation])
     vocab = sp["embedding"].shape[0]
     vp = _round_up(vocab, VOCAB_MULTIPLE)
     tv = model.true_vocab or vocab
     wo = F.pad(sp["wo"], (0, vp - vocab))
     bo = F.pad(sp["bo"][:tv], (0, vp - tv), value=PAD_NEG)
     h0, c0 = model.init_carry(features)
-    return (pre, features, sp["w2"], sp["b2"], sp["v"], sp["bv"], sp["wx"],
-            sp["wh"], sp["b"], sp["wi"], sp["bi"], wo, bo, sp["embedding"],
-            sp["embedding"][start_id], h0, c0)
+    if model.cell_type == "gru":
+        cell, carry = (sp["wx"], sp["wh"], sp["b_in"], sp["b_rec"]), (h0,)
+    else:
+        cell, carry = (sp["wx"], sp["wh"], sp["b"]), (h0, c0)
+    return (pre, features, sp["w2"], sp["b2"], sp["v"], sp["bv"], *cell,
+            sp["wi"], sp["bi"], wo, bo, sp["embedding"],
+            sp["embedding"][start_id], *carry)
 
 
 def make_whole_fused_greedy_decoder(model, max_length: int):
     """Drop-in for ``decode.greedy.make_greedy_decoder`` minus the logits:
-    decode(betas (B, N), start_id) -> (words (B, T) int32, alphas (B, T, R)).
+    decode(betas (B, ...), start_id) -> (words (B, T) int32, alphas
+    (B, T, R)).
 
-    Runs ``fused_greedy_decode`` on ``decode_inputs``: the CUDA kernel on a
-    CUDA model, the plain version on a CPU one."""
+    Runs the model's decode kernel (K2 for an LSTM, K3 for a GRU) on
+    ``decode_inputs``: the CUDA kernel on a CUDA model, the plain version on
+    a CPU one."""
+    kernel, _ = decode_kernel(model)
+    opts = decode_options(model)
 
     @torch.inference_mode()
     def decode(betas: torch.Tensor, start_id: int):
-        return fused_greedy_decode(*decode_inputs(model, betas, start_id),
-                                   max_length=max_length)
+        return kernel(*decode_inputs(model, betas, start_id),
+                      max_length=max_length, **opts)
 
     return decode
 
@@ -200,8 +348,8 @@ def make_whole_fused_greedy_decoder(model, max_length: int):
 def compare_with_reference(words, alphas, ref_words, ref_alphas, ref_margins,
                            *, alpha_atol: float = 1e-6,
                            tie_margin: float = 1e-3) -> dict:
-    """Hold a kernel decode against ``fused_greedy_decode_reference`` (run
-    with ``return_margins``) on the same inputs.
+    """Hold a kernel decode against its plain version (run with
+    ``return_margins``) on the same inputs.
 
     Both sum in different orders, so a row may take another word where the
     plain version's top-2 logit margin is a near-tie (< ``tie_margin``);
@@ -238,32 +386,43 @@ def spread_for_check(model, generator: torch.Generator) -> None:
     BatchNorm at scale 1, shift 0, mean 0, variance 1, so a kernel that
     dropped one of them would still agree with its plain version; and
     their small embedding and head make greedy settle on a few ids. Here
-    the biases and BatchNorm's parameters and running statistics get seeded
-    random values (variance positive), and the embedding, attention, context
-    input and head are widened so that the words vary from row to row and
-    step to step. Scales are relative to fan-in, so any width works; the
-    fp32 rounding of a decode stays at a few 1e-7 in the alphas."""
+    the encoder's biases, the BatchNorm's parameters and running statistics
+    (where the encoder has one), the attention's and the cell's biases get
+    seeded random values (variance positive), and the embedding, attention,
+    context input of the cell and head are widened so that the words vary
+    from row to row and step to step. Scales are relative to fan-in, so any
+    width works; the fp32 rounding of a decode stays at a few 1e-7 in the
+    alphas."""
     def normal(t, std):
         return (torch.randn(t.shape, generator=generator) * std).to(t)
 
-    enc, attn = model.encoder, model.attention
+    enc, attn, cell = model.encoder, model.attention, model.cell
     for name, p in enc.named_parameters():
-        if name.startswith("bias_"):
+        # LocallyDense's bias_{b}; PatchDense's bias or proj.bias
+        if name.startswith("bias_") or name in ("bias", "proj.bias"):
             p.copy_(normal(p, 0.1))
-    bn = enc.input_bn
-    bn.scale.add_(normal(bn.scale, 0.1))
-    bn.bias.copy_(normal(bn.bias, 0.1))
-    bn.mean.copy_(normal(bn.mean, 0.5))
-    bn.var.copy_(0.5 + 1.5 * torch.rand(bn.var.shape, generator=generator)
-                 .to(bn.var))
+    bn = next((m for m in enc.children() if isinstance(m, BatchNorm)), None)
+    if bn is not None:
+        bn.scale.add_(normal(bn.scale, 0.1))
+        bn.bias.copy_(normal(bn.bias, 0.1))
+        bn.mean.copy_(normal(bn.mean, 0.5))
+        bn.var.copy_(0.5 + 1.5 * torch.rand(bn.var.shape, generator=generator)
+                     .to(bn.var))
     attn.W1.bias.copy_(normal(attn.W1.bias, 0.5))
     attn.W2.bias.copy_(normal(attn.W2.bias, 0.5))
     attn.V.bias.copy_(normal(attn.V.bias, 1.0))
     attn.W2.kernel.mul_(2.0)
-    attn.V.kernel.mul_(5.0)
-    ctx_rows = model.lstm.kernel.shape[0] - model.embedding.shape[1]
-    model.lstm.kernel[:ctx_rows].mul_(5.0)
-    model.lstm.bias.add_(normal(model.lstm.bias, 0.5))
+    # A linear inner activation keeps the negative halves of W1 f and W2 h
+    # at full size, so the scores' tanh saturates: at CnnRnn width a x5 V
+    # makes the attention near one-hot and the fp32 rounding of the scores
+    # grows over the steps to ~5e-5 in the alphas; x2 keeps the attention
+    # soft (largest alpha ~0.3) and that rounding under 2e-7 (the plain
+    # version against float64, held by tests/test_torch_fused_decode_gru.py).
+    attn.V.kernel.mul_(5.0 if model.attn_inner_activation == "leaky_relu"
+                       else 2.0)
+    ctx_rows = cell.kernel.shape[0] - model.embedding.shape[1]
+    cell.kernel[:ctx_rows].mul_(5.0)
+    cell.bias.add_(normal(cell.bias, 0.5))
     model.embedding.mul_(20.0)
     for dense, bias_std in ((model.dense_inter, 0.5), (model.dense_out, 0.2)):
         fan_in = dense.kernel.shape[0]

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from masters_thesis_tpu_torch.device import resolve_device
 from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.train.optim import Optimizer, make_optimizer
 
@@ -38,10 +39,11 @@ class TrainState:
 def init_model(cfg, layout, device=None, seed: int | None = None,
                pregathered: bool = False) -> TrainState:
     """A flagship LcNIC from ``cfg`` initialised from ``seed`` (default
-    ``cfg.seed``), on ``device``, with its optimizer and dropout generator.
-    ``pregathered`` takes the grouped padded input of a permuted store."""
+    ``cfg.seed``), on ``device`` (by default ``cuda``; pass ``device="cpu"``
+    for the CPU), with its optimizer and dropout generator. ``pregathered``
+    takes the grouped padded input of a permuted store."""
     seed = cfg.seed if seed is None else seed
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     model = LcNIC(
         layout, units=cfg.units, group_size=cfg.group_size,
         embedding_text=cfg.embedding_text, attn_units=cfg.attn_units,

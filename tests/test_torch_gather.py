@@ -104,11 +104,12 @@ def test_store_device_gather_and_lookup(dtype):
 
 def test_store_refuses_duplicate_keys_and_unknown_dtypes():
     with pytest.raises(ValueError, match="duplicate"):
-        ArrayStore(np.zeros((2, 3), np.float32), [1, 1])
+        ArrayStore(np.zeros((2, 3), np.float32), [1, 1], device="cpu")
     with pytest.raises(ValueError, match="keys"):
-        ArrayStore(np.zeros((2, 3), np.float32), [1])
+        ArrayStore(np.zeros((2, 3), np.float32), [1], device="cpu")
     with pytest.raises(ValueError, match="float16"):
-        ArrayStore(np.zeros((2, 3), np.float32), [1, 2], dtype="float16")
+        ArrayStore(np.zeros((2, 3), np.float32), [1, 2], device="cpu",
+                   dtype="float16")
 
 
 def test_shared_pipeline_batches_gather_from_the_port_store():
@@ -116,7 +117,7 @@ def test_shared_pipeline_batches_gather_from_the_port_store():
     hands out gather the same rows as the JAX package's store."""
     _, pairs, tok, jstore, _ = synthetic_dataset(n_keys=16, n_voxels=40,
                                                  n_groups=3, top_k=30)
-    store = ArrayStore(np.asarray(jstore.data), jstore.keys)
+    store = ArrayStore(np.asarray(jstore.data), jstore.keys, device="cpu")
     enc = encode_pairs(pairs["train"], tok, 5)
     pipe = BatchPipeline(enc, store, 4, seed=0, prefetch=0)
     jpipe = BatchPipeline(enc, jstore, 4, seed=0, prefetch=0)

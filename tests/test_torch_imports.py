@@ -1,9 +1,11 @@
-"""The port imports on a machine without JAX: in a fresh interpreter with
-jax, jaxlib, flax, optax, orbax and yaml blocked by a meta-path finder, the
-package, its serving and training modules and the reference modules that
-they and ``chip_smoke.py`` share import, and importing them neither loads
-triton nor builds a kernel."""
+"""The port stands alone: in a fresh interpreter with jax, jaxlib, flax,
+optax, orbax, yaml and the JAX package itself blocked by a meta-path finder,
+every module of the port and ``chip_smoke.py`` import, and importing them
+loads no module of the JAX package, does not load triton and builds no
+kernel. No import statement of the port or of ``chip_smoke.py`` names the
+JAX package, not even inside a function."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -13,37 +15,24 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "masters_thesis_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "triton",
+           "masters_thesis_tpu")
 
-MODULES = [
-    "masters_thesis_tpu_torch",
-    "masters_thesis_tpu_torch.models",
-    "masters_thesis_tpu_torch.ops",
-    "masters_thesis_tpu_torch.ops._build",
-    "masters_thesis_tpu_torch.ops.fused_decode",
-    "masters_thesis_tpu_torch.ops.gather",
-    "masters_thesis_tpu_torch.decode.greedy",
-    "masters_thesis_tpu_torch.transplant",
-    "masters_thesis_tpu_torch.serve",
-    "masters_thesis_tpu_torch.config",
-    "masters_thesis_tpu_torch.data.store",
-    "masters_thesis_tpu_torch.train.losses",
-    "masters_thesis_tpu_torch.train.optim",
-    "masters_thesis_tpu_torch.train.state",
-    "masters_thesis_tpu_torch.train.steps",
-    "masters_thesis_tpu_torch.train.loop",
-    # shared from the reference by the training path and chip_smoke.py
-    "masters_thesis_tpu.server",
-    "masters_thesis_tpu.data.pairs",
-    "masters_thesis_tpu.data.pipeline",
-    "masters_thesis_tpu.data.splits",
-    "masters_thesis_tpu.data.synthetic",
-    "masters_thesis_tpu.data.tokenizer",
-]
+
+def _port_modules() -> list[str]:
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        names.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                              else parts))
+    return names
+
+
+MODULES = _port_modules() + ["chip_smoke"]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, json, sys
-
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml"}
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -66,7 +55,8 @@ def imported():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     proc = subprocess.run(
-        [sys.executable, "-c", f"MODULES = {MODULES!r}\n{SCRIPT}"],
+        [sys.executable, "-c",
+         f"MODULES = {MODULES!r}\nBLOCKED = {BLOCKED!r}\n{SCRIPT}"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     import json
@@ -77,6 +67,8 @@ def imported():
 def test_port_imports_with_jax_flax_and_yaml_blocked(imported):
     loaded = set(imported["loaded"])
     assert set(MODULES) <= loaded
+    assert "masters_thesis_tpu_torch.server" in loaded
+    assert "masters_thesis_tpu_torch.models.encoders" in loaded
     for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
         assert blocked not in loaded
 
@@ -86,18 +78,24 @@ def test_import_loads_no_triton_and_builds_nothing(imported):
     assert imported["built"] == 0
 
 
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
 def test_port_shares_only_framework_free_modules_of_the_reference(imported):
-    """What the port takes from the JAX package: the modules named as
-    framework-free (ROADMAP's list, with the training slice's pipeline,
-    pairs and splits), and the package plumbing they pull in."""
-    shared = {m for m in imported["loaded"]
-              if m.startswith("masters_thesis_tpu.")}
-    for needed in ("ops.group_layout", "data.tokenizer", "data.synthetic",
-                   "evalsuite.tokens", "serve", "server", "data.pipeline",
-                   "data.pairs", "data.splits"):
-        assert f"masters_thesis_tpu.{needed}" in shared
-    for never in ("config", "experiment", "models", "decode", "train",
-                  "ops.fused_decode", "ops.gather"):
-        assert not any(m == f"masters_thesis_tpu.{never}"
-                       or m.startswith(f"masters_thesis_tpu.{never}.")
-                       for m in shared), never
+    """The port once shared the JAX package's framework-free modules; it
+    now shares none. Importing it loads no module of the JAX package, and
+    no import statement of its sources or of ``chip_smoke.py``, at module
+    level or inside a function, names the JAX package."""
+    shared = [m for m in imported["loaded"]
+              if m == "masters_thesis_tpu"
+              or m.startswith("masters_thesis_tpu.")]
+    assert shared == []
+    sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in sources:
+        for name in _imported_names(path):
+            assert name.split(".")[0] != "masters_thesis_tpu", (path, name)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the whole-decode kernel (K2) at a small shape and at flagship LcNIC width
-and through the greedy decoders; the store row gather (K1) at small and
-flagship widths and through three train steps. A CUDA kernel has no CPU
-mode, so every test here needs an NVIDIA Hopper GPU and skips without one.
+the LSTM whole-decode kernel (K2) at a small shape and at flagship LcNIC
+width, through the greedy decoders, and with other activations and a wide
+attention; the GRU whole-decode kernel (K3) in the cases of the CPU tests
+and at full CnnRnn width; the store row gather (K1) at small and flagship
+widths and through three train steps. A CUDA kernel has no CPU mode, so
+every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -12,11 +14,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from masters_thesis_tpu.data.synthetic import synthetic_groups
-from masters_thesis_tpu.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
 from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
-from masters_thesis_tpu_torch.models.nic import LcNIC
+from masters_thesis_tpu_torch.models.nic import CnnRnnNIC, LcNIC
 from masters_thesis_tpu_torch.ops import fused_decode
+from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
 pytestmark = pytest.mark.cuda
 
@@ -110,19 +112,98 @@ def test_kernel_refuses_wrong_dtype(cuda):
         fused_decode.fused_greedy_decode(*inputs, max_length=2)
 
 
-def test_kernel_refuses_attention_wider_than_a_block(cuda):
-    """The attention kernel gives one thread to each attention column; the
-    entry point returns its own error for a wider one, and the wrapper
-    raises it."""
-    B, R, A, D, U, E, H, V = 2, 3, 300, 4, 8, 4, 8, 128
-    z = lambda *s: torch.zeros(s, device=cuda)  # noqa: E731
-    args = (z(B, R, A), z(B, R, D), z(U, A), z(A), z(A), z(1),
-            z(D + E, 4 * U), z(U, 4 * U), z(4 * U), z(U, H), z(H), z(H, V),
-            z(V), z(V, E), z(E), z(B, U), z(B, U))
-    before = fused_decode.fused_greedy_decode.launches
-    with pytest.raises(RuntimeError, match="must be <= 256"):
-        fused_decode.fused_greedy_decode(*args, max_length=2)
-    assert fused_decode.fused_greedy_decode.launches == before
+# The small K2 and K3 cases below: seed and rows, and their floor on
+# distinct greedy words. A small seeded model settles on a few ids, and
+# which few depends on the draw: the same seed gives other weights under
+# another PyTorch release (the CPU and the card of one machine agree), so
+# the cases draw 32 rows, which take 11 or more distinct words under
+# PyTorch 2.11 and 8 or more under 2.13.
+SMALL_SEED, SMALL_ROWS, SMALL_MIN_DISTINCT = 1, 32, 8
+
+
+def _check_decode(model, rows, min_distinct):
+    """The model's decode kernel against its plain version on ``rows``.
+    ``min_distinct`` floors the distinct greedy words, so that the
+    comparison is not between a few constant ids."""
+    kernel, reference = fused_decode.decode_kernel(model)
+    opts = fused_decode.decode_options(model)
+    T = model.max_length
+    with torch.inference_mode():
+        inputs = fused_decode.decode_inputs(model, rows, 1)
+        before = kernel.launches
+        words, alphas = kernel(*inputs, max_length=T, **opts)
+        torch.cuda.synchronize()
+        ref_words, ref_alphas, margins = reference(
+            *inputs, max_length=T, return_margins=True, **opts)
+    assert kernel.launches == before + 1
+    assert words.shape == (len(rows), T)
+    assert alphas.shape == (len(rows), T, inputs[0].shape[1])
+    report = fused_decode.compare_with_reference(
+        words, alphas, ref_words, ref_alphas, margins)
+    assert report["bad_rows"] == [], report
+    assert report["near_tie_rows"] <= len(rows) // 4, report
+    assert len(torch.unique(ref_words)) >= min_distinct
+
+
+@pytest.mark.parametrize("head,attn", [("linear", "linear"),
+                                       ("relu", "leaky_relu"),
+                                       ("relu", "linear")])
+def test_lstm_kernel_with_other_activations_and_wide_attention(cuda, head,
+                                                               attn):
+    """K2 with head and attention slopes other than 0.2 and an attention
+    of 512 columns, wider than a block's 256 threads."""
+    layout = GroupLayout(synthetic_groups(512, 8, seed=0), 512)
+    gen = torch.Generator().manual_seed(SMALL_SEED)
+    model = LcNIC(layout, units=48, group_size=32, embedding_text=64,
+                  attn_units=512, vocab_size=40, max_length=6,
+                  head_activation=head, attn_inner_activation=attn,
+                  generator=gen)
+    fused_decode.spread_for_check(model, gen)
+    rows = torch.randn(SMALL_ROWS, 512, generator=gen)
+    _check_decode(model.to(cuda).eval(), rows.to(cuda), SMALL_MIN_DISTINCT)
+
+
+# (n_patches, in_channels, units, vocab, true_vocab, batch): odd region
+# counts, a padded vocab, an attention (= units) wider than a block, and
+# the full CnnRnn width of configs/cnn_rnn.yaml
+GRU_SHAPES = {
+    "small-odd-regions": (7, 24, 16, 40, 0, SMALL_ROWS),
+    "padded-vocab": (5, 24, 16, 48, 40, SMALL_ROWS),
+    "attention-300": (9, 24, 300, 40, 0, SMALL_ROWS),
+    "cnn_rnn": (64, 2048, 512, 5001, 0, 64),
+}
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("shape", list(GRU_SHAPES))
+def test_gru_kernel_matches_plain_version(cuda, shape, zero_state):
+    """K3 against its plain version, both values of the zero-state quirk."""
+    patches, channels, units, vocab, true_vocab, batch = GRU_SHAPES[shape]
+    full = shape == "cnn_rnn"
+    gen = torch.Generator().manual_seed(0 if full else SMALL_SEED)
+    model = CnnRnnNIC(embed_dim=256 if full else 64, units=units,
+                      vocab_size=vocab, true_vocab=true_vocab,
+                      max_length=15 if full else 6, n_patches=patches,
+                      in_channels=channels, gru_zero_state=zero_state,
+                      generator=gen)
+    fused_decode.spread_for_check(model, gen)
+    rows = torch.randn(batch, patches, channels, generator=gen)
+    _check_decode(model.to(cuda).eval(), rows.to(cuda),
+                  16 if full else SMALL_MIN_DISTINCT)
+
+
+def test_gru_padded_vocab_never_wins_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(0)
+    model = CnnRnnNIC(embed_dim=12, units=16, vocab_size=40, true_vocab=33,
+                      max_length=6, n_patches=5, in_channels=24,
+                      generator=gen)
+    fused_decode.spread_for_check(model, gen)
+    with torch.no_grad():
+        model.dense_out.bias[33:] = 1e6     # padded ids would win unmasked
+    rows = torch.randn(6, 5, 24, generator=gen)
+    words, _ = fused_decode.make_whole_fused_greedy_decoder(
+        model.to(cuda).eval(), 6)(rows.to(cuda), 1)
+    assert int(words.max()) < 33
 
 
 # ---- K1: the store row gather ----

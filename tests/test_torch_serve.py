@@ -1,6 +1,6 @@
 """The port's Captioner against the JAX package's Captioner on the same
-weights and inputs, and the shared HTTP server driving the port's
-Captioner on the CPU."""
+weights and inputs, and the port's HTTP server (its copy of the JAX
+package's) driving the port's Captioner on the CPU."""
 
 import io
 import json
@@ -18,9 +18,9 @@ from masters_thesis_tpu.data.tokenizer import Tokenizer
 from masters_thesis_tpu.models.nic import LcNIC as JLcNIC
 from masters_thesis_tpu.ops.group_layout import GroupLayout
 from masters_thesis_tpu.serve import Captioner as JCaptioner
-from masters_thesis_tpu.server import make_caption_server
 from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.serve import Captioner
+from masters_thesis_tpu_torch.server import make_caption_server
 
 N_VOXELS, UNITS, T, BATCH = 128, 16, 6, 4
 KW = dict(units=UNITS, group_size=4, embedding_text=8, attn_units=8,
@@ -53,6 +53,7 @@ def setup():
         batch_size=BATCH)
 
     def port(**kw):
+        kw.setdefault("device", "cpu")
         return Captioner.from_components(
             LcNIC(layout, **KW), variables["params"],
             variables["batch_stats"], tok, UNITS, T, batch_size=BATCH, **kw)

@@ -84,7 +84,7 @@ def _setup(pregathered=False, seed=0, **cfg_kw):
     variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
         jax.random.PRNGKey(seed), betas, tokens, a0, a0))
     variables = _randomise(variables, rng)
-    state = init_model(cfg, layout, pregathered=pregathered)
+    state = init_model(cfg, layout, "cpu", pregathered=pregathered)
     state.model.load_state_dict(from_flax(variables))
     return jmodel, variables, state, jcfg, cfg, (betas, tokens, target)
 

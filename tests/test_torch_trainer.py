@@ -82,8 +82,9 @@ def _data():
 
 def _port_trainer(cfg, jstore, enc, val, layout, callbacks, variables=None,
                   train_step=None):
-    store = ArrayStore(np.asarray(jstore.device_array()), jstore.keys)
-    state = init_model(cfg, layout)
+    store = ArrayStore(np.asarray(jstore.device_array()), jstore.keys,
+                       device="cpu")
+    state = init_model(cfg, layout, "cpu")
     if variables is not None:
         state.model.load_state_dict(from_flax(variables))
     rules = lc_nic_l2_rules(cfg)
