@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives three paths, each at the full
+``nvcc`` a source, in parallel), then drives four paths, each at the full
 width of its model:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -22,12 +22,22 @@ width of its model:
   a 3-step dropout-off trajectory through K1 against the same steps through
   the plain gather, trains one epoch of 140 scanned steps with the scanned
   validation pass through ``Trainer.fit``, and times K1, the plain gather
-  and the train step.
+  and the train step;
+- the fused teacher-forced sequence, on the flagship model and the same
+  store: holds the whole-sequence forward kernel (K4) against its plain
+  version (and both against float64) residual by residual, the loss and
+  every gradient through ``make_fused_forward_loss(backend="kernel")``
+  against autograd, times K4, its plain version and a decoder fwd+bwd three
+  ways (autograd, the custom backward with the scan forward, with K4) at
+  the flagship and at the wide shape of ``scripts/fused_seq_probe.py``
+  (with a K4 check there too), holds three ``tpu.fused_seq`` train steps
+  against the autograd steps, and trains one epoch with ``tpu.fused_seq``.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
-``torch.profiler``, is printed in every run; ``--profile`` adds tables of
-device time by kernel for one served batch and for the scanned train steps.
+``torch.profiler``, is printed in every run, for the autograd and the
+``tpu.fused_seq`` step; ``--profile`` adds tables of device time by kernel
+for one served batch and for the scanned train steps.
 
 The weights are random, made from a seed, and spread by
 ``ops.fused_decode.spread_for_check`` so that every bias and BatchNorm
@@ -35,7 +45,8 @@ statistic is live and the greedy words vary; the run fails if they do not.
 The flagship layout is the synthetic 360-group one of ``bench.py``. The last
 line is the JSON object ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel with its launches on its path (K2 while serving LcNIC,
-K3 while serving CnnRnn, K1 while training), its error against the plain
+K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
+loss with ``backend="kernel"``), its error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
 where one PyTorch call computes the same function, that call's time. Any
@@ -85,6 +96,21 @@ SCAN_STEPS = 140
 EDGE_STEPS = 20             # the loss must fall from the first to the last
 TRAJ_STEPS, TRAJ_RTOL = 3, 1e-6
 STEP_WINDOW, STEP_REPS = 10, 5  # ms a step: calls of scanned steps, timed
+# the fused sequence: K4 against its plain version (fp32 and float64), the
+# custom backward against autograd (the JAX package's criteria,
+# tests/test_fused_seq.py), and the decoder-only shapes of
+# scripts/fused_seq_probe.py
+SEQ_ATOL = 1e-5     # h, c, z and hw_pre; alpha is held to ALPHA_ATOL
+GRAD_RTOL = 2e-5    # of max(1, the leaf's largest entry)
+FUSED_LOSS_ATOL, FUSED_PARAM_ATOL = 2e-5, 5e-5
+FLAGSHIP_DECODER = dict(units=512, group_size=32, embedding_text=512,
+                        attn_units=32, vocab_size=5001, max_length=15,
+                        head_dim=256)
+PROBE_WIDE = dict(units=2048, group_size=128, embedding_text=1024,
+                  attn_units=256, vocab_size=8192, max_length=15,
+                  head_dim=2048)
+PROBE_WIDE_BATCH = 256
+DEC_REPS = 5
 
 
 def card_line() -> str:
@@ -599,9 +625,10 @@ def check_trajectory(layout, store, pipe, device, card: str) -> None:
                            "the plain gather")
 
 
-def train(device, card: str, with_profile: bool) -> dict:
-    """The training phase; returns K1's entry of the kernels line."""
-    from masters_thesis_tpu_torch.ops.gather import gather_rows
+def fit_epoch(cfg, layout, store, train_pipe, val_pipe, device):
+    """One epoch of ``Trainer.fit`` on a fresh state, scanned from the
+    device tables with the scanned validation pass; returns the state, the
+    trainer, the logs and the per-step losses."""
     from masters_thesis_tpu_torch.train import steps
     from masters_thesis_tpu_torch.train.loop import Callback, Trainer
     from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
@@ -615,6 +642,73 @@ def train(device, card: str, with_profile: bool) -> dict:
 
         def on_batch_end(self, trainer, step, logs):
             self.rows.append(logs)
+
+    rules = lc_nic_l2_rules(cfg)
+    state = init_model(cfg, layout, device, pregathered=True)
+    hook = Rows()
+    trainer = Trainer(cfg, steps.make_train_step(cfg, rules),
+                      steps.make_eval_step(cfg, rules), state, train_pipe,
+                      val_pipe, callbacks=[hook], store=store)
+    trainer.use_scanned_steps(
+        steps.make_scanned_train_steps_from_tables(cfg, rules), tables=True)
+    trainer.use_scanned_eval(
+        steps.make_scanned_eval_steps_from_tables(cfg, rules))
+    logs = trainer.fit()
+    losses = np.array([r["loss"] for r in hook.rows])
+    if len(losses) != len(train_pipe) or not np.isfinite(losses).all() \
+            or not np.isfinite(logs["val_loss"]):
+        raise RuntimeError("a training loss is not finite, or steps are "
+                           "missing")
+    first, last = losses[:EDGE_STEPS].mean(), losses[-EDGE_STEPS:].mean()
+    if not last < first:
+        raise RuntimeError(f"the loss did not fall: {first} -> {last}")
+    return state, trainer, logs, losses
+
+
+def time_steps(cfg, state, trainer, train_pipe, device, card: str,
+               label: str, with_profile: bool) -> float:
+    """A scanned train step's time: CUDA events around calls of STEP_WINDOW
+    scanned steps, STEP_REPS of them, then the kernels' own time in one more
+    such call. Returns the median ms a step."""
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+
+    scanned = steps.make_scanned_train_steps_from_tables(
+        cfg, lc_nic_l2_rules(cfg))
+    sel = torch.as_tensor(np.stack([b["sel"] for _, b in zip(
+        range(STEP_WINDOW), train_pipe.epoch(1))]), device=device)
+    data = trainer.store.device_array()
+
+    def window():
+        scanned(state, data, *trainer._scan_tables, sel)
+
+    window()
+    wall = [cuda_ms(window, reps=1, warmup=0) / STEP_WINDOW
+            for _ in range(STEP_REPS)]
+    med = float(np.median(wall))
+    print(f"{label} at B={BATCH}: {med:.3f} ms a step by CUDA events, "
+          f"median of {STEP_REPS} calls of {STEP_WINDOW} scanned steps (min "
+          f"{min(wall):.3f}, max {max(wall):.3f}; {1e3 / med:.2f} steps/s); "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    busy = device_time(window, f"{STEP_WINDOW} scanned steps ({label})",
+                       per=STEP_WINDOW, unit="step", table=with_profile,
+                       rows=25)
+    if busy > 0:
+        print(f"{label} device time {busy:.3f} ms a step (kernels, "
+              f"torch.profiler), {busy / med:.1%} of the median ms a step by "
+              f"CUDA events above [{card}]")
+    else:
+        print(f"{label} device time: not measured (the profiler saw no "
+              f"kernels)")
+    return med
+
+
+def train(device, card: str, with_profile: bool):
+    """The training phase; returns K1's entry of the kernels line and what
+    the fused-sequence phase reuses: the layout, the store, the pipes and
+    the epoch's steps/s."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
 
     cfg = train_config()
     torch.cuda.reset_peak_memory_stats()
@@ -630,69 +724,331 @@ def train(device, card: str, with_profile: bool) -> dict:
     k1 = check_gather(store, card)
     check_trajectory(layout, store, train_pipe, device, card)
 
-    rules = lc_nic_l2_rules(cfg)
-    state = init_model(cfg, layout, device, pregathered=True)
-    hook = Rows()
-    trainer = Trainer(cfg, steps.make_train_step(cfg, rules),
-                      steps.make_eval_step(cfg, rules), state, train_pipe,
-                      val_pipe, callbacks=[hook], store=store)
-    trainer.use_scanned_steps(
-        steps.make_scanned_train_steps_from_tables(cfg, rules), tables=True)
-    trainer.use_scanned_eval(
-        steps.make_scanned_eval_steps_from_tables(cfg, rules))
     gather_rows.launches = 0
-    logs = trainer.fit()
+    state, trainer, logs, losses = fit_epoch(cfg, layout, store, train_pipe,
+                                             val_pipe, device)
     launches = gather_rows.launches
-    losses = np.array([r["loss"] for r in hook.rows])
     batches = len(train_pipe) + len(val_pipe)
-    first, last = losses[:EDGE_STEPS].mean(), losses[-EDGE_STEPS:].mean()
     print(f"one flagship epoch through Trainer.fit (scan_steps {SCAN_STEPS}, "
           f"dropout 0.2, Adam beta_2 0.98, clipnorm 0.1, L2): {len(losses)} "
-          f"steps, loss {first:.4f} (first {EDGE_STEPS}) -> {last:.4f} (last "
-          f"{EDGE_STEPS}), val_loss {logs['val_loss']:.4f}, val_accuracy "
+          f"steps, loss {losses[:EDGE_STEPS].mean():.4f} (first {EDGE_STEPS}) "
+          f"-> {losses[-EDGE_STEPS:].mean():.4f} (last {EDGE_STEPS}), "
+          f"val_loss {logs['val_loss']:.4f}, val_accuracy "
           f"{logs['val_accuracy']:.4f}; K1 launches {launches} (train + val "
           f"batches {batches})")
     print(f"train steps/s over the epoch: {logs['steps_per_sec']:.2f} "
           f"(epoch {logs['epoch_time']:.2f} s with validation) [{card}]")
-    if len(losses) != len(train_pipe) or not np.isfinite(losses).all() \
-            or not np.isfinite(logs["val_loss"]):
-        raise RuntimeError("a training loss is not finite, or steps are "
-                           "missing")
-    if not last < first:
-        raise RuntimeError(f"the loss did not fall: {first} -> {last}")
     if launches < batches:
         raise RuntimeError(f"K1 launched {launches} times for {batches} "
                            f"train and val batches")
+    time_steps(cfg, state, trainer, train_pipe, device, card, "train step",
+               with_profile)
+    return ({"launches": launches, **k1},
+            (layout, store, train_pipe, val_pipe, logs["steps_per_sec"]))
 
-    # a step's time: CUDA events around calls of STEP_WINDOW scanned steps,
-    # STEP_REPS of them, then the kernels' own time in one more such call
-    scanned = steps.make_scanned_train_steps_from_tables(cfg, rules)
+
+# ---- the fused teacher-forced sequence (K4 and the custom backward) ----
+
+class GivenFeatures(torch.nn.Module):
+    """An encoder that passes its input through: a decoder-only NIC on
+    seeded random features, as ``scripts/fused_seq_probe.py`` measures."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.out_dim = dim
+
+    def forward(self, x, training=False, generator=None):
+        return x
+
+
+def seq_inputs(model, betas, tokens) -> tuple:
+    """K4's arguments for ``betas`` and ``tokens`` through ``model`` in eval
+    mode: pre, features, the embedded tokens and the seven weights."""
+    from masters_thesis_tpu_torch.models.common import activation
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+
+    with torch.no_grad():
+        features = model.encode(betas)
+        pre = activation(model.attention.W1(features),
+                         model.attn_inner_activation)
+        sp = fs.extract_seq_params(model)
+        return (pre, features, model.embed(tokens),
+                *(sp[k].detach() for k in fs.W_KEYS))
+
+
+def seq_bound(inputs) -> dict:
+    """``bound`` of one K4 forward on ``inputs``: each input read once, the
+    five residuals written once, and per row and step the fp32
+    multiply-adds of h W2, the scores, the context and the cell."""
+    pre, features, emb, w2 = inputs[:4]
+    B, R, A = pre.shape
+    T, E = emb.shape[1:]
+    D, U = features.shape[2], w2.shape[0]
+    read = sum(t.numel() for t in inputs)
+    written = T * B * (U + U + R + 4 * U + A)
+    fma = B * T * (U * A + R * A + R * D + (D + E + U) * 4 * U)
+    return bound(4 * (read + written), 2 * fma)
+
+
+@torch.inference_mode()
+def check_seq_kernel(inputs, attn_slope: float, card: str, label: str,
+                     timed: bool = True) -> dict:
+    """K4 against its plain version on the same inputs, and both against
+    the plain version in float64, residual by residual; with ``timed``,
+    then both timed. Returns K4's entry of the kernels line, less its
+    launches."""
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+
+    names = ("h", "c", "alpha", "z", "hw_pre")
+    got = fs.fused_seq_forward(*inputs, attn_slope)
+    torch.cuda.synchronize()
+    want = fs.fused_seq_forward_reference(*inputs, attn_slope)
+    wide = fs.fused_seq_forward_reference(*(t.double() for t in inputs),
+                                          attn_slope)
+    err = lambda a, b: float((a.double() - b.double()).abs().max())  # noqa
+    errs = {n: err(g, w) for n, g, w in zip(names, got, want)}
+    vs64 = {who: {n: err(x, w) for n, x, w in zip(names, out, wide)}
+            for who, out in (("kernel", got), ("plain", want))}
+    B, T, R = got[2].shape
+    shapes = ", ".join(f"{n} {tuple(g.shape)}" for n, g in zip(names, got))
+    print(f"{label} vs plain at B={B} T={T} R={R} ({shapes}): max abs err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (limits: alpha {ALPHA_ATOL}, others {SEQ_ATOL}) [{card}]")
+    for who, e in vs64.items():
+        print(f"{label}: the {who} version vs the plain version in float64: "
+              + ", ".join(f"{n} {x:.3e}" for n, x in e.items()))
+    for e in (errs, *vs64.values()):
+        if not (e["alpha"] <= ALPHA_ATOL
+                and all(e[n] <= SEQ_ATOL for n in names if n != "alpha")):
+            raise RuntimeError(f"{label} disagrees with its plain version "
+                               f"or with float64: {errs} {vs64}")
+    if not all(torch.isfinite(g).all() for g in got):
+        raise RuntimeError(f"{label} produced a value that is not finite")
+    entry = {"max_abs_err": max(errs.values())}
+    if not timed:
+        return entry
+    ms = cuda_ms(lambda: fs.fused_seq_forward(*inputs, attn_slope))
+    plain_ms = cuda_ms(lambda: fs.fused_seq_forward_reference(*inputs,
+                                                              attn_slope))
+    work = seq_bound(inputs)
+    print(f"{label} forward at B={B}, T={T}: kernel {ms:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms, bound {work['bound_ms']:.4f} ms (by "
+          f"{work['bound_by']}) [{card}]")
+    return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
+            "library_ms": None}
+
+
+def check_seq_gradients(model, betas, tokens, card: str) -> None:
+    """Loss and every parameter's gradient through
+    ``make_fused_forward_loss(backend="kernel")`` against autograd of the
+    model's eval forward and ``caption_loss`` on the same weights, the
+    encoder included, within GRAD_RTOL; against autograd in float64 no
+    farther than fp32 autograd is, plus GRAD_RTOL; and the custom backward
+    in float64 against autograd in float64, within 1e-9."""
+    import copy
+
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+    from masters_thesis_tpu_torch.train.losses import caption_loss
+
+    target = torch.roll(tokens, -1, 1)
+
+    def autograd(m, x):
+        a0 = torch.zeros(len(x), m.units, dtype=x.dtype, device=x.device)
+        loss = caption_loss(m(x, tokens, a0, a0)[0], target)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    loss = fs.make_fused_forward_loss(model, None, "kernel")(betas, tokens,
+                                                             target)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    ref_loss, ref = autograd(model, betas)
+    model64 = copy.deepcopy(model).double()
+    loss64, ref64 = autograd(model64, betas.double())
+    names = [n for n, _ in model.named_parameters()]
+
+    def worst(gs, want):
+        """The largest error over the leaves, each in units of max(1, the
+        leaf's largest entry); attention.V.bias apart (its gradient is
+        exactly 0: softmax ignores a shift of every score)."""
+        out = {}
+        for n, g, w in zip(names, gs, want):
+            if n != "attention.V.bias":
+                scale = max(1.0, float(w.abs().max()))
+                out[n] = float((g.double() - w.double()).abs().max()) / scale
+        top = max(out, key=out.get)
+        return out[top], top
+
+    e, leaf = worst(grads, ref)
+    e64, leaf64 = worst(grads, ref64)
+    a64, aleaf64 = worst(ref, ref64)
+    v_bias = max(float(g[names.index("attention.V.bias")].abs().max())
+                 for g in (grads, ref))
+    # the custom backward in float64 (scan forward) against autograd in
+    # float64: equal algebra, so what parts the fp32 routes from float64 is
+    # fp32's own rounding, shared by both
+    loss_s64 = fs.make_fused_forward_loss(model64, None, "scan")(
+        betas.double(), tokens, target)
+    s64, _ = worst(torch.autograd.grad(loss_s64, list(model64.parameters())),
+                   ref64)
+    print(f"fused loss (K4 forward, custom backward) {loss.item():.6f}, "
+          f"autograd {ref_loss.item():.6f}, float64 {loss64.item():.6f}; "
+          f"gradients of {len(names)} leaves: max err {e:.3e} x max(1, "
+          f"|leaf|) ({leaf}) vs autograd (limit {GRAD_RTOL}), {e64:.3e} "
+          f"({leaf64}) vs float64, where autograd is {a64:.3e} ({aleaf64}) "
+          f"from float64 (limit: autograd's + {GRAD_RTOL}); the custom "
+          f"backward in float64 {s64:.1e} from autograd in float64; "
+          f"|d attention.V.bias| {v_bias:.1e} [{card}]")
+    if not (abs(loss.item() - ref_loss.item()) <= 1e-5 and e <= GRAD_RTOL
+            and e64 <= a64 + GRAD_RTOL and s64 <= 1e-9 and v_bias <= 1e-5):
+        raise RuntimeError("the fused sequence's gradients disagree with "
+                           "autograd")
+
+
+def decoder_rows(model, features, tokens, card: str, label: str) -> None:
+    """A decoder fwd+bwd a step, the three rows of
+    ``scripts/fused_seq_probe.py``: autograd of the model's step loop, the
+    custom backward with the scan forward, and with K4; every gradient
+    consumed."""
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+    from masters_thesis_tpu_torch.train.losses import caption_loss
+
+    target = torch.roll(tokens, -1, 1)
+    params = list(model.parameters())
+    a0 = torch.zeros(len(tokens), model.units, device=tokens.device)
+    losses = {
+        "autograd": lambda: caption_loss(
+            model(features, tokens, a0, a0)[0], target),
+        "custom backward, scan forward":
+            lambda: fs.make_fused_forward_loss(model, None, "scan")(
+                features, tokens, target),
+        "custom backward, K4 forward":
+            lambda: fs.make_fused_forward_loss(model, None, "kernel")(
+                features, tokens, target),
+    }
+    times = {name: cuda_ms(lambda fn=fn: torch.autograd.grad(fn(), params),
+                           reps=DEC_REPS, warmup=1)
+             for name, fn in losses.items()}
+    print(f"decoder fwd+bwd a step at {label}: " + ", ".join(
+        f"{name} {ms:.3f} ms" for name, ms in times.items()) + f" [{card}]")
+
+
+def decoder_model(device, widths: dict, generator):
+    from masters_thesis_tpu_torch.models.nic import NIC
+
+    w = dict(widths)
+    return NIC(GivenFeatures(w.pop("group_size")), units=w["units"],
+               embedding_text=w["embedding_text"],
+               attn_units=w["attn_units"], vocab_size=w["vocab_size"],
+               max_length=w["max_length"], head_dim=w["head_dim"],
+               generator=generator).to(device).eval()
+
+
+def check_fused_trajectory(layout, store, pipe, device, card: str) -> None:
+    """Three dropout-off steps with ``tpu.fused_seq`` against the autograd
+    steps, from the same weights over the same batches of the store."""
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+    from masters_thesis_tpu_torch.train.state import init_model
+
+    tables = tuple(torch.as_tensor(t, device=device) for t in (
+        pipe.store_idx, pipe.pairs.tokens, pipe.targets))
     sel = torch.as_tensor(np.stack([b["sel"] for _, b in zip(
-        range(STEP_WINDOW), train_pipe.epoch(1))]), device=device)
+        range(TRAJ_STEPS), pipe.epoch(0))]), device=device)
+    out = []
+    for fused in (True, False):
+        cfg = train_config(dropout_features=0.0, dropout_text=0.0,
+                           dropout_attn=0.0, dropout_lstm=0.0,
+                           dropout_out=0.0)
+        cfg.tpu.fused_seq = fused
+        state = init_model(cfg, layout, device, pregathered=True)
+        state, m = steps.make_scanned_train_steps_from_tables(
+            cfg, lc_nic_l2_rules(cfg))(state, store.device_array(), *tables,
+                                       sel)
+        out.append((m["loss"], dict(state.model.named_parameters())))
+    (fl, fp), (al, ap) = out
+    loss_err = float((fl - al).abs().max())
+    lr_bound = TRAJ_STEPS * cfg.alpha * 1.001
+    with torch.no_grad():
+        errs = {n: float((p - ap[n]).abs().max()) for n, p in fp.items()}
+    v_bias = errs.pop("attention.V.bias")
+    leaf = max(errs, key=errs.get)
+    print(f"{TRAJ_STEPS}-step dropout-off trajectory, tpu.fused_seq vs "
+          f"autograd: losses {fl.tolist()} vs {al.tolist()}, max err "
+          f"{loss_err:.3e} (limit {FUSED_LOSS_ATOL}); parameters max err "
+          f"{errs[leaf]:.3e} ({leaf}; limit {FUSED_PARAM_ATOL}), "
+          f"attention.V.bias {v_bias:.3e} (zero gradient: held to lr a "
+          f"step, {lr_bound:.1e}) [{card}]")
+    if not (loss_err <= FUSED_LOSS_ATOL and errs[leaf] <= FUSED_PARAM_ATOL
+            and v_bias <= lr_bound):
+        raise RuntimeError("the tpu.fused_seq trajectory leaves the "
+                           "autograd one")
 
-    def window():
-        scanned(state, data, *trainer._scan_tables, sel)
 
-    window()
-    wall = [cuda_ms(window, reps=1, warmup=0) / STEP_WINDOW
-            for _ in range(STEP_REPS)]
-    med = float(np.median(wall))
-    print(f"train step at B={BATCH}: {med:.3f} ms a step by CUDA events, "
-          f"median of {STEP_REPS} calls of {STEP_WINDOW} scanned steps (min "
-          f"{min(wall):.3f}, max {max(wall):.3f}; {1e3 / med:.2f} steps/s); "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
-    busy = device_time(window, f"{STEP_WINDOW} scanned train steps",
-                       per=STEP_WINDOW, unit="step", table=with_profile,
-                       rows=25)
-    if busy > 0:
-        print(f"train step device time {busy:.3f} ms a step (kernels, "
-              f"torch.profiler), {busy / med:.1%} of the median ms a step by "
-              f"CUDA events above [{card}]")
-    else:
-        print("train step device time: not measured (the profiler saw no "
-              "kernels)")
-    return {"launches": launches, **k1}
+def fused_seq(data, device, card: str, with_profile: bool) -> dict:
+    """The fused-sequence phase on the flagship model (``flagship_model``,
+    built again: the serving phase frees it, so the CnnRnn phase finds the
+    card as before this phase existed) and the training store of the train
+    phase; returns K4's entry of the kernels line."""
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+
+    layout, store, train_pipe, val_pipe, autograd_steps_per_s = data
+    model = flagship_model(device)
+    slope = 0.2
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    T, V = WIDTHS["max_length"], WIDTHS["vocab_size"]
+    betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
+    tokens = torch.randint(1, V, (BATCH, T), generator=gen, device=device)
+    k4 = check_seq_kernel(seq_inputs(model, betas, tokens), slope, card,
+                          "K4 (flagship)")
+    fs.fused_seq_forward.launches = 0
+    check_seq_gradients(model, betas, tokens, card)
+    launches = fs.fused_seq_forward.launches
+    print(f"K4 launches through make_fused_forward_loss(backend='kernel'): "
+          f"{launches}")
+    if launches < 1:
+        raise RuntimeError("the fused loss never launched K4")
+
+    # the probe's two shapes, decoder only, on seeded random features
+    # (the flagship model's K4 is checked above; the wide shape's here)
+    for label, widths, batch, check in (
+            ("flagship", FLAGSHIP_DECODER, BATCH, False),
+            ("the probe's wide shape", PROBE_WIDE, PROBE_WIDE_BATCH, True)):
+        dec = decoder_model(device, widths,
+                            torch.Generator().manual_seed(SEED))
+        features = torch.randn(batch, N_GROUPS, widths["group_size"],
+                               generator=gen, device=device)
+        toks = torch.randint(1, widths["vocab_size"],
+                             (batch, widths["max_length"]), generator=gen,
+                             device=device)
+        if check:
+            check_seq_kernel(seq_inputs(dec, features, toks), slope, card,
+                             f"K4 ({label})")
+        decoder_rows(dec, features, toks, card, f"{label} (B={batch}, "
+                     f"U={widths['units']}, A={widths['attn_units']}, "
+                     f"D={widths['group_size']}, R={N_GROUPS}, "
+                     f"E={widths['embedding_text']}, "
+                     f"head {widths['head_dim']}, V={widths['vocab_size']})")
+        del dec
+        torch.cuda.empty_cache()
+
+    # the production route: tpu.fused_seq through the train steps
+    check_fused_trajectory(layout, store, train_pipe, device, card)
+    cfg = train_config()
+    cfg.tpu.fused_seq = True
+    state, trainer, logs, losses = fit_epoch(cfg, layout, store, train_pipe,
+                                             val_pipe, device)
+    route = ("the fused sequence (custom backward, scan forward)"
+             if fs.fused_train_supported(state.model, cfg) else "autograd")
+    print(f"one flagship epoch with tpu.fused_seq through Trainer.fit, route "
+          f"{route}: {len(losses)} steps, loss "
+          f"{losses[:EDGE_STEPS].mean():.4f} (first {EDGE_STEPS}) -> "
+          f"{losses[-EDGE_STEPS:].mean():.4f} (last {EDGE_STEPS}), val_loss "
+          f"{logs['val_loss']:.4f}")
+    print(f"train steps/s over the epoch: tpu.fused_seq "
+          f"{logs['steps_per_sec']:.2f}, autograd {autograd_steps_per_s:.2f} "
+          f"(epoch {logs['epoch_time']:.2f} s with validation) [{card}]")
+    time_steps(cfg, state, trainer, train_pipe, device, card,
+               "tpu.fused_seq train step", with_profile)
+    return {"launches": launches, **k4}
 
 
 def main(argv=None) -> int:
@@ -772,7 +1128,8 @@ def main(argv=None) -> int:
     k3 = cnn_rnn(device, tok, card, args.profile)
     torch.cuda.empty_cache()
 
-    k1 = train(device, card, args.profile)
+    k1, train_data = train(device, card, args.profile)
+    k4 = fused_seq(train_data, device, card, args.profile)
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
@@ -783,7 +1140,10 @@ def main(argv=None) -> int:
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276", **k3}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
-        "replaces": "masters_thesis_tpu/ops/gather.py:49", **k1}]}))
+        "replaces": "masters_thesis_tpu/ops/gather.py:49", **k1}, {
+        "name": "fused_seq_forward", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
+        "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,8 +16,10 @@ on InceptionV3 patch rows (the same path, K3), behind the port's
 ``server.make_caption_server``; and LcNIC training (``data.store`` ->
 ``ops.gather``, K1 -> ``models`` in training mode -> ``train.losses``,
 ``train.optim``, ``train.steps`` -> ``train.loop.Trainer`` over
-``data.pipeline.BatchPipeline``). Entry points run on the card (``cuda``)
-unless the caller passes ``device="cpu"``.
+``data.pipeline.BatchPipeline``), which under ``tpu.fused_seq`` trains the
+decoder through the fused teacher-forced sequence's custom backward
+(``ops.fused_seq``, whose eval-mode forward is K4). Entry points run on
+the card (``cuda``) unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -18,10 +18,13 @@ from typing import Any
 
 @dataclass
 class TPUConfig:
-    """The two ``tpu:`` knobs the ported train path reads."""
+    """The three ``tpu:`` knobs the ported train path reads."""
 
     scan_steps: int = 0              # > 0: K optimisation steps per call
     store_dtype: str = "float32"     # device store: float32 | bfloat16
+    fused_seq: bool = False          # train the decoder through the fused
+    #                                  sequence's custom backward
+    #                                  (ops/fused_seq.py)
 
 
 @dataclass

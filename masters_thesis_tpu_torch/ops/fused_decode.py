@@ -127,7 +127,7 @@ def fused_greedy_decode_gru_reference(pre, features, w2, b2, v, bv, wx, wh,
                         return_margins=return_margins)
 
 
-def _plain_or_kernel(name: str, args) -> bool:
+def plain_or_kernel(name: str, args) -> bool:
     """True for all-CPU tensors (the plain version); False for one CUDA
     device (the kernel); raises on anything else."""
     devices = {a.device for a in args}
@@ -138,6 +138,16 @@ def _plain_or_kernel(name: str, args) -> bool:
             f"{name} needs every tensor on one CUDA device or all on the "
             f"CPU; got {sorted(map(str, devices))}")
     return False
+
+
+def require_hopper(device: torch.device, what: str) -> None:
+    """Raise unless ``device`` is a Hopper card (sm_90), the only target the
+    kernels are built for."""
+    if torch.cuda.get_device_capability(device) != (9, 0):
+        raise RuntimeError(
+            f"{what} is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is "
+            f"sm_{''.join(map(str, torch.cuda.get_device_capability(device)))}")
 
 
 def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
@@ -155,7 +165,7 @@ def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
     ``fused_greedy_decode.launches`` counts the kernel chain's launches."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
             emb_table, emb0, h0, c0)
-    if _plain_or_kernel("fused_greedy_decode", args):
+    if plain_or_kernel("fused_greedy_decode", args):
         return fused_greedy_decode_reference(
             *args, max_length=max_length, slope=slope, attn_slope=attn_slope)
     out = _launch("lstm", args, max_length=max_length, slope=slope,
@@ -181,7 +191,7 @@ def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
     launches."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi, wo,
             bo, emb_table, emb0, h0)
-    if _plain_or_kernel("fused_greedy_decode_gru", args):
+    if plain_or_kernel("fused_greedy_decode_gru", args):
         return fused_greedy_decode_gru_reference(
             *args, max_length=max_length, slope=slope, attn_slope=attn_slope,
             zero_state=zero_state)
@@ -209,11 +219,7 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
 
     a = dict(zip(DECODE_ARGS[cell], args))
     device = a["pre"].device
-    if torch.cuda.get_device_capability(device) != (9, 0):
-        raise RuntimeError(
-            f"the decode kernels are built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} is "
-            f"sm_{''.join(map(str, torch.cuda.get_device_capability(device)))}")
+    require_hopper(device, "the decode kernels")
     B, R, A = a["pre"].shape
     D = a["features"].shape[2]
     U = a["w2"].shape[0]

@@ -6,7 +6,9 @@ immutable pytree that each step replaces; here the step updates the model
 and the optimizer in place and advances ``step``. The dropout masks of step
 s are drawn from ``generator`` reseeded from (seed, s), as the JAX step
 folds the step into its key, so they depend on the seed and s alone; the
-two frameworks draw different masks all the same.
+fused sequence's attention masks are drawn from the integer key of (seed,
+s) on the host (``dropout_key``). The two frameworks draw different masks
+all the same.
 """
 
 from __future__ import annotations
@@ -29,11 +31,15 @@ class TrainState:
     seed: int
     step: int = 0
 
+    def dropout_key(self) -> int:
+        """The current step's 64-bit dropout key, from (seed, step) alone,
+        on the host. The mix reaches the low 32 bits, the only ones the CPU
+        generator reads."""
+        return (self.seed * 0x9E3779B97F4A7C15 + self.step) % 2**64
+
     def dropout_generator(self) -> torch.Generator:
-        """The generator, reseeded for the current step. The mix reaches
-        the low 32 bits, the only ones the CPU generator reads."""
-        return self.generator.manual_seed(
-            (self.seed * 0x9E3779B97F4A7C15 + self.step) % 2**64)
+        """The generator, reseeded from the current step's key."""
+        return self.generator.manual_seed(self.dropout_key())
 
 
 def init_model(cfg, layout, device=None, seed: int | None = None,

@@ -6,6 +6,10 @@ backward and the optimizer, in place on ``state``; SAM (``cfg.sam_rho`` > 0,
 lc_NIC.py:713-838) is its two-pass variant. Every step returns the metrics
 ``loss``, ``L2``, ``attention``, ``accuracy``, ``total`` and ``grad_norm``
 (the global norm of the raw gradients) as 0-dim tensors on the device.
+With ``cfg.tpu.fused_seq`` on, a model that ``ops.fused_seq`` supports
+trains its decoder through the fused sequence's custom backward
+(``make_train_forward_loss``); any other model takes autograd of its
+forward.
 
 "Scanned" steps run K steps inside one call as a Python loop: each step
 indexes the device-resident tables with its row of the (K, B) pair ids,
@@ -22,6 +26,10 @@ from __future__ import annotations
 
 import torch
 
+from masters_thesis_tpu_torch.ops.fused_seq import (
+    fused_train_supported,
+    make_train_forward_loss,
+)
 from masters_thesis_tpu_torch.ops.gather import gather_rows
 from masters_thesis_tpu_torch.train.losses import (
     accuracy,
@@ -61,11 +69,21 @@ def _forward_loss(model, cfg, l2_rules, betas, tokens, target, mask,
 def _step_body(cfg, l2_rules, masked: bool):
     """``one(state, betas, tokens, target) -> (state, metrics)``: one
     optimisation step, SAM's two passes when ``cfg.sam_rho`` > 0."""
+    routes = {}     # model -> its forward and loss, built on first use
+
+    def forward_loss(model):
+        if model not in routes:
+            if cfg.tpu.fused_seq and fused_train_supported(model, cfg):
+                routes[model] = make_train_forward_loss(model, cfg, l2_rules)
+            else:
+                routes[model] = lambda *batch, key: _forward_loss(
+                    model, cfg, l2_rules, *batch)
+        return routes[model]
 
     def loss_and_grads(state, params, betas, tokens, target, mask):
-        total, metrics = _forward_loss(state.model, cfg, l2_rules, betas,
-                                       tokens, target, mask,
-                                       state.dropout_generator())
+        total, metrics = forward_loss(state.model)(
+            betas, tokens, target, mask, state.dropout_generator(),
+            key=state.dropout_key())
         return total, metrics, torch.autograd.grad(total, params)
 
     def one(state, betas, tokens, target):

@@ -3,8 +3,10 @@ the LSTM whole-decode kernel (K2) at a small shape and at flagship LcNIC
 width, through the greedy decoders, and with other activations and a wide
 attention; the GRU whole-decode kernel (K3) in the cases of the CPU tests
 and at full CnnRnn width; the store row gather (K1) at small and flagship
-widths and through three train steps. A CUDA kernel has no CPU mode, so
-every test here needs an NVIDIA Hopper GPU and skips without one.
+widths and through three train steps; the teacher-forced sequence forward
+(K4) at odd and flagship widths, through the custom backward, and against
+K2 on K2's own words (the two share their kernels). A CUDA kernel has no CPU
+mode, so every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -318,3 +320,114 @@ def test_scanned_steps_through_the_kernel_follow_the_plain_gather(cuda):
                             for p in b.model.parameters()])
     assert torch.linalg.vector_norm(diff) <= 1e-6 * torch.linalg.vector_norm(
         norm)
+
+
+# ---- K4: the teacher-forced sequence forward ----
+
+# (B, R, A, D, E, U, T): a batch that is not a multiple of the 8-row tile,
+# regions that are not a multiple of 8, attention and feature widths above
+# a block's 256 threads, and the flagship
+SEQ_SHAPES = {
+    "small-odd": (6, 7, 8, 4, 16, 24, 7),
+    "wide": (11, 13, 300, 260, 24, 40, 5),
+    "flagship": (64, 360, 32, 32, 512, 512, 15),
+}
+SEQ_ATOL = {"alphas": 1e-6, "other": 1e-5}
+
+
+def _seq_inputs(device, B, R, A, D, E, U, T, seed=0):
+    """Seeded inputs of K4 with weights at 1 / sqrt(fan-in) and every bias
+    live."""
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda *s, scale=1.0: (  # noqa: E731
+        torch.randn(*s, generator=gen) * scale).to(device)
+    return (rand(B, R, A), rand(B, R, D), rand(B, T, E),
+            rand(U, A, scale=2 / U ** 0.5), rand(A, scale=0.5),
+            rand(A, scale=3 / A ** 0.5), rand(1),
+            rand(D + E, 4 * U, scale=1 / (D + E) ** 0.5),
+            rand(U, 4 * U, scale=1 / U ** 0.5), rand(4 * U, scale=0.5))
+
+
+@pytest.mark.parametrize("shape", list(SEQ_SHAPES))
+def test_seq_kernel_matches_plain_version(cuda, shape):
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    B, R, A, D, E, U, T = SEQ_SHAPES[shape]
+    inputs = _seq_inputs(cuda, B, R, A, D, E, U, T)
+    before = fused_seq.fused_seq_forward.launches
+    got = fused_seq.fused_seq_forward(*inputs, 0.2)
+    torch.cuda.synchronize()
+    assert fused_seq.fused_seq_forward.launches == before + 1
+    want = fused_seq.fused_seq_forward_reference(*inputs, 0.2)
+    names = ("hseq", "cseq", "alphas", "zs", "hwps")
+    widths = (U, U, R, 4 * U, A)
+    for name, g, w, width in zip(names, got, want, widths):
+        assert g.shape == w.shape == (B, T, width), name
+        atol = SEQ_ATOL["alphas" if name == "alphas" else "other"]
+        assert torch.allclose(g, w, rtol=0, atol=atol), (
+            name, float((g - w).abs().max()))
+    assert torch.allclose(got[2].sum(-1), torch.ones(B, T, device=cuda),
+                          atol=1e-5)
+
+
+def test_seq_kernel_refuses_wrong_shapes(cuda):
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    inputs = list(_seq_inputs(cuda, *SEQ_SHAPES["small-odd"]))
+    inputs[7] = inputs[7][:-1]                       # wx one row short
+    before = fused_seq.fused_seq_forward.launches
+    with pytest.raises(ValueError, match="wx"):
+        fused_seq.fused_seq_forward(*inputs, 0.2)
+    inputs = list(_seq_inputs(cuda, *SEQ_SHAPES["small-odd"]))
+    inputs[0] = inputs[0].cpu()
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_seq.fused_seq_forward(*inputs, 0.2)
+    assert fused_seq.fused_seq_forward.launches == before
+
+
+def test_custom_backward_with_the_kernel_matches_autograd(cuda):
+    """Loss and every parameter's gradient through
+    ``make_fused_forward_loss(backend="kernel")`` against autograd of the
+    model's eval forward, within 2e-5 of the larger of 1 and the leaf's
+    largest entry (the JAX package's criterion)."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+    from masters_thesis_tpu_torch.train.losses import caption_loss
+
+    model, betas = _model_and_betas(cuda, "small")
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(1, 40, (len(betas), 6), generator=gen).to(cuda)
+    target = torch.roll(tokens, -1, 1)
+    names, params = zip(*model.named_parameters())
+    a0 = torch.zeros(len(betas), model.units, device=cuda)
+    ref = caption_loss(model(betas, tokens, a0, a0)[0], target)
+    before = fused_seq.fused_seq_forward.launches
+    loss = fused_seq.make_fused_forward_loss(model, None, "kernel")(
+        betas, tokens, target)
+    assert fused_seq.fused_seq_forward.launches == before + 1
+    assert abs(loss.item() - ref.item()) < 1e-5
+    for name, g, w in zip(names, torch.autograd.grad(loss, params),
+                          torch.autograd.grad(ref, params)):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 2e-5 * scale, name
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_seq_kernel_on_greedy_words_reproduces_the_decode(cuda, shape):
+    """K4 teacher-forced on K2's own greedy words (the start id, then each
+    step's word) runs the same attention and cell kernels on the same
+    inputs as K2, so it gives K2's alphas exactly: the kernels that K2, K3
+    and K4 share behave alike in all three."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    model, betas = _model_and_betas(cuda, shape)
+    T = model.max_length
+    with torch.inference_mode():
+        inputs = fused_decode.decode_inputs(model, betas, 1)
+        words, alphas = fused_decode.fused_greedy_decode(*inputs,
+                                                         max_length=T)
+        tokens = torch.cat([torch.ones_like(words[:, :1]), words[:, :-1]], 1)
+        sp = fused_seq.extract_seq_params(model)
+        out = fused_seq.fused_seq_forward(
+            inputs[0], inputs[1], model.embed(tokens.long()),
+            *(sp[k] for k in fused_seq.W_KEYS), 0.2)
+    assert torch.equal(out[2], alphas)
