@@ -5,8 +5,8 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives four paths, each at the full
-width of its model:
+``nvcc`` a source, in parallel), then drives five paths, each at the full
+width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
   PyTorch version, serves three HTTP caption requests through the port's
@@ -31,7 +31,15 @@ width of its model:
   ways (autograd, the custom backward with the scan forward, with K4) at
   the flagship and at the wide shape of ``scripts/fused_seq_probe.py``
   (with a K4 check there too), holds three ``tpu.fused_seq`` train steps
-  against the autograd steps, and trains one epoch with ``tpu.fused_seq``.
+  against the autograd steps, and trains one epoch with ``tpu.fused_seq``;
+- the gather probe (``masters_thesis_tpu_torch.scripts.gather_probe``, the
+  port of ``scripts/gather_probe.py``) on its 1,024 x 327,684 fp32 store
+  (1.34 GB): holds P1 (``gather_rows_chunked``) at its four chunks and P2
+  (``gather_rows_bulk``) at its four stage counts against their plain
+  version bit for bit, checks P3 (the bulk gather at 4 stages) exactly,
+  times each beside the plain version and ``index_select``, runs the probe
+  through its entry point, and times P1 and P2 at their best settings
+  beside K1 on the training store.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -46,7 +54,8 @@ The flagship layout is the synthetic 360-group one of ``bench.py``. The last
 line is the JSON object ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel with its launches on its path (K2 while serving LcNIC,
 K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
-loss with ``backend="kernel"``), its error against the plain
+loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run), its
+error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
 where one PyTorch call computes the same function, that call's time. Any
@@ -58,9 +67,9 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import io
 import json
-import subprocess
 import sys
 import threading
 import time
@@ -113,13 +122,6 @@ PROBE_WIDE_BATCH = 256
 DEC_REPS = 5
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` in ms, by CUDA events over ``reps``."""
     for _ in range(warmup):
@@ -133,6 +135,18 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def release() -> None:
+    """Free what the last phase left on the card: first the reference
+    cycles it left, which Python's cyclic collector would otherwise free at
+    a moment set by how many objects the program has made, then the
+    allocator's cache. Where the next phase's tensors land then does not
+    depend on that moment: K3, bound by L2 latency, read 3.10-3.17 ms a
+    decode on an H100 when the LcNIC phase's memory was still held as the
+    CnnRnn weights were placed, and 2.80-2.81 ms when it was not."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -1051,6 +1065,184 @@ def fused_seq(data, device, card: str, with_profile: bool) -> dict:
     return {"launches": launches, **k4}
 
 
+# ---- the gather probe (P1, P2, P3) ----
+
+def check_probe_kernels(device, card: str) -> dict:
+    """P1 at the probe's four chunks (over the store padded to 328,704
+    columns) and P2 at its four stage counts (over the raw store), on the
+    probe's 1,024 x 327,684 fp32 store: each bit for bit against the plain
+    version on 64 ids with repeats and ids -3, N and N + 1000, then each
+    timed beside the plain version and ``index_select`` on 64 ids in range;
+    P3, the bulk gather at 4 stages, exact against ``index_select`` on the
+    probe's first row of ids, and timed. Returns the three entries of the
+    kernels line, less their launches."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows_bulk,
+        gather_rows_chunked,
+        gather_rows_reference,
+    )
+    from masters_thesis_tpu_torch.scripts import gather_probe as gp
+
+    raw = gp.make_store(gp.N, gp.V, device)
+    padded = gp.pad_store(raw)
+    n, batch = gp.N, gp.B
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    edge = torch.randint(0, n, (batch,), generator=gen, device=device,
+                         dtype=torch.int32)
+    edge[1] = edge[0]
+    edge[2], edge[3], edge[4] = -3, n, n + 1000
+    ids = torch.randint(0, n, (batch,), generator=gen, device=device,
+                        dtype=torch.int32)
+
+    def timed(fn, store, ids) -> dict:
+        """``fn``'s ms beside the plain version's, ``index_select``'s and
+        the bound, on ``ids`` of ``store``."""
+        moved = 2 * len(ids) * store.shape[1] * store.element_size()
+        ids_long = ids.long()
+        return {"ms": cuda_ms(fn, reps=50, warmup=5),
+                "plain_ms": cuda_ms(
+                    lambda: gather_rows_reference(store, ids), reps=50,
+                    warmup=5),
+                **bound(moved + ids.numel() * ids.element_size(), 0),
+                "library_ms": cuda_ms(
+                    lambda: store.index_select(0, ids_long), reps=50,
+                    warmup=5)}
+
+    entries = {}
+    for key, wrapper, store, settings in (
+            ("P1", gather_rows_chunked, padded,
+             {f"s_block={sb}": {"chunk_cols": sb * gp.LANES}
+              for sb in gp.S_BLOCKS}),
+            ("P2", gather_rows_bulk, raw,
+             {f"nb={nb}": {"stages": nb} for nb in gp.STAGES})):
+        want = gather_rows_reference(store, edge)
+        times = {}
+        for label, kw in settings.items():
+            got = wrapper(store, edge, **kw)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise RuntimeError(
+                    f"{key} ({wrapper.__name__} {label}) differs from its "
+                    f"plain version: max abs error "
+                    f"{float((got - want).abs().max())}")
+            times[label] = cuda_ms(lambda: wrapper(store, ids, **kw),
+                                   reps=50, warmup=5)
+        best = min(times, key=times.get)
+        entry = timed(lambda: wrapper(store, ids, **settings[best]), store,
+                      ids)
+        print(f"{key} {wrapper.__name__} vs plain on {batch} rows of the "
+              f"{n} x {store.shape[1]} fp32 store at every setting "
+              f"(repeated ids, ids -3, {n}, {n + 1000}): identical; "
+              + ", ".join(f"{s} {ms * 1e3:.2f} us" for s, ms in
+                          times.items())
+              + f"; plain clamp + index_select {entry['plain_ms'] * 1e3:.2f}"
+              f" us, index_select alone {entry['library_ms'] * 1e3:.2f} us, "
+              f"bound {entry['bound_ms'] * 1e3:.2f} us (by "
+              f"{entry['bound_by']}) [{card}]")
+        entries[key] = {"max_abs_err": 0.0, **entry, "best": best,
+                        "best_kwargs": settings[best], "settings_ms": times}
+
+    one = torch.as_tensor(gp.make_ids(gp.N, gp.B, gp.K)[0], device=device)
+    if not gp.exact_check(raw, one):
+        raise RuntimeError("P3: the bulk gather at 4 stages is not exact")
+    entry = timed(lambda: gather_rows_bulk(raw, one, gp.EXACT_STAGES), raw,
+                  one)
+    print(f"P3 gather_rows_bulk at {gp.EXACT_STAGES} stages on the probe's "
+          f"first {batch} ids: exact: True; {entry['ms'] * 1e3:.2f} us, "
+          f"plain {entry['plain_ms'] * 1e3:.2f} us, index_select "
+          f"{entry['library_ms'] * 1e3:.2f} us, bound "
+          f"{entry['bound_ms'] * 1e3:.2f} us [{card}]")
+    entries["P3"] = {"max_abs_err": 0.0, **entry}
+    return entries
+
+
+def probe_at_k1_shape(store, entries: dict, card: str) -> None:
+    """P1 and P2 at their best settings on the probe's store, beside K1 and
+    ``index_select``, on 64 rows of the training store (K1's real shape):
+    equal to K1, then timed in the order K1, P1, P2, index_select and back.
+    Adds ``at_k1_shape`` to the P1 and P2 entries."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_bulk,
+        gather_rows_chunked,
+    )
+
+    data = store.device_array()
+    n = data.shape[0]
+    gen = torch.Generator(device=data.device).manual_seed(SEED + 1)
+    ids = torch.randint(0, n, (BATCH,), generator=gen, device=data.device,
+                        dtype=torch.int32)
+    p1, p2 = entries["P1"]["best"], entries["P2"]["best"]
+    p1_kw, p2_kw = entries["P1"]["best_kwargs"], entries["P2"]["best_kwargs"]
+    ids_long = ids.long()
+    runs = {"K1": lambda: gather_rows(data, ids),
+            "P1": lambda: gather_rows_chunked(data, ids, **p1_kw),
+            "P2": lambda: gather_rows_bulk(data, ids, **p2_kw),
+            "index_select": lambda: data.index_select(0, ids_long)}
+    k1 = runs["K1"]()
+    for key in ("P1", "P2"):
+        if not torch.equal(runs[key](), k1):
+            raise RuntimeError(f"{key} differs from K1 on the training store")
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        times[name].append(cuda_ms(runs[name], reps=50, warmup=5))
+    moved = 2 * BATCH * data.shape[1] * data.element_size()
+    print(f"at K1's shape ({BATCH} rows of the {n} x {data.shape[1]} "
+          f"training store, {moved / 2e6:.1f} MB), in turns: "
+          + ", ".join(f"{name} "
+                      + "/".join(f"{ms * 1e3:.2f}" for ms in ts) + " us"
+                      for name, ts in times.items())
+          + f" (P1 at {p1}, P2 at {p2}; bound "
+          f"{bound(moved, 0)['bound_ms'] * 1e3:.2f} us) [{card}]")
+    for key, setting in (("P1", p1), ("P2", p2)):
+        entries[key]["at_k1_shape"] = {
+            "setting": setting, "ms": times[key], "k1_ms": times["K1"],
+            "library_ms": times["index_select"]}
+
+
+def gather_probe(train_data, device, card: str) -> list[dict]:
+    """The gather-probe phase: the probe's kernels checked and timed
+    (``check_probe_kernels``), then the probe itself through its entry point
+    at its own sizes with the P1 and P2 launch counts set to 0 before and
+    read after, then P1 and P2 at K1's shape on the training store. Returns
+    the P1, P2 and P3 entries of the kernels line."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows_bulk,
+        gather_rows_chunked,
+    )
+    from masters_thesis_tpu_torch.scripts import gather_probe as gp
+
+    entries = check_probe_kernels(device, card)
+    release()
+    gather_rows_chunked.launches = 0
+    gather_rows_bulk.launches = 0
+    result = gp.run(device=device)
+    launches = {"P1": gather_rows_chunked.launches,
+                "P3": result["exact_launches"]}
+    launches["P2"] = gather_rows_bulk.launches - launches["P3"]
+    print(f"launches through the probe's run: P1 {launches['P1']}, P2 "
+          f"{launches['P2']}, P3 {launches['P3']}")
+    if not result["exact"] or min(launches.values()) < 1:
+        raise RuntimeError(f"the probe's run: exact {result['exact']}, "
+                           f"launches {launches}")
+    release()
+    probe_at_k1_shape(train_data[1], entries, card)
+    return [{
+        "name": "gather_rows_chunked", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/gather_probe.cu",
+        "replaces": "scripts/gather_probe.py:44",
+        "launches": launches["P1"], **entries["P1"]}, {
+        "name": "gather_rows_bulk", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/gather_probe.cu",
+        "replaces": "scripts/gather_probe.py:82",
+        "launches": launches["P2"], **entries["P2"]}, {
+        "name": f"gather_rows_bulk[stages={gp.EXACT_STAGES}]",
+        "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/gather_probe.cu",
+        "replaces": "scripts/gather_probe.py:146",
+        "launches": launches["P3"], **entries["P3"]}]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1064,13 +1256,14 @@ def main(argv=None) -> int:
     from masters_thesis_tpu_torch.data.pairs import clean_caption
     from masters_thesis_tpu_torch.data.synthetic import synthetic_captions
     from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
+    from masters_thesis_tpu_torch.device import card_line
     from masters_thesis_tpu_torch.ops import fused_decode as fd
     from masters_thesis_tpu_torch.serve import Captioner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    card = card_line()
+    card = card_line(device)
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} "
@@ -1123,13 +1316,16 @@ def main(argv=None) -> int:
         device_time(lambda: captioner.caption(rows[:BATCH]),
                     "one served batch", table=True)
     del model, captioner, rows, betas
-    torch.cuda.empty_cache()
+    release()
 
     k3 = cnn_rnn(device, tok, card, args.profile)
-    torch.cuda.empty_cache()
+    release()
 
     k1, train_data = train(device, card, args.profile)
     k4 = fused_seq(train_data, device, card, args.profile)
+    probes = gather_probe(train_data, device, card)
+    del train_data
+    release()
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
@@ -1143,7 +1339,8 @@ def main(argv=None) -> int:
         "replaces": "masters_thesis_tpu/ops/gather.py:49", **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
-        "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4}]}))
+        "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},
+        *probes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,8 @@ the CPU."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -16,3 +18,15 @@ def resolve_device(device=None) -> torch.device:
             f"device {device} requested (the default) but CUDA is not "
             f"available; pass device='cpu' to run on the CPU")
     return device
+
+
+def card_line(device) -> str:
+    """What a time taken on ``device`` was taken on: the card's name and
+    power limit as ``nvidia-smi`` gives them, or a note that the CPU's host
+    clock times no device."""
+    if torch.device(device).type != "cuda":
+        return "cpu, host clock: no device time"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()

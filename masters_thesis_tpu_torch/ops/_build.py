@@ -33,7 +33,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # and the stream; mtt_fused_greedy_decode_gru: the same with the zero-state
 # flag before the slopes; mtt_fused_seq_forward: 18 pointers, 7 sizes, the
 # attention's slope, the device and the stream; mtt_gather_rows: store, ids,
-# out, 4 byte sizes, rows, id width, device, stream
+# out, 4 byte sizes, rows, id width, device, stream; mtt_gather_rows_chunked:
+# the same with the chunk's bytes after the sizes; mtt_gather_rows_bulk: the
+# same with the stages after the sizes
 _SIGNATURES = {
     "mtt_fused_greedy_decode": ([_P] * 23 + [_I] * 9 + [_F, _F, _I, _P],
                                 ctypes.c_int),
@@ -42,6 +44,10 @@ _SIGNATURES = {
     "mtt_fused_seq_forward": ([_P] * 18 + [_I] * 7 + [_F, _I, _P],
                               ctypes.c_int),
     "mtt_gather_rows": ([_P] * 3 + [_L] * 4 + [_I] * 3 + [_P], ctypes.c_int),
+    "mtt_gather_rows_chunked": ([_P] * 3 + [_L] * 5 + [_I] * 3 + [_P],
+                                ctypes.c_int),
+    "mtt_gather_rows_bulk": ([_P] * 3 + [_L] * 4 + [_I] * 4 + [_P],
+                             ctypes.c_int),
     "mtt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -431,3 +431,99 @@ def test_seq_kernel_on_greedy_words_reproduces_the_decode(cuda, shape):
             inputs[0], inputs[1], model.embed(tokens.long()),
             *(sp[k] for k in fused_seq.W_KEYS), 0.2)
     assert torch.equal(out[2], alphas)
+
+
+# ---- P1, P2, P3: the gather probe's kernels ----
+
+# (store rows, row width, copied width, ids): a row of 1,332 B whose pitch
+# is not a multiple of 16, a cut width, more ids than SMs, and the probe's
+# raw rows (fp32 1,310,736 B; bf16 655,368 B, not a multiple of 16)
+PROBE_SHAPES = {
+    "small-odd": (37, 333, 333, 11),
+    "small-cut": (37, 333, 201, 11),
+    "many-ids": (37, 333, 333, 500),
+    "probe-raw": (40, 327_684, 327_684, 11),
+}
+# P1's chunks in columns: one that divides no width here, the probe's
+# s_block 8 and 856 (x 128 lanes), and more than a row
+CHUNK_COLS = (100, 8 * 128, 856 * 128, 400_000)
+BULK_STAGES = (1, 2, 4, 8, 16)
+
+
+def _probe_case(device, shape, dtype, id_dtype):
+    n, w, width, count = PROBE_SHAPES[shape]
+    gen = torch.Generator(device=device).manual_seed(0)
+    store = torch.randn(n, w, generator=gen, device=device).to(dtype)
+    ids = torch.randint(0, n, (count,), generator=gen, device=device)
+    ids[:8] = torch.tensor([1, 3, 3, 0, n - 1, -5, n + 9, 2 * n])
+    return store, ids.to(id_dtype), width
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(PROBE_SHAPES))
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_probe_kernels_match_plain_version(cuda, shape, dtype, id_dtype):
+    """P1 at every chunk and P2 at every stage count, on repeated ids and
+    ids past both ends (clamped): equal to the plain version bit for bit."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows_bulk,
+        gather_rows_chunked,
+        gather_rows_reference,
+    )
+
+    store, ids, width = _probe_case(cuda, shape, dtype, id_dtype)
+    want = gather_rows_reference(store, ids, width)
+    for wrapper, key, settings in ((gather_rows_chunked, "chunk_cols",
+                                    CHUNK_COLS),
+                                   (gather_rows_bulk, "stages",
+                                    BULK_STAGES)):
+        for setting in settings:
+            before = wrapper.launches
+            got = wrapper(store, ids, width=width, **{key: setting})
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            assert got.shape == want.shape and got.is_contiguous()
+            assert torch.equal(got, want), (wrapper.__name__, setting)
+
+
+def test_probe_kernels_read_a_strided_store_and_refuse_bad_input(cuda):
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows_bulk,
+        gather_rows_chunked,
+        gather_rows_reference,
+    )
+
+    base = torch.randn(9, 132, device=cuda)
+    ids = torch.tensor([7, 0, 3, 3, -1, 12], device=cuda)
+    for store in (base[1:, :100], base[1:, 3:100]):  # pitch 528 B; odd base
+        assert torch.equal(gather_rows_chunked(store, ids, 30),
+                           gather_rows_reference(store, ids))
+    assert torch.equal(gather_rows_bulk(base[1:, :100], ids, 3),
+                       gather_rows_reference(base[1:, :100], ids))
+    before = (gather_rows_chunked.launches, gather_rows_bulk.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        gather_rows_bulk(base[1:, 3:100], ids, 4)
+    for wrapper, setting in ((gather_rows_chunked, 128),
+                             (gather_rows_bulk, 4)):
+        with pytest.raises(ValueError, match="store"):
+            wrapper(torch.zeros(2, 3, 4, device=cuda), ids, setting)
+        with pytest.raises(ValueError, match="idx"):
+            wrapper(base, ids.float(), setting)
+        with pytest.raises(ValueError, match="CUDA device"):
+            wrapper(base, ids.cpu(), setting)
+    with pytest.raises(ValueError, match="stages"):
+        gather_rows_bulk(base, ids, 0)
+    with pytest.raises(ValueError, match="chunk_cols"):
+        gather_rows_chunked(base, ids, 0)
+    assert (gather_rows_chunked.launches, gather_rows_bulk.launches) == before
+
+
+def test_probe_entry_point_on_the_card(cuda):
+    """The probe at a small size on the card: every variant launches its
+    kernel and P3 is exact."""
+    from masters_thesis_tpu_torch.scripts import gather_probe as probe
+
+    result = probe.run(rows=40, cols=5_000, batch=8, steps=3, device=cuda)
+    assert result["exact"] and result["exact_launches"] == 1
+    for line in result["variants"][1:]:
+        assert line["launches"] >= 2 * 3, line
