@@ -45,7 +45,9 @@ Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
 ``torch.profiler``, is printed in every run, for the autograd and the
 ``tpu.fused_seq`` step; ``--profile`` adds tables of device time by kernel
-for one served batch and for the scanned train steps.
+for one served batch and for the scanned train steps, and the time a step
+of K2, K3 and K4 (at both shapes) by part: h W2 (the tile kernel in K3 and
+K4), the attention, the cell, the head.
 
 The weights are random, made from a seed, and spread by
 ``ops.fused_decode.spread_for_check`` so that every bias and BatchNorm
@@ -58,7 +60,9 @@ loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
-where one PyTorch call computes the same function, that call's time. Any
+where one PyTorch call computes the same function, that call's time; K4's
+entry holds its check, times and bound at the wide shape under ``wide``,
+and K3's and K4's name the tile kernel's plans they ran under ``tiles``. Any
 failed phase raises, and the script then exits non-zero without those
 lines. It needs CUDA and the rest of the repository beside it; it imports
 nothing of the JAX package.
@@ -206,13 +210,14 @@ def flagship_model(device):
 
 
 @torch.inference_mode()
-def check_kernel(model, rows, card: str, label: str,
-                 timed: bool = True) -> dict:
+def check_kernel(model, rows, card: str, label: str, timed: bool = True,
+                 profile: bool = False) -> dict:
     """The model's decode kernel (K2 or K3) against its plain version on the
     same inputs, on the card, and both against the plain version in
     float64; with ``timed``, then both timed, and the
-    fused decoder with the encoder against the unfused one. Returns the
-    kernel's entry of the kernels line, less its launches."""
+    fused decoder with the encoder against the unfused one; with
+    ``profile``, the kernel's per-step split. Returns the kernel's entry of
+    the kernels line, less its launches."""
     from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
@@ -273,6 +278,10 @@ def check_kernel(model, rows, card: str, label: str,
         raise RuntimeError(f"the check's greedy words are degenerate: "
                            f"{distinct} distinct < {MIN_DISTINCT_WORDS}")
     entry = {"max_abs_err": report["max_abs_err"]}
+    if model.cell_type == "gru":
+        entry["tiles"] = {"h W2": fd.gru_hw_plan(inputs).describe()}
+        print(f"{label}: h W2 on the tile kernel's plan "
+              f"{entry['tiles']['h W2']}")
     if not timed:
         return entry
 
@@ -290,6 +299,9 @@ def check_kernel(model, rows, card: str, label: str,
     print(f"greedy decode with encoder at B={B}: fused ({label}) "
           f"{fused_e2e:.4f} ms, unfused decode/greedy.py {unfused_e2e:.4f} ms "
           f"[{card}]")
+    if profile:
+        step_split(lambda: kernel(*inputs, max_length=T, **opts), label, T,
+                   card)
     return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
             "library_ms": None}
 
@@ -380,8 +392,9 @@ def throughput(captioner, rows: np.ndarray, card: str,
 # kernel name fragments -> the part of the work a kernel does, first match
 KERNEL_GROUPS = (
     ("K1 gather_rows", ("gather_rows_kernel",)),
-    ("K2/K3 decode chain", ("attention_kernel", "rows_kernel",
-                            "argmax_embed_kernel")),
+    ("K3/K4 tile kernel (h W2, K4's cell)", ("tile_kernel",)),
+    ("K2/K3/K4 step kernels", ("attention_kernel", "rows_kernel",
+                               "argmax_embed_kernel")),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "splitkreduce")),
     ("index, gather, scatter, embedding", ("index", "gather", "scatter",
                                            "embedding")),
@@ -432,6 +445,43 @@ def device_time(fn, what: str, per: int = 1, unit: str = "call",
     return busy / per
 
 
+# a decode kernel's launches by part of its step, first match (--profile)
+STEP_PARTS = (
+    ("h W2 (tile)", ("tile_kernel<1,",)),
+    ("cell (tile)", ("tile_kernel<4,", "tile_kernel_tma<4,")),
+    ("attention", ("attention_kernel",)),
+    ("cell (rows)", ("rows_kernel<1>", "rows_kernel<2>")),
+    ("head", ("rows_kernel<0>", "argmax_embed_kernel")),
+)
+
+
+def step_split(fn, what: str, steps: int, card: str) -> None:
+    """Device time of one call of ``fn`` (a decode kernel's whole run of
+    ``steps`` steps) by ``torch.profiler``, split by the part of a step
+    each kernel does (``STEP_PARTS``), in us a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {name: [0.0, 0] for name, _ in STEP_PARTS}
+    for e in prof.key_averages():
+        part = next((name for name, keys in STEP_PARTS
+                     if any(k in e.key for k in keys)), None)
+        if e.device_type == DeviceType.CUDA and part is not None:
+            parts[part][0] += e.self_device_time_total
+            parts[part][1] += e.count
+    total = sum(us for us, _ in parts.values())
+    print(f"per-step split of {what} ({steps} steps, torch.profiler): "
+          + ", ".join(f"{name} {us / steps:.2f} us ({n / steps:.0f} a step)"
+                      for name, (us, n) in parts.items() if n)
+          + f"; {total / steps:.2f} us a step in all [{card}]")
+
+
 # ---- CnnRnn serving ----
 
 def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
@@ -458,7 +508,8 @@ def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
     errs = [check_kernel(model, rows, card, "K3 (carried GRU state)",
                          timed=False)["max_abs_err"]]
     model.gru_zero_state = True
-    k3 = check_kernel(model, rows, card, "K3 (zero-state GRU)")
+    k3 = check_kernel(model, rows, card, "K3 (zero-state GRU)",
+                      profile=with_profile)
     k3["max_abs_err"] = max(errs + [k3["max_abs_err"]])
 
     captioner = Captioner(model, tok, model.units, model.max_length,
@@ -806,11 +857,11 @@ def seq_bound(inputs) -> dict:
 
 @torch.inference_mode()
 def check_seq_kernel(inputs, attn_slope: float, card: str, label: str,
-                     timed: bool = True) -> dict:
+                     profile: bool = False) -> dict:
     """K4 against its plain version on the same inputs, and both against
-    the plain version in float64, residual by residual; with ``timed``,
-    then both timed. Returns K4's entry of the kernels line, less its
-    launches."""
+    the plain version in float64, residual by residual, then both timed;
+    with ``profile``, K4's per-step split. Returns K4's entry of the
+    kernels line, less its launches."""
     from masters_thesis_tpu_torch.ops import fused_seq as fs
 
     names = ("h", "c", "alpha", "z", "hw_pre")
@@ -838,9 +889,11 @@ def check_seq_kernel(inputs, attn_slope: float, card: str, label: str,
                                f"or with float64: {errs} {vs64}")
     if not all(torch.isfinite(g).all() for g in got):
         raise RuntimeError(f"{label} produced a value that is not finite")
-    entry = {"max_abs_err": max(errs.values())}
-    if not timed:
-        return entry
+    cell, hw = fs.seq_plans(inputs)
+    entry = {"max_abs_err": max(errs.values()),
+             "tiles": {"cell": cell.describe(), "h W2": hw.describe()}}
+    print(f"{label}: the tile kernel's plans, cell {cell.describe()}, h W2 "
+          f"{hw.describe()}")
     ms = cuda_ms(lambda: fs.fused_seq_forward(*inputs, attn_slope))
     plain_ms = cuda_ms(lambda: fs.fused_seq_forward_reference(*inputs,
                                                               attn_slope))
@@ -848,6 +901,9 @@ def check_seq_kernel(inputs, attn_slope: float, card: str, label: str,
     print(f"{label} forward at B={B}, T={T}: kernel {ms:.4f} ms, plain "
           f"version {plain_ms:.4f} ms, bound {work['bound_ms']:.4f} ms (by "
           f"{work['bound_by']}) [{card}]")
+    if profile:
+        step_split(lambda: fs.fused_seq_forward(*inputs, attn_slope), label,
+                   T, card)
     return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
             "library_ms": None}
 
@@ -1012,7 +1068,7 @@ def fused_seq(data, device, card: str, with_profile: bool) -> dict:
     betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
     tokens = torch.randint(1, V, (BATCH, T), generator=gen, device=device)
     k4 = check_seq_kernel(seq_inputs(model, betas, tokens), slope, card,
-                          "K4 (flagship)")
+                          "K4 (flagship)", with_profile)
     fs.fused_seq_forward.launches = 0
     check_seq_gradients(model, betas, tokens, card)
     launches = fs.fused_seq_forward.launches
@@ -1034,8 +1090,12 @@ def fused_seq(data, device, card: str, with_profile: bool) -> dict:
                              (batch, widths["max_length"]), generator=gen,
                              device=device)
         if check:
-            check_seq_kernel(seq_inputs(dec, features, toks), slope, card,
-                             f"K4 ({label})")
+            wide = check_seq_kernel(seq_inputs(dec, features, toks), slope,
+                                    card, f"K4 ({label})", with_profile)
+            k4["wide"] = {"shape": f"B {batch}, U {widths['units']}, A "
+                          f"{widths['attn_units']}, D {widths['group_size']}"
+                          f", E {widths['embedding_text']}, R {N_GROUPS}, T "
+                          f"{widths['max_length']}", **wide}
         decoder_rows(dec, features, toks, card, f"{label} (B={batch}, "
                      f"U={widths['units']}, A={widths['attn_units']}, "
                      f"D={widths['group_size']}, R={N_GROUPS}, "
@@ -1279,7 +1339,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
-    k2 = check_kernel(model, betas, card, "K2")
+    k2 = check_kernel(model, betas, card, "K2", profile=args.profile)
 
     # synthetic captions plus a made-up lexicon, so every id of the
     # vocabulary names a word and the served captions are not empty

@@ -1,6 +1,7 @@
 // Whole greedy decode of the NIC caption decoder, for Hopper (sm_90a): K2
-// for the LSTM cell (LcNIC) and K3 for the GRU cell (CnnRnn). The two share
-// every kernel but the cell's epilogue.
+// for the LSTM cell (LcNIC) and K3 for the GRU cell (CnnRnn). The two run
+// the kernels of step_kernels.cuh, each with its own cell; K3 forms h W2 + b2
+// for the whole batch before its attention, K2 inside it, row by row.
 //
 // K2 replaces the Pallas TPU kernel masters_thesis_tpu/ops/fused_decode.py::
 // fused_greedy_decode (:211; body _decode_kernel). K3 replaces
@@ -30,20 +31,26 @@
 // 512x1536, Wh 512x1536, Wi 512x512, Wo 512x5120, W2 512x512), so no block
 // can hold them. They do fit in the 50 MB L2, so every step streams the
 // cell's and the head's weights from L2 once per batch-row tile (8 tiles of
-// 8 rows at B = 64), and W2 once per row: ~120 MB (LcNIC) and ~180 MB
-// (CnnRnn, whose 1 MB W2 alone is 64 MB of it) of L2 reads a step. Against
-// that, a step's arithmetic is B x (weights' elements) fp32 FMAs, ~0.23 G
-// (LcNIC) and ~0.25 G (CnnRnn, zero-state), on CUDA cores, with no tensor
-// cores in this version. Counting each input byte once, a decode is bound
-// by operations (~7 GFLOP over 67 TFLOP/s, ~0.1 ms), but the step-to-step
-// dependence and the per-tile weight streams make L2 latency the real
-// limit. Steps are strictly sequential (each needs the previous word).
+// 8 rows at B = 64): ~120 MB (LcNIC) and ~115 MB (CnnRnn) of L2 reads a
+// step. Against that, a step's arithmetic is B x (weights' elements) fp32
+// FMAs, ~0.23 G (LcNIC) and ~0.25 G (CnnRnn, zero-state), on CUDA cores,
+// with no tensor cores in this version. Counting each input byte once, a
+// decode is bound by operations (~7 GFLOP over 67 TFLOP/s, ~0.1 ms), but the
+// step-to-step dependence and the per-tile weight streams make L2 latency
+// the real limit. Steps are strictly sequential (each needs the previous
+// word).
 //
 // What the design does about it. One C entry point a cell loops over the T
-// steps on the host and launches a fixed chain of five kernels per step on
-// the caller's stream, without host synchronisation:
-//   1. attention_kernel   (step_kernels.cuh) hw, scores, softmax,
-//                         alphas[b, t, :], ctx;
+// steps on the host and launches a fixed chain of kernels per step on the
+// caller's stream, without host synchronisation:
+//   0. (K3 only) tile_kernel, dense (tile_kernels.cuh): hw_pre = h W2 + b2
+//                         for the whole batch into a (B, A) scratch, as the
+//                         TPU kernels' _attention_step forms it, one product
+//                         over the batch tile: CnnRnn's 1 MB W2 is then read
+//                         once a step instead of once per row (64 MB of L2);
+//   1. attention_kernel   (step_kernels.cuh) scores, softmax, alphas[b, t, :],
+//                         ctx; K2's forms h W2 + b2 itself, row by row
+//                         (LcNIC's W2 is 64 KB), K3's reads it from step 0;
 //   2. rows_kernel<cell>  (step_kernels.cuh) the cell over [ctx | emb | h];
 //                         the GRU keeps the h~ gate's input and recurrent
 //                         sums apart (r multiplies only the recurrent one)
@@ -63,6 +70,7 @@
 // cudaGetLastError, and the entry points return the first error.
 
 #include "step_kernels.cuh"
+#include "tile_kernels.cuh"
 
 namespace {
 
@@ -117,15 +125,18 @@ __global__ void argmax_embed_kernel(
 }
 
 // Everything one decode reads and writes; the cell's own pointers are
-// b (LSTM) or b_in and b_rec (GRU), and c (LSTM only).
+// b (LSTM) or b_in and b_rec (GRU), and c (LSTM only); hw (B, A) and the
+// plan of the dense tile that forms it (ops/tiles.py: tile, feed, slices)
+// are the GRU's only.
 struct Decode {
   const float *pre, *features, *w2, *b2, *v, *bv, *wx, *wh, *b, *b_rec, *wi,
       *bi, *wo, *bo, *emb_table;
-  float *emb, *h_a, *h_b, *c, *ctx, *hi, *logits;
+  float *emb, *h_a, *h_b, *c, *ctx, *hi, *logits, *hw;
   int* words;
   float* alphas;
   int B, R, A, D, E, U, H, V, T;
   bool zero_state;
+  int hw_tile, hw_feed, hw_slices;
   float slope, attn_slope;
 };
 
@@ -136,14 +147,17 @@ int run_decode(const Decode& d, int device, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   // the GRU in zero state reads no recurrent rows: K = D + E
   const bool recurrent = !(CELL == kGRU && d.zero_state);
+  // K3 forms h W2 + b2 for the whole batch before its attention
+  constexpr bool kHoist = CELL == kGRU;
 
-  const size_t attn_smem = attention_smem_bytes(d.U, d.A, d.R);
+  const size_t attn_smem = attention_smem_bytes(kHoist ? 0 : d.U, d.A, d.R);
   const size_t cell_smem =
       rows_smem_bytes(d.D + d.E + (recurrent ? d.U : 0), CELL);
   const size_t inter_smem = rows_smem_bytes(d.U, kDense);
   const size_t out_smem = rows_smem_bytes(d.H, kDense);
   const size_t dense_smem = inter_smem > out_smem ? inter_smem : out_smem;
-  if ((err = cudaFuncSetAttribute(attention_kernel<false>,
+  if ((kHoist && (err = tile_prepare(d.hw_tile, 1)) != cudaSuccess) ||
+      (err = cudaFuncSetAttribute(attention_kernel<kHoist>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)attn_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(rows_kernel<CELL>,
@@ -163,22 +177,34 @@ int run_decode(const Decode& d, int device, void* stream_ptr) {
   float* h_cur = d.h_a;
   float* h_next = d.h_b;
   for (int t = 0; t < d.T; ++t) {
-    attention_kernel<false><<<d.B, kThreads, attn_smem, stream>>>(
-        d.pre, d.features, d.w2, d.b2, d.v, d.bv, h_cur, d.ctx, d.alphas,
-        nullptr, d.R, d.A, d.D, d.U, d.T, t, d.attn_slope);
+    if constexpr (kHoist) {
+      if ((err = tile_launch(d.hw_tile, d.hw_feed, d.hw_slices,
+                             {h_cur, nullptr, nullptr, d.U, 0, 0, d.w2,
+                              nullptr, d.U, d.b2, d.B, d.A, 1.f, d.hw,
+                              nullptr, nullptr, nullptr},
+                             stream)) != cudaSuccess)
+        return (int)err;
+      attention_kernel<true><<<d.B, kThreads, attn_smem, stream>>>(
+          d.pre, d.features, nullptr, nullptr, d.v, d.bv, nullptr, d.ctx,
+          d.alphas, d.hw, d.R, d.A, d.D, d.U, d.T, t, d.attn_slope);
+    } else {
+      attention_kernel<false><<<d.B, kThreads, attn_smem, stream>>>(
+          d.pre, d.features, d.w2, d.b2, d.v, d.bv, h_cur, d.ctx, d.alphas,
+          nullptr, d.R, d.A, d.D, d.U, d.T, t, d.attn_slope);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     rows_kernel<CELL><<<cell_grid, tile, cell_smem, stream>>>(
         d.ctx, d.D, d.emb, d.E, recurrent ? h_cur : nullptr,
         recurrent ? d.U : 0, d.wx, d.D + d.E, d.wh, d.b, d.b_rec, d.B, d.U,
-        1.f, h_next, d.c, nullptr, nullptr);
+        1.f, h_next, d.c);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     rows_kernel<kDense><<<inter_grid, tile, inter_smem, stream>>>(
         h_next, d.U, nullptr, 0, nullptr, 0, d.wi, d.U, nullptr, d.bi,
-        nullptr, d.B, d.H, d.slope, d.hi, nullptr, nullptr, nullptr);
+        nullptr, d.B, d.H, d.slope, d.hi, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     rows_kernel<kDense><<<out_grid, tile, out_smem, stream>>>(
         d.hi, d.H, nullptr, 0, nullptr, 0, d.wo, d.H, nullptr, d.bo, nullptr,
-        d.B, d.V, 1.f, d.logits, nullptr, nullptr, nullptr);
+        d.B, d.V, 1.f, d.logits, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     argmax_embed_kernel<<<d.B, kThreads, 0, stream>>>(
         d.logits, d.emb_table, d.emb, d.words, d.V, d.E, d.T, t);
@@ -210,27 +236,32 @@ int mtt_fused_greedy_decode(
     float* alphas, int B, int R, int A, int D, int E, int U, int H, int V,
     int T, float slope, float attn_slope, int device, void* stream_ptr) {
   const Decode d{pre, features, w2, b2, v, bv, wx, wh, b, nullptr, wi, bi,
-                 wo, bo, emb_table, emb, h_a, h_b, c, ctx, hi, logits, words,
-                 alphas, B, R, A, D, E, U, H, V, T, false, slope, attn_slope};
+                 wo, bo, emb_table, emb, h_a, h_b, c, ctx, hi, logits,
+                 nullptr, words, alphas, B, R, A, D, E, U, H, V, T, false,
+                 -1, 0, 0, slope, attn_slope};
   return run_decode<kLSTM>(d, device, stream_ptr);
 }
 
 // K3: all T greedy steps of a GRU NIC, as mtt_fused_greedy_decode with the
-// input and recurrent biases b_in, b_rec (3U) in place of b and no c.
+// input and recurrent biases b_in, b_rec (3U) in place of b and no c, and
+// hw (B, A) scratch for h W2 + b2, formed by the dense tile hw_tile of
+// kTiles with the feed hw_feed and hw_slices slices (ops/tiles.py's plan).
 // zero_state != 0 restarts the recurrence from zeros every step.
 int mtt_fused_greedy_decode_gru(
     const float* pre, const float* features, const float* w2, const float* b2,
     const float* v, const float* bv, const float* wx, const float* wh,
     const float* b_in, const float* b_rec, const float* wi, const float* bi,
     const float* wo, const float* bo, const float* emb_table, float* emb,
-    float* h_a, float* h_b, float* ctx, float* hi, float* logits, int* words,
-    float* alphas, int B, int R, int A, int D, int E, int U, int H, int V,
-    int T, int zero_state, float slope, float attn_slope, int device,
+    float* h_a, float* h_b, float* ctx, float* hi, float* logits, float* hw,
+    int* words, float* alphas, int B, int R, int A, int D, int E, int U,
+    int H, int V, int T, int zero_state, int hw_tile, int hw_feed,
+    int hw_slices, float slope, float attn_slope, int device,
     void* stream_ptr) {
   const Decode d{pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi,
                  wo, bo, emb_table, emb, h_a, h_b, nullptr, ctx, hi, logits,
-                 words, alphas, B, R, A, D, E, U, H, V, T, zero_state != 0,
-                 slope, attn_slope};
+                 hw, words, alphas, B, R, A, D, E, U, H, V, T,
+                 zero_state != 0, hw_tile, hw_feed, hw_slices, slope,
+                 attn_slope};
   return run_decode<kGRU>(d, device, stream_ptr);
 }
 

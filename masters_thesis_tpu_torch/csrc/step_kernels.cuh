@@ -12,20 +12,21 @@
 //
 // act(x, s) is LeakyReLU with negative slope s: 0.2, 0 (relu) or 1 (linear).
 //
-//   attention_kernel   one block per batch row: hw, scores, softmax, alphas,
+//   attention_kernel   one block per batch row: scores, softmax, alphas,
 //                      ctx; any A and D (a column loop where they exceed the
-//                      block's threads); K4's instantiation also stores
-//                      hw_pre;
+//                      block's threads). K2's instantiation forms hw_pre =
+//                      h W2 + b2 itself, row by row; K3's and K4's read it
+//                      from the tile kernel (tile_kernels.cuh), which forms
+//                      it for the whole batch at once;
 //   rows_kernel<cell>  a block owns 32 output columns x 8 batch rows, its 8
 //                      warps split the reduction axis [in0 | in1 | in2], each
 //                      lane reads its column's weights coalesced and forms
 //                      the epilogue itself (the LSTM or GRU cell, or a dense
-//                      layer's activation); K4's LSTM instantiation also
-//                      stores z and keeps each step's c.
+//                      layer's activation): K2's cell and head, K3's.
 // The row inputs of a tile are staged once in shared memory and broadcast to
-// every lane, so the weights are the only stream from L2. K4's extra stores
-// are template flags: K2's and K3's instantiations compile to the code they
-// had before K4 shared them.
+// every lane, so the weights are the only stream from L2. The attention's
+// template flag keeps K2's instantiation the code it had before K3 and K4
+// hoisted h W2.
 //
 // All math is fp32 with fp32 accumulation. Kernels allocate nothing.
 
@@ -125,16 +126,18 @@ __device__ void block_vecmat(const float* __restrict__ x, int K,
   }
 }
 
+// U is 0 where the kernel is given hw_pre (it then stages no h)
 size_t attention_smem_bytes(int U, int A, int R) {
   return sizeof(float) * (size_t)(U + kThreads + A + R + 32);
 }
 
 // The attention of one step for batch row blockIdx.x, alphas (B, T, R) at
 // step t (a time-major (T, B, R) buffer is, at step t, a (B, 1, R) one:
-// T = 1, t = 0). With kStoreHwPre it also writes h W2 + b2 to hw_pre
-// (B, A); without, the body is K2's and K3's, unchanged. Shared memory:
-// attention_smem_bytes.
-template <bool kStoreHwPre>
+// T = 1, t = 0). With kHwGiven it reads hw_pre = h W2 + b2 (B, A) and
+// neither h nor W2 nor b2; without, it forms hw_pre from h, W2 and b2 and
+// the body is K2's, unchanged. Shared memory: attention_smem_bytes(U, A, R),
+// with U = 0 under kHwGiven.
+template <bool kHwGiven>
 __global__ void attention_kernel(
     const float* __restrict__ pre,    // (B, R, A) act(features W1 + b1)
     const float* __restrict__ feat,   // (B, R, D)
@@ -145,29 +148,28 @@ __global__ void attention_kernel(
     const float* __restrict__ h,      // (B, U)
     float* __restrict__ ctx,          // (B, D)
     float* __restrict__ alphas,       // (B, T, R)
-    float* __restrict__ hw_pre,       // (B, A), kStoreHwPre only
+    const float* __restrict__ hw_pre, // (B, A), kHwGiven only
     int R, int A, int D, int U, int T, int t, float attn_slope) {
   extern __shared__ float sm[];
   float* sh_h = sm;
-  float* sh_part = sh_h + U;
+  float* sh_part = sh_h + (kHwGiven ? 0 : U);
   float* sh_hw = sh_part + kThreads;
   float* sh_e = sh_hw + A;
   float* sh_red = sh_e + R;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
 
-  for (int k = tid; k < U; k += blockDim.x) sh_h[k] = h[(size_t)b * U + k];
-  __syncthreads();
+  if constexpr (kHwGiven) {
+    for (int a = tid; a < A; a += blockDim.x)
+      sh_hw[a] = lrelu(hw_pre[(size_t)b * A + a], attn_slope);
+  } else {
+    for (int k = tid; k < U; k += blockDim.x)
+      sh_h[k] = h[(size_t)b * U + k];
+    __syncthreads();
 
-  block_vecmat(sh_h, U, w2, A, sh_hw, sh_part);
-  for (int a = tid; a < A; a += blockDim.x) {
-    if constexpr (kStoreHwPre) {
-      const float p = sh_hw[a] + b2[a];
-      hw_pre[(size_t)b * A + a] = p;
-      sh_hw[a] = lrelu(p, attn_slope);
-    } else {
+    block_vecmat(sh_h, U, w2, A, sh_hw, sh_part);
+    for (int a = tid; a < A; a += blockDim.x)
       sh_hw[a] = lrelu(sh_hw[a] + b2[a], attn_slope);
-    }
   }
   __syncthreads();
 
@@ -212,16 +214,13 @@ __global__ void attention_kernel(
 // K = k0 + k1 + k2.
 //   kDense: out[b, n] = act(x W + bias, slope)            (slope 1: identity)
 //   kLSTM:  gates of unit n at columns g * N + n; writes h' to out and
-//           updates c in place (K2); with kSeq (K4) it reads the cell state
-//           from c_in instead, writes c' to c (the next step's slot) and the
-//           gates' pre-activations x W + bias to z_out (B, 4N). Without
-//           kSeq the body is K2's, unchanged.
+//           updates c in place.
 //   kGRU:   gates [z | r | h~]; bias is b_in and bias2 b_rec; wa is Wx and
 //           wb Wh, so rows >= ka are the recurrent part; in2 is the carried
 //           h (k2 = N), or k2 = 0 under zero state, where h = 0. Writes h'.
 // Block (kTileCols, kKSlices); grid (ceil(N / kTileCols), ceil(B / kTileRows)).
 // Shared memory: rows_smem_bytes(K, CELL).
-template <int CELL, bool kSeq = false>
+template <int CELL>
 __global__ void rows_kernel(
     const float* __restrict__ in0, int k0,
     const float* __restrict__ in1, int k1,
@@ -232,9 +231,7 @@ __global__ void rows_kernel(
     const float* __restrict__ bias2,  // (gate_cols * N,), kGRU only
     int B, int N, float slope,
     float* __restrict__ out,          // (B, N)
-    float* __restrict__ c,            // (B, N), kLSTM only
-    const float* __restrict__ c_in,   // (B, N), kSeq only
-    float* __restrict__ z_out) {      // (B, 4N), kSeq only
+    float* __restrict__ c) {          // (B, N), kLSTM only
   constexpr int NW = gate_cols(CELL);
   constexpr int NS = gate_sums(CELL);
   extern __shared__ float sm[];
@@ -312,12 +309,7 @@ __global__ void rows_kernel(
       float z[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) z[g] = s[g] + bias[(size_t)g * N + col];
-      if constexpr (kSeq) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          z_out[(size_t)bb * 4 * N + (size_t)g * N + col] = z[g];
-      }
-      const float cp = kSeq ? c_in[o] : c[o];
+      const float cp = c[o];
       const float cn = sigmoid(z[1]) * cp + sigmoid(z[0]) * tanhf(z[2]);
       c[o] = cn;
       out[o] = sigmoid(z[3]) * tanhf(cn);

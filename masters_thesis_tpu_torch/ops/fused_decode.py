@@ -38,6 +38,7 @@ from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
     leaky_relu,
 )
+from masters_thesis_tpu_torch.ops import tiles
 
 PAD_NEG = -1e30      # padded-vocab bias: never wins the argmax
 VOCAB_MULTIPLE = 128
@@ -213,6 +214,16 @@ DECODE_ARGS = {
 }
 
 
+def gru_hw_plan(args) -> tiles.Plan:
+    """The plan (``ops.tiles.plan``) of K3's h W2 product on ``args``
+    (``fused_greedy_decode_gru``'s tensors): B rows of h (K3's own
+    scratch) times W2 (U, A)."""
+    a = dict(zip(DECODE_ARGS["gru"], args))
+    B, _, A = a["pre"].shape
+    U = a["w2"].shape[0]
+    return tiles.plan(B, A, (U,), 1, tiles.aligned16(a["w2"]))
+
+
 def _launch(cell: str, args, *, max_length: int, slope: float,
             attn_slope: float, zero_state: bool = False):
     from masters_thesis_tpu_torch.ops import _build
@@ -241,25 +252,28 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
     # Copies and scratch freed on return stay safe: the caching allocator
     # hands their memory only to work queued after these kernels on the
     # same stream.
-    inputs = [t.contiguous() for name, t in a.items()
-              if name not in ("emb0", "h0", "c0")]
+    inputs = {name: t.contiguous() for name, t in a.items()
+              if name not in ("emb0", "h0", "c0")}
     empty = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
     emb = a["emb0"].expand(B, E).contiguous()
     h_a = a["h0"].contiguous().clone()
     cell_state = [a["c0"].contiguous().clone()] if cell == "lstm" else []
+    hw = [empty(B, A)] if cell == "gru" else []                  # h W2 + b2
     scratch = [emb, h_a, empty(B, U), *cell_state, empty(B, D), empty(B, H),
-               empty(B, Vp)]
+               empty(B, Vp), *hw]
     words = torch.empty(B, max_length, dtype=torch.int32, device=device)
     alphas = empty(B, max_length, R)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    pointers = [t.data_ptr() for t in inputs + scratch + [words, alphas]]
+    pointers = [t.data_ptr()
+                for t in [*inputs.values(), *scratch, words, alphas]]
     sizes = [B, R, A, D, E, U, H, Vp, max_length]
     stream = torch.cuda.current_stream(device).cuda_stream
-    if cell == "gru":
+    if cell == "gru":      # h W2 + b2 on the tile kernel, before the attention
+        hw_plan = gru_hw_plan([inputs.get(n, a[n]) for n in a])
         code = lib.mtt_fused_greedy_decode_gru(
-            *pointers, *sizes, int(zero_state), slope, attn_slope, index,
-            stream)
+            *pointers, *sizes, int(zero_state), *hw_plan.args, slope,
+            attn_slope, index, stream)
     else:
         code = lib.mtt_fused_greedy_decode(*pointers, *sizes, slope,
                                            attn_slope, index, stream)

@@ -7,8 +7,10 @@ reference's fused step. Two forwards share one backward:
 - ``"scan"`` (the JAX package's ``backend='xla'``): a step loop in plain
   PyTorch that can drop attention scores, with masks regenerated per step;
 - ``"kernel"`` (its ``backend='pallas'``): K4, ``csrc/fused_seq.cu`` (its
-  header says what bounds it on Hopper and how the design answers that),
-  eval mode only, as the TPU kernel has no dropout path.
+  header says what bounds it on Hopper and how the design answers that:
+  three kernels a step, h W2 and the cell on the pipelined tile kernel of
+  ``csrc/tile_kernels.cuh`` on the plans of ``seq_plans``), eval
+  mode only, as the TPU kernel has no dropout path.
 
 Each stores the residuals the backward reads: h, c, alpha, the gates'
 pre-activations z and the attention query's pre-activation hw_pre. The
@@ -46,6 +48,7 @@ from masters_thesis_tpu_torch.ops.fused_decode import (
     plain_or_kernel,
     require_hopper,
 )
+from masters_thesis_tpu_torch.ops import tiles
 from masters_thesis_tpu_torch.train.losses import (
     accuracy,
     attention_loss,
@@ -175,7 +178,25 @@ def fused_seq_forward(pre, features, emb, w2, b2, v, bv, wx, wh, b,
 fused_seq_forward.launches = 0
 
 
-def _launch(args, attn_slope: float):
+def seq_plans(args, force: tuple[int, int] | None = None):
+    """The plans (``ops.tiles.plan``) of K4's two tile-kernel products on
+    ``args`` (``fused_seq_forward``'s tensors): the cell's, over
+    [ctx | emb | h], and h W2's. ``force`` (cell, h W2) names the tiles,
+    as a test forces them."""
+    a = dict(zip(SEQ_ARGS, args))
+    B, _, A = a["pre"].shape
+    D = a["features"].shape[2]
+    E = a["emb"].shape[2]
+    U = a["w2"].shape[0]
+    # the other tensors the products read are K4's own scratch and outputs
+    aligned = tiles.aligned16(*(a[k] for k in ("emb", "w2", "wx", "wh")))
+    cell, hw = force if force is not None else (None, None)
+    return (tiles.plan(B, U, (D, E, U), 4, aligned, cell),
+            tiles.plan(B, A, (U,), 1, aligned, hw))
+
+
+def _launch(args, attn_slope: float, plans=None):
+    """Launch K4 on ``plans`` (cell, h W2), by default ``seq_plans``'s."""
     from masters_thesis_tpu_torch.ops import _build
 
     a = dict(zip(SEQ_ARGS, args))
@@ -197,6 +218,7 @@ def _launch(args, attn_slope: float):
     # stream.
     inputs = [t.contiguous() for t in args]
     inputs[2] = a["emb"].transpose(0, 1).contiguous()         # (T, B, E)
+    cell, hw = plans if plans is not None else seq_plans(inputs)
     empty = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
     zeros = torch.zeros(B, U, device=device)                  # h0 and c0
     out = (empty(T, B, U), empty(T, B, U), empty(T, B, R),
@@ -205,7 +227,7 @@ def _launch(args, attn_slope: float):
              else torch.cuda.current_device())
     code = _build.load_library().mtt_fused_seq_forward(
         *(t.data_ptr() for t in (*inputs, zeros, zeros, empty(B, D), *out)),
-        B, R, A, D, E, U, T, attn_slope, index,
+        B, R, A, D, E, U, T, attn_slope, *cell.args, *hw.args, index,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check_error(code, "fused_seq_forward")
     return tuple(t.transpose(0, 1) for t in out)

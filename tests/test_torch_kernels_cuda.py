@@ -5,8 +5,9 @@ attention; the GRU whole-decode kernel (K3) in the cases of the CPU tests
 and at full CnnRnn width; the store row gather (K1) at small and flagship
 widths and through three train steps; the teacher-forced sequence forward
 (K4) at odd and flagship widths, through the custom backward, and against
-K2 on K2's own words (the two share their kernels). A CUDA kernel has no CPU
-mode, so every test here needs an NVIDIA Hopper GPU and skips without one.
+K2 on K2's own words, and with every tile of its tile kernel forced at
+shapes that cross the tiles' edges. A CUDA kernel has no CPU mode, so every
+test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -21,6 +22,7 @@ from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
 from masters_thesis_tpu_torch.models.nic import CnnRnnNIC, LcNIC
 from masters_thesis_tpu_torch.ops import fused_decode
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.ops.tiles import FEED_TMA, FEED_X16, TILES, Plan
 
 pytestmark = pytest.mark.cuda
 
@@ -324,14 +326,27 @@ def test_scanned_steps_through_the_kernel_follow_the_plain_gather(cuda):
 
 # ---- K4: the teacher-forced sequence forward ----
 
-# (B, R, A, D, E, U, T): a batch that is not a multiple of the 8-row tile,
-# regions that are not a multiple of 8, attention and feature widths above
-# a block's 256 threads, and the flagship
+# (B, R, A, D, E, U, T): regions that are not a multiple of 8, attention
+# and feature widths above a block's 256 threads, and the flagship; then
+# the edges of the tile kernel's tiles (ops/tiles.py): batches of 70 and
+# 130 (a multiple of no tile's rows), 40 and 300 units (of neither LSTM
+# tile's 32; 300 not of 8), K = D + E + U of 88 and 364 (of no 32-row
+# chunk), widths that are not a multiple of 4 (4-byte copies in place of
+# 16-byte ones), segment widths that are multiples of 32 at 130 rows (the
+# TMA tile, forced, with rows past B), and the wide shape of
+# scripts/fused_seq_probe.py at T 2
 SEQ_SHAPES = {
     "small-odd": (6, 7, 8, 4, 16, 24, 7),
     "wide": (11, 13, 300, 260, 24, 40, 5),
     "flagship": (64, 360, 32, 32, 512, 512, 15),
+    "b70-u40": (70, 11, 20, 12, 36, 40, 4),
+    "b130-u300": (130, 9, 40, 36, 28, 300, 3),
+    "unaligned": (9, 5, 7, 5, 3, 13, 3),
+    "b130-tma": (130, 9, 40, 64, 32, 96, 3),
+    "wide-t2": (256, 360, 256, 128, 1024, 2048, 2),
 }
+# the shapes at which every pair of tiles is forced
+TILE_EDGE_SHAPES = ("b70-u40", "b130-u300", "unaligned", "b130-tma")
 SEQ_ATOL = {"alphas": 1e-6, "other": 1e-5}
 
 
@@ -358,7 +373,13 @@ def test_seq_kernel_matches_plain_version(cuda, shape):
     got = fused_seq.fused_seq_forward(*inputs, 0.2)
     torch.cuda.synchronize()
     assert fused_seq.fused_seq_forward.launches == before + 1
-    want = fused_seq.fused_seq_forward_reference(*inputs, 0.2)
+    _check_seq(got, fused_seq.fused_seq_forward_reference(*inputs, 0.2), B,
+               R, A, U, T)
+    assert torch.allclose(got[2].sum(-1), torch.ones(B, T, device=cuda),
+                          atol=1e-5)
+
+
+def _check_seq(got, want, B, R, A, U, T):
     names = ("hseq", "cseq", "alphas", "zs", "hwps")
     widths = (U, U, R, 4 * U, A)
     for name, g, w, width in zip(names, got, want, widths):
@@ -366,8 +387,61 @@ def test_seq_kernel_matches_plain_version(cuda, shape):
         atol = SEQ_ATOL["alphas" if name == "alphas" else "other"]
         assert torch.allclose(g, w, rtol=0, atol=atol), (
             name, float((g - w).abs().max()))
-    assert torch.allclose(got[2].sum(-1), torch.ones(B, T, device=cuda),
-                          atol=1e-5)
+
+
+@pytest.mark.parametrize("hw_tile", [i for i, t in enumerate(TILES)
+                                     if t.gates == 1])
+@pytest.mark.parametrize("cell_tile", [i for i, t in enumerate(TILES)
+                                       if t.gates == 4])
+def test_every_tile_matches_plain_version(cuda, cell_tile, hw_tile):
+    """K4 with each LSTM tile for its cell and each dense tile for h W2,
+    whatever ``pick_tile`` would take, at the shapes of TILE_EDGE_SHAPES
+    that the tiles' feeds can take (the TMA tile only b130-tma's): rows past
+    B, units past N, a K tail, 4-byte copies."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    ran = 0
+    for shape in TILE_EDGE_SHAPES:
+        B, R, A, D, E, U, T = SEQ_SHAPES[shape]
+        inputs = _seq_inputs(cuda, B, R, A, D, E, U, T)
+        try:
+            plans = fused_seq.seq_plans(inputs, force=(cell_tile, hw_tile))
+        except ValueError:          # a feed that cannot take these shapes
+            continue
+        got = fused_seq._launch(inputs, 0.2, plans)
+        torch.cuda.synchronize()
+        _check_seq(got, fused_seq.fused_seq_forward_reference(*inputs, 0.2),
+                   B, R, A, U, T)
+        ran += 1
+    assert ran >= 1
+
+
+@pytest.mark.parametrize("shape", ["small-odd", "unaligned"])
+def test_seq_kernel_refuses_plans_it_cannot_run(cuda, shape):
+    """The C entry point returns an error, and launches nothing on the plan
+    at fault, for an index past the table, a tile of the wrong kind (a
+    dense tile for the cell, an LSTM one for h W2), a feed the tile has not
+    (TMA on a sliced tile, cp.async on the TMA tile, TMA where the widths
+    are off its 32-row chunk, 16-byte copies of widths that are not a
+    multiple of 4) and slices it has not: nothing falls back to another
+    kernel."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    inputs = _seq_inputs(cuda, *SEQ_SHAPES[shape])
+    cell, hw = fused_seq.seq_plans(inputs)
+    lstm = cell.tile
+    tma = next(i for i, t in enumerate(TILES) if t.tma)
+    bad = [(Plan(len(TILES), cell.feed, 8), hw), (cell, Plan(-1, 0, 1)),
+           (hw, hw), (cell, cell),
+           (Plan(lstm, FEED_TMA, 8), hw), (Plan(tma, 0, 1), hw),
+           (Plan(tma, FEED_TMA, 1), hw),
+           (Plan(lstm, cell.feed, TILES[lstm].ks + 1), hw),
+           (Plan(lstm, cell.feed, 0), hw)]
+    if shape == "unaligned":
+        bad.append((Plan(lstm, FEED_X16, 8), hw))
+    for plans in bad:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fused_seq._launch(inputs, 0.2, plans)
 
 
 def test_seq_kernel_refuses_wrong_shapes(cuda):
@@ -414,9 +488,10 @@ def test_custom_backward_with_the_kernel_matches_autograd(cuda):
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_seq_kernel_on_greedy_words_reproduces_the_decode(cuda, shape):
     """K4 teacher-forced on K2's own greedy words (the start id, then each
-    step's word) runs the same attention and cell kernels on the same
-    inputs as K2, so it gives K2's alphas exactly: the kernels that K2, K3
-    and K4 share behave alike in all three."""
+    step's word) computes K2's steps on the same inputs in the same order,
+    so it gives K2's alphas exactly: its sliced tiles sum the cell's
+    products in rows_kernel's 8 classes and h W2's in block_vecmat's (the
+    plans of ops/tiles.py), and its attention is K2's code."""
     from masters_thesis_tpu_torch.ops import fused_seq
 
     model, betas = _model_and_betas(cuda, shape)
