@@ -46,8 +46,11 @@ The device time of a train step, the sum of its kernels' times by
 ``torch.profiler``, is printed in every run, for the autograd and the
 ``tpu.fused_seq`` step; ``--profile`` adds tables of device time by kernel
 for one served batch and for the scanned train steps, and the time a step
-of K2, K3 and K4 (at both shapes) by part: h W2 (the tile kernel in K3 and
-K4), the attention, the cell, the head.
+of K2, K3 and K4 (at both shapes) by part, each launch of a step in turn:
+K2's h W2, attention, cell, Wi, Wo and argmax; K3's h W2, attention, cell
+and head; K4's h W2, attention and cell. K2's words and alphas on the
+seeded LcNIC inputs are printed as a SHA-256 digest, so that two builds can
+be told apart or shown bit-identical.
 
 The weights are random, made from a seed, and spread by
 ``ops.fused_decode.spread_for_check`` so that every bias and BatchNorm
@@ -62,7 +65,8 @@ version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
 where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
-and K3's and K4's name the tile kernel's plans they ran under ``tiles``. Any
+K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
+and P3's holds its and ``index_select``'s times in turns under ``turns``. Any
 failed phase raises, and the script then exits non-zero without those
 lines. It needs CUDA and the rest of the repository beside it; it imports
 nothing of the JAX package.
@@ -72,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import io
 import json
 import sys
@@ -124,6 +129,7 @@ PROBE_WIDE = dict(units=2048, group_size=128, embedding_text=1024,
                   head_dim=2048)
 PROBE_WIDE_BATCH = 256
 DEC_REPS = 5
+P3_TURNS = 7        # P3 and index_select timed in turns
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -282,6 +288,15 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
         entry["tiles"] = {"h W2": fd.gru_hw_plan(inputs).describe()}
         print(f"{label}: h W2 on the tile kernel's plan "
               f"{entry['tiles']['h W2']}")
+    else:
+        entry["tiles"] = {part: p.describe() for part, p in zip(
+            ("h W2", "cell", "Wi", "Wo"), fd.lstm_decode_plans(inputs))}
+        print(f"{label}: the tile kernel's plans, " + ", ".join(
+            f"{part} {plan}" for part, plan in entry["tiles"].items()))
+        digest = hashlib.sha256(words.cpu().numpy().tobytes())
+        digest.update(alphas.cpu().numpy().tobytes())
+        print(f"{label}: SHA-256 of its words (int32) and alphas (fp32) on "
+              f"the seeded inputs: {digest.hexdigest()}")
     if not timed:
         return entry
 
@@ -301,7 +316,7 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
           f"[{card}]")
     if profile:
         step_split(lambda: kernel(*inputs, max_length=T, **opts), label, T,
-                   card)
+                   STEP_PARTS[cell], card)
     return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
             "library_ms": None}
 
@@ -392,7 +407,8 @@ def throughput(captioner, rows: np.ndarray, card: str,
 # kernel name fragments -> the part of the work a kernel does, first match
 KERNEL_GROUPS = (
     ("K1 gather_rows", ("gather_rows_kernel",)),
-    ("K3/K4 tile kernel (h W2, K4's cell)", ("tile_kernel",)),
+    ("K2/K3/K4 tile kernel (h W2; K2's, K4's cell; K2's head)",
+     ("tile_kernel",)),
     ("K2/K3/K4 step kernels", ("attention_kernel", "rows_kernel",
                                "argmax_embed_kernel")),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "splitkreduce")),
@@ -445,20 +461,30 @@ def device_time(fn, what: str, per: int = 1, unit: str = "call",
     return busy / per
 
 
-# a decode kernel's launches by part of its step, first match (--profile)
-STEP_PARTS = (
-    ("h W2 (tile)", ("tile_kernel<1,",)),
-    ("cell (tile)", ("tile_kernel<4,", "tile_kernel_tma<4,")),
-    ("attention", ("attention_kernel",)),
-    ("cell (rows)", ("rows_kernel<1>", "rows_kernel<2>")),
-    ("head", ("rows_kernel<0>", "argmax_embed_kernel")),
-)
+# a decode step's launches in order, for each decode kernel (--profile):
+# the part of the step each does, and the name it has in the profile
+_HW, _ATTN = ("h W2 (tile)", ("tile_kernel<1,",)), \
+    ("attention", ("attention_kernel",))
+STEP_PARTS = {
+    "lstm": (_HW, _ATTN, ("cell (tile)", ("tile_kernel<4,",)),
+             ("Wi (tile)", ("tile_kernel<1,",)),
+             ("Wo (tile)", ("tile_kernel<1,",)),
+             ("argmax", ("argmax_embed_kernel",))),
+    "gru": (_HW, _ATTN, ("cell (rows)", ("rows_kernel<2>",)),
+            ("head", ("rows_kernel<0>",)), ("head", ("rows_kernel<0>",)),
+            ("head", ("argmax_embed_kernel",))),
+    "seq": (_HW, _ATTN,
+            ("cell (tile)", ("tile_kernel<4,", "tile_kernel_tma<4,"))),
+}
 
 
-def step_split(fn, what: str, steps: int, card: str) -> None:
+def step_split(fn, what: str, steps: int, parts, card: str) -> None:
     """Device time of one call of ``fn`` (a decode kernel's whole run of
     ``steps`` steps) by ``torch.profiler``, split by the part of a step
-    each kernel does (``STEP_PARTS``), in us a step."""
+    each kernel does, in us a step. The call's kernels, in the order they
+    ran, are matched to ``steps`` runs of ``parts`` (``STEP_PARTS``), each
+    to the next part whose name it has, so that a kernel the profile lost
+    shifts no other; the count of such kernels is printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -468,18 +494,28 @@ def step_split(fn, what: str, steps: int, card: str) -> None:
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    parts = {name: [0.0, 0] for name, _ in STEP_PARTS}
-    for e in prof.key_averages():
-        part = next((name for name, keys in STEP_PARTS
-                     if any(k in e.key for k in keys)), None)
-        if e.device_type == DeviceType.CUDA and part is not None:
-            parts[part][0] += e.self_device_time_total
-            parts[part][1] += e.count
-    total = sum(us for us, _ in parts.values())
+    names = {k for _, keys in parts for k in keys}
+    launched = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and any(k in e.name for k in names)),
+                      key=lambda e: e.time_range.start)
+    split = {name: [0.0, 0] for name, _ in parts}
+    at = 0                      # the part the next kernel should be
+    for e in launched:
+        while not any(k in e.name for k in parts[at % len(parts)][1]):
+            at += 1
+        acc = split[parts[at % len(parts)][0]]
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+        at += 1
+    total = sum(us for us, _ in split.values())
+    lost = steps * len(parts) - len(launched)
     print(f"per-step split of {what} ({steps} steps, torch.profiler): "
           + ", ".join(f"{name} {us / steps:.2f} us ({n / steps:.0f} a step)"
-                      for name, (us, n) in parts.items() if n)
-          + f"; {total / steps:.2f} us a step in all [{card}]")
+                      for name, (us, n) in split.items())
+          + f"; {total / steps:.2f} us a step in all"
+          + (f" ({lost} of {steps * len(parts)} kernels not in the profile)"
+             if lost else "") + f" [{card}]")
 
 
 # ---- CnnRnn serving ----
@@ -903,7 +939,7 @@ def check_seq_kernel(inputs, attn_slope: float, card: str, label: str,
           f"{work['bound_by']}) [{card}]")
     if profile:
         step_split(lambda: fs.fused_seq_forward(*inputs, attn_slope), label,
-                   T, card)
+                   T, STEP_PARTS["seq"], card)
     return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
             "library_ms": None}
 
@@ -1212,7 +1248,22 @@ def check_probe_kernels(device, card: str) -> dict:
           f"plain {entry['plain_ms'] * 1e3:.2f} us, index_select "
           f"{entry['library_ms'] * 1e3:.2f} us, bound "
           f"{entry['bound_ms'] * 1e3:.2f} us [{card}]")
-    entries["P3"] = {"max_abs_err": 0.0, **entry}
+    # P3 and index_select in turns, so that their medians can be set
+    # against the spread of one run
+    one_long = one.long()
+    turns = {"P3": [], "index_select": []}
+    for _ in range(P3_TURNS):
+        turns["P3"].append(cuda_ms(
+            lambda: gather_rows_bulk(raw, one, gp.EXACT_STAGES), reps=50,
+            warmup=5))
+        turns["index_select"].append(cuda_ms(
+            lambda: raw.index_select(0, one_long), reps=50, warmup=5))
+    print(f"P3 and index_select in {P3_TURNS} turns: " + ", ".join(
+        f"{name} median {np.median(ts) * 1e3:.2f} us (min "
+        f"{min(ts) * 1e3:.2f}, max {max(ts) * 1e3:.2f}, spread "
+        f"{(max(ts) - min(ts)) * 1e3:.2f} us)" for name, ts in turns.items())
+        + f" [{card}]")
+    entries["P3"] = {"max_abs_err": 0.0, **entry, "turns": turns}
     return entries
 
 

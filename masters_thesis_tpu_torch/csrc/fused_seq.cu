@@ -33,7 +33,7 @@
 //   1. tile_kernel, dense (tile_kernels.cuh): hw_pre = h W2 + b2 for the
 //                         whole batch, straight into hwps[t], as the TPU
 //                         kernel forms it, one product over its batch tile;
-//   2. attention_kernel<true> (step_kernels.cuh): reads hwps[t], writes
+//   2. attention_kernel (step_kernels.cuh): reads hwps[t], writes
 //                         alphas[t] and ctx (B, D) scratch;
 //   3. tile_kernel, LSTM: x = [ctx | emb[t] | h] times [Wx ; Wh], the cell
 //                         in registers: reads c from cseq[t-1], writes
@@ -46,11 +46,10 @@
 // cp.async for the others), once per tile of rows. Each product's plan, its
 // tile, feed and slices, is made in Python (ops/tiles.py) and passed in: an
 // unknown tile or one of the wrong kind fails in tile_prepare, a feed or
-// slices the tile cannot take in tile_launch. Where the cell takes a sliced
-// tile, its sums and those of h W2 fall in the order of K2's row kernel and
-// attention, so K4 on K2's words gives K2's alphas. The attention's width is
-// limited by its
-// shared memory (A + R + 288 floats); one that cannot fit fails in
+// slices the tile cannot take in tile_launch. K2 runs its h W2 and its
+// cell on the same tiles with the same plans, so K4 on K2's words gives
+// K2's alphas. The attention's width is limited by its shared memory
+// (A + R + 288 floats); one that cannot fit fails in
 // cudaFuncSetAttribute. Tensor cores (wgmma, with bf16 or TF32 weights) and
 // a CUDA graph are later work.
 //
@@ -82,10 +81,10 @@ int mtt_fused_seq_forward(
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 
-  const size_t attn_smem = attention_smem_bytes(0, A, R);
+  const size_t attn_smem = attention_smem_bytes(A, R);
   if ((err = tile_prepare(cell_tile, 4)) != cudaSuccess ||
       (err = tile_prepare(hw_tile, 1)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_kernel<true>,
+      (err = cudaFuncSetAttribute(attention_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)attn_smem)) != cudaSuccess)
     return (int)err;
@@ -102,9 +101,9 @@ int mtt_fused_seq_forward(
                            stream)) != cudaSuccess)
       return (int)err;
     // step t's (B, R) block of the (T, B, R) alphas is a (B, 1, R) array
-    attention_kernel<true><<<B, kThreads, attn_smem, stream>>>(
-        pre, features, nullptr, nullptr, v, bv, nullptr, ctx,
-        alphas + (size_t)t * B * R, hw, R, A, D, U, 1, 0, attn_slope);
+    attention_kernel<<<B, kThreads, attn_smem, stream>>>(
+        pre, features, v, bv, ctx, alphas + (size_t)t * B * R, hw, R, A, D,
+        attn_slope, 1, 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if ((err = tile_launch(cell_tile, cell_feed, cell_slices,
                            {ctx, emb + (size_t)t * B * E, h, D, E, U, wx, wh,

@@ -14,19 +14,18 @@
 //
 //   attention_kernel   one block per batch row: scores, softmax, alphas,
 //                      ctx; any A and D (a column loop where they exceed the
-//                      block's threads). K2's instantiation forms hw_pre =
-//                      h W2 + b2 itself, row by row; K3's and K4's read it
-//                      from the tile kernel (tile_kernels.cuh), which forms
-//                      it for the whole batch at once;
+//                      block's threads). It reads hw_pre, which the tile
+//                      kernel (tile_kernels.cuh) forms for the whole batch
+//                      at once, in K2, K3 and K4 alike;
 //   rows_kernel<cell>  a block owns 32 output columns x 8 batch rows, its 8
 //                      warps split the reduction axis [in0 | in1 | in2], each
 //                      lane reads its column's weights coalesced and forms
-//                      the epilogue itself (the LSTM or GRU cell, or a dense
-//                      layer's activation): K2's cell and head, K3's.
+//                      the epilogue itself (the GRU cell, or a dense layer's
+//                      activation): K3's cell and head. K2 and K4 run their
+//                      LSTM cell, and K2 its head, on the tile kernel, whose
+//                      sliced tiles sum in this kernel's order.
 // The row inputs of a tile are staged once in shared memory and broadcast to
-// every lane, so the weights are the only stream from L2. The attention's
-// template flag keeps K2's instantiation the code it had before K3 and K4
-// hoisted h W2.
+// every lane, so the weights are the only stream from L2.
 //
 // All math is fp32 with fp32 accumulation. Kernels allocate nothing.
 
@@ -43,15 +42,16 @@ constexpr int kTileCols = 32;   // rows_kernel: one lane per output column
 constexpr int kKSlices = 8;     // rows_kernel: warps splitting the K axis
 constexpr int kTileRows = 8;    // rows_kernel: batch rows per block
 
-// rows_kernel epilogues
+// the decoder's cells (fused_decode.cu's run_decode) and rows_kernel's
+// epilogues (kDense, kGRU)
 constexpr int kDense = 0;       // act(z, slope)
-constexpr int kLSTM = 1;        // Keras LSTM cell
+constexpr int kLSTM = 1;        // Keras LSTM cell (on the tile kernel)
 constexpr int kGRU = 2;         // Keras reset_after GRU cell
 
-// weight columns a unit, and accumulators a unit (the GRU's h~ gate has
-// two: its input part and its recurrent part)
+// rows_kernel's weight columns a unit, and accumulators a unit (the GRU's
+// h~ gate has two: its input part and its recurrent part)
 __host__ __device__ constexpr int gate_cols(int cell) {
-  return cell == kDense ? 1 : cell == kLSTM ? 4 : 3;
+  return cell == kDense ? 1 : 3;
 }
 __host__ __device__ constexpr int gate_sums(int cell) {
   return cell == kDense ? 1 : 4;
@@ -126,51 +126,35 @@ __device__ void block_vecmat(const float* __restrict__ x, int K,
   }
 }
 
-// U is 0 where the kernel is given hw_pre (it then stages no h)
-size_t attention_smem_bytes(int U, int A, int R) {
-  return sizeof(float) * (size_t)(U + kThreads + A + R + 32);
+size_t attention_smem_bytes(int A, int R) {
+  return sizeof(float) * (size_t)(kThreads + A + R + 32);
 }
 
 // The attention of one step for batch row blockIdx.x, alphas (B, T, R) at
 // step t (a time-major (T, B, R) buffer is, at step t, a (B, 1, R) one:
-// T = 1, t = 0). With kHwGiven it reads hw_pre = h W2 + b2 (B, A) and
-// neither h nor W2 nor b2; without, it forms hw_pre from h, W2 and b2 and
-// the body is K2's, unchanged. Shared memory: attention_smem_bytes(U, A, R),
-// with U = 0 under kHwGiven.
-template <bool kHwGiven>
+// T = 1, t = 0), from hw_pre = h W2 + b2 (B, A). Shared memory:
+// attention_smem_bytes(A, R). attn_slope comes before T and t so that the
+// compiler loads the same pairs of parameters together as when the kernel
+// also took h, W2, b2 and U, and its machine code stays that one's.
 __global__ void attention_kernel(
     const float* __restrict__ pre,    // (B, R, A) act(features W1 + b1)
     const float* __restrict__ feat,   // (B, R, D)
-    const float* __restrict__ w2,     // (U, A)
-    const float* __restrict__ b2,     // (A,)
     const float* __restrict__ v,      // (A,)
     const float* __restrict__ bv,     // (1,)
-    const float* __restrict__ h,      // (B, U)
     float* __restrict__ ctx,          // (B, D)
     float* __restrict__ alphas,       // (B, T, R)
-    const float* __restrict__ hw_pre, // (B, A), kHwGiven only
-    int R, int A, int D, int U, int T, int t, float attn_slope) {
+    const float* __restrict__ hw_pre, // (B, A)
+    int R, int A, int D, float attn_slope, int T, int t) {
   extern __shared__ float sm[];
-  float* sh_h = sm;
-  float* sh_part = sh_h + (kHwGiven ? 0 : U);
+  float* sh_part = sm;
   float* sh_hw = sh_part + kThreads;
   float* sh_e = sh_hw + A;
   float* sh_red = sh_e + R;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
 
-  if constexpr (kHwGiven) {
-    for (int a = tid; a < A; a += blockDim.x)
-      sh_hw[a] = lrelu(hw_pre[(size_t)b * A + a], attn_slope);
-  } else {
-    for (int k = tid; k < U; k += blockDim.x)
-      sh_h[k] = h[(size_t)b * U + k];
-    __syncthreads();
-
-    block_vecmat(sh_h, U, w2, A, sh_hw, sh_part);
-    for (int a = tid; a < A; a += blockDim.x)
-      sh_hw[a] = lrelu(sh_hw[a] + b2[a], attn_slope);
-  }
+  for (int a = tid; a < A; a += blockDim.x)
+    sh_hw[a] = lrelu(hw_pre[(size_t)b * A + a], attn_slope);
   __syncthreads();
 
   // scores: one warp per region, lanes over the attention width
@@ -213,8 +197,6 @@ __global__ void attention_kernel(
 // gate_cols(CELL) * N columns, rows [0, ka) in wa and [ka, K) in wb, with
 // K = k0 + k1 + k2.
 //   kDense: out[b, n] = act(x W + bias, slope)            (slope 1: identity)
-//   kLSTM:  gates of unit n at columns g * N + n; writes h' to out and
-//           updates c in place.
 //   kGRU:   gates [z | r | h~]; bias is b_in and bias2 b_rec; wa is Wx and
 //           wb Wh, so rows >= ka are the recurrent part; in2 is the carried
 //           h (k2 = N), or k2 = 0 under zero state, where h = 0. Writes h'.
@@ -230,8 +212,7 @@ __global__ void rows_kernel(
     const float* __restrict__ bias,   // (gate_cols * N,)
     const float* __restrict__ bias2,  // (gate_cols * N,), kGRU only
     int B, int N, float slope,
-    float* __restrict__ out,          // (B, N)
-    float* __restrict__ c) {          // (B, N), kLSTM only
+    float* __restrict__ out) {        // (B, N)
   constexpr int NW = gate_cols(CELL);
   constexpr int NS = gate_sums(CELL);
   extern __shared__ float sm[];
@@ -305,15 +286,7 @@ __global__ void rows_kernel(
         s[g] += red[((ks * NS + g) * kTileRows + r) * kTileCols + tx];
     }
     const size_t o = (size_t)bb * N + col;
-    if constexpr (CELL == kLSTM) {
-      float z[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) z[g] = s[g] + bias[(size_t)g * N + col];
-      const float cp = c[o];
-      const float cn = sigmoid(z[1]) * cp + sigmoid(z[0]) * tanhf(z[2]);
-      c[o] = cn;
-      out[o] = sigmoid(z[3]) * tanhf(cn);
-    } else if constexpr (CELL == kGRU) {
+    if constexpr (CELL == kGRU) {
       const float hp = k2 > 0 ? in2[(size_t)bb * k2 + col] : 0.f;
       const float z = sigmoid(s[0] + bias[col] + bias2[col]);
       const float rg = sigmoid(s[1] + bias[N + col] + bias2[N + col]);

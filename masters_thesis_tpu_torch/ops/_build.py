@@ -29,17 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-# mtt_fused_greedy_decode: 23 pointers, 9 sizes, the two slopes, the device
-# and the stream; mtt_fused_greedy_decode_gru: the same with the h W2
-# scratch after the logits and the zero-state flag and h W2's plan (tile,
-# feed, slices) before the slopes; mtt_fused_seq_forward: 18 pointers, 7
+# mtt_fused_greedy_decode: 25 pointers, 9 sizes, the plans (tile, feed,
+# slices) of h W2, the cell, Wi and Wo, the two slopes, the device and the
+# stream; mtt_fused_greedy_decode_gru: 24 pointers, 9 sizes, the zero-state
+# flag, h W2's plan, then as K2; mtt_fused_seq_forward: 18 pointers, 7
 # sizes, the attention's slope, the cell's and h W2's plans, the device and
 # the stream; mtt_gather_rows: store, ids, out, 4 byte sizes, rows, id
 # width, device, stream; mtt_gather_rows_chunked: the same with the chunk's
 # bytes after the sizes; mtt_gather_rows_bulk: the same with the stages
 # after the sizes
 _SIGNATURES = {
-    "mtt_fused_greedy_decode": ([_P] * 23 + [_I] * 9 + [_F, _F, _I, _P],
+    "mtt_fused_greedy_decode": ([_P] * 25 + [_I] * 21 + [_F, _F, _I, _P],
                                 ctypes.c_int),
     "mtt_fused_greedy_decode_gru": ([_P] * 24 + [_I] * 13 + [_F, _F, _I, _P],
                                     ctypes.c_int),

@@ -3,7 +3,10 @@ both cells of the NIC family: K2 (LSTM) and K3 (GRU).
 
 Counterpart of ``masters_thesis_tpu/ops/fused_decode.py``. The kernels are
 in ``csrc/fused_decode.cu`` (its header says what bounds them on Hopper and
-how the design answers that); ``fused_greedy_decode_reference`` and
+how the design answers that); the products that run on the tile kernel of
+``csrc/tile_kernels.cuh`` (K2's h W2, cell and head, K3's h W2) are planned
+here (``lstm_decode_plans``, ``gru_hw_plan``, by ``ops.tiles.plan``) and
+the C side refuses a plan it cannot run. ``fused_greedy_decode_reference`` and
 ``fused_greedy_decode_gru_reference`` are the same computations in plain
 PyTorch:
 
@@ -214,6 +217,30 @@ DECODE_ARGS = {
 }
 
 
+def lstm_decode_plans(args, force=None) -> tuple[tiles.Plan, ...]:
+    """The plans (``ops.tiles.plan``) of K2's four tile-kernel products on
+    ``args`` (``fused_greedy_decode``'s tensors): h W2, B rows of h times W2
+    (U, A); the cell, [ctx | emb | h] times [Wx ; Wh]; the first head layer,
+    h times Wi (U, H); the logits, hi times Wo (H, Vp). ``force`` (h W2,
+    cell, Wi, Wo) names tiles, each or None, as a test forces them. Each
+    plan sums K in the order K2 summed that product in before it ran on the
+    tile kernel: h W2 in block_vecmat's, the cell and the head in
+    rows_kernel's. h, ctx, emb and hi are K2's own scratch."""
+    a = dict(zip(DECODE_ARGS["lstm"], args))
+    B, _, A = a["pre"].shape
+    D = a["features"].shape[2]
+    U = a["w2"].shape[0]
+    E = a["emb_table"].shape[1]
+    H, Vp = a["wo"].shape
+    hw, cell, wi, wo = force if force is not None else (None,) * 4
+    aligned = tiles.aligned16
+    return (tiles.plan(B, A, (U,), 1, aligned(a["w2"]), hw, "vecmat"),
+            tiles.plan(B, U, (D, E, U), 4, aligned(a["wx"], a["wh"]), cell,
+                       "rows"),
+            tiles.plan(B, H, (U,), 1, aligned(a["wi"]), wi, "rows"),
+            tiles.plan(B, Vp, (H,), 1, aligned(a["wo"]), wo, "rows"))
+
+
 def gru_hw_plan(args) -> tiles.Plan:
     """The plan (``ops.tiles.plan``) of K3's h W2 product on ``args``
     (``fused_greedy_decode_gru``'s tensors): B rows of h (K3's own
@@ -225,7 +252,9 @@ def gru_hw_plan(args) -> tiles.Plan:
 
 
 def _launch(cell: str, args, *, max_length: int, slope: float,
-            attn_slope: float, zero_state: bool = False):
+            attn_slope: float, zero_state: bool = False, plans=None):
+    """Launch K2 (``cell`` "lstm") or K3 ("gru"); K2 on ``plans`` (h W2,
+    cell, Wi, Wo), by default ``lstm_decode_plans``'s."""
     from masters_thesis_tpu_torch.ops import _build
 
     a = dict(zip(DECODE_ARGS[cell], args))
@@ -257,10 +286,11 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
     empty = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
     emb = a["emb0"].expand(B, E).contiguous()
     h_a = a["h0"].contiguous().clone()
-    cell_state = [a["c0"].contiguous().clone()] if cell == "lstm" else []
-    hw = [empty(B, A)] if cell == "gru" else []                  # h W2 + b2
+    # c is double buffered as h is: the cell tile reads c and writes c'
+    cell_state = ([a["c0"].contiguous().clone(), empty(B, U)]
+                  if cell == "lstm" else [])
     scratch = [emb, h_a, empty(B, U), *cell_state, empty(B, D), empty(B, H),
-               empty(B, Vp), *hw]
+               empty(B, Vp), empty(B, A)]       # ..., hi, logits, h W2 + b2
     words = torch.empty(B, max_length, dtype=torch.int32, device=device)
     alphas = empty(B, max_length, R)
     index = (device.index if device.index is not None
@@ -269,14 +299,16 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
                 for t in [*inputs.values(), *scratch, words, alphas]]
     sizes = [B, R, A, D, E, U, H, Vp, max_length]
     stream = torch.cuda.current_stream(device).cuda_stream
+    planned = [inputs.get(n, a[n]) for n in a]
     if cell == "gru":      # h W2 + b2 on the tile kernel, before the attention
-        hw_plan = gru_hw_plan([inputs.get(n, a[n]) for n in a])
         code = lib.mtt_fused_greedy_decode_gru(
-            *pointers, *sizes, int(zero_state), *hw_plan.args, slope,
-            attn_slope, index, stream)
+            *pointers, *sizes, int(zero_state), *gru_hw_plan(planned).args,
+            slope, attn_slope, index, stream)
     else:
-        code = lib.mtt_fused_greedy_decode(*pointers, *sizes, slope,
-                                           attn_slope, index, stream)
+        plans = plans if plans is not None else lstm_decode_plans(planned)
+        code = lib.mtt_fused_greedy_decode(
+            *pointers, *sizes, *(x for p in plans for x in p.args), slope,
+            attn_slope, index, stream)
     _build.check_error(code, f"fused greedy decode ({cell})")
     return words, alphas
 

@@ -18,11 +18,12 @@ has one feed:
   where widths and bases allow (``FEED_W16``, ``FEED_X16``), else 4; S
   slices of the block (at most ``ks``) split K by class, k mod S, and their
   sums meet in shared memory in slice order. S is that of the kernel K2
-  runs for the same product where that kernel splits K (``slices``), so
-  that K4's sums are then K2's.
+  ran for the same product before it ran on this one, where that kernel
+  split K (``slices``): K2's words and alphas are then those it gave, and
+  K4's sums are K2's.
 
 Shapes and layouts stay here, in Python the CPU tests reach: the wrappers
-of K3 and K4 call ``plan`` and pass the plan to the C entry points, which
+of K2, K3 and K4 call ``plan`` and pass the plan to the C entry points, which
 refuse a tile they do not know or of the wrong kind, a feed or slices the
 tile cannot take, and TMA maps that cannot be encoded. Nothing falls back.
 ``TILES`` is the kernel's own table, in its order
@@ -42,6 +43,7 @@ ROW_SLICES = 8              # step_kernels.cuh's kKSlices (rows_kernel)
 VECMAT_THREADS = 256        # step_kernels.cuh's kThreads (block_vecmat)
 
 FEED_W16, FEED_X16, FEED_TMA = 1, 2, 4  # tile_kernels.cuh's kFeed*
+ORDERS = ("rows", "vecmat")     # the K2 kernel whose sums a plan keeps
 
 
 @dataclass(frozen=True)
@@ -96,19 +98,22 @@ class Tile:
         return not self.tma or (aligned and N % 4 == 0 and
                                 all(w % self.bk == 0 for w in widths))
 
-    def slices(self, N: int) -> int:
+    def slices(self, N: int, order: str) -> int:
         """S, the classes k mod S its sums fall into, as many as the tile
         has: one for the TMA tile; for a sliced one those of the kernel K2
-        runs for the same product, rows_kernel's ``ROW_SLICES`` for the
-        cell and block_vecmat's ``VECMAT_THREADS // N`` for h W2 where that
-        splits a column (N up to half its block). Where block_vecmat gives
-        a column one thread, one chain over all of K left the dense tile
-        latency-bound (PERF.md, PR 6), so there it takes ``ROW_SLICES``
-        too."""
+        ran for the same product before it ran on the tile kernel:
+        ``"rows"``, rows_kernel's ``ROW_SLICES`` (the cell, the head), or
+        ``"vecmat"``, block_vecmat's ``VECMAT_THREADS // N`` (h W2) where
+        that splits a column (N up to half its block). Where block_vecmat
+        gives a column one thread, one chain over all of K left the dense
+        tile latency-bound (PERF.md §6), so there it takes
+        ``ROW_SLICES`` too."""
+        if order not in ORDERS:
+            raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
         if self.tma:
             return 1
         split = VECMAT_THREADS // N
-        if self.gates == 4 or split < 2:
+        if order == "rows" or split < 2:
             return min(ROW_SLICES, self.ks)
         return min(split, self.ks)
 
@@ -177,12 +182,15 @@ def pick_tile(B: int, N: int, widths: tuple[int, ...], gates: int,
 
 
 def plan(B: int, N: int, widths: tuple[int, ...], gates: int,
-         aligned: bool = True, tile: int | None = None) -> Plan:
+         aligned: bool = True, tile: int | None = None,
+         order: str | None = None) -> Plan:
     """The plan of a (B, K) x (K, gates N) product over K segments of
     ``widths``: ``pick_tile``'s tile, or ``tile`` where given (a test's
     forced one: ValueError if it cannot take the shapes), its feed (TMA, or
     cp.async with 16-byte copies of W where N is a multiple of 4 and of X
-    where every width is, on 16-byte bases) and its slices."""
+    where every width is, on 16-byte bases) and its slices in ``order``
+    (``Tile.slices``; by default ``"rows"`` for the cell and ``"vecmat"``
+    for a dense product, h W2's)."""
     if tile is None:
         tile = pick_tile(B, N, widths, gates, aligned)
     t = TILES[tile]
@@ -195,7 +203,9 @@ def plan(B: int, N: int, widths: tuple[int, ...], gates: int,
         feed = ((FEED_W16 if aligned and N % 4 == 0 else 0)
                 | (FEED_X16 if aligned and all(w % 4 == 0 for w in widths)
                    else 0))
-    return Plan(tile, feed, t.slices(N))
+    if order is None:
+        order = "rows" if gates == 4 else "vecmat"
+    return Plan(tile, feed, t.slices(N, order))
 
 
 def aligned16(*tensors) -> bool:

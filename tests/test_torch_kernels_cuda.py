@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the LSTM whole-decode kernel (K2) at a small shape and at flagship LcNIC
-width, through the greedy decoders, and with other activations and a wide
-attention; the GRU whole-decode kernel (K3) in the cases of the CPU tests
-and at full CnnRnn width; the store row gather (K1) at small and flagship
+width, through the greedy decoders, with other activations and a wide
+attention, and with the tile of each of its tile-kernel products forced at
+shapes that cross the tiles' edges; the GRU whole-decode kernel (K3) in the
+cases of the CPU tests and at full CnnRnn width; the store row gather (K1) at small and flagship
 widths and through three train steps; the teacher-forced sequence forward
 (K4) at odd and flagship widths, through the custom backward, and against
 K2 on K2's own words, and with every tile of its tile kernel forced at
@@ -14,6 +15,7 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,7 +24,13 @@ from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
 from masters_thesis_tpu_torch.models.nic import CnnRnnNIC, LcNIC
 from masters_thesis_tpu_torch.ops import fused_decode
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
-from masters_thesis_tpu_torch.ops.tiles import FEED_TMA, FEED_X16, TILES, Plan
+from masters_thesis_tpu_torch.ops.tiles import (
+    FEED_TMA,
+    FEED_W16,
+    FEED_X16,
+    TILES,
+    Plan,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -165,6 +173,125 @@ def test_lstm_kernel_with_other_activations_and_wide_attention(cuda, head,
     fused_decode.spread_for_check(model, gen)
     rows = torch.randn(SMALL_ROWS, 512, generator=gen)
     _check_decode(model.to(cuda).eval(), rows.to(cuda), SMALL_MIN_DISTINCT)
+
+
+# K2 on seeded inputs, (B, R, A, D, E, U, H, V), at the edges of the tile
+# kernel's tiles (ops/tiles.py), as SEQ_SHAPES has them for K4: batches of
+# 70, 130 and 9 (a multiple of no tile's rows), cells of 40, 300 and 13
+# units and heads of 40, 300, 13 and 72 (300 and 13 cross a tile's units),
+# a vocabulary padded from 300 and from 40, widths that are not a multiple
+# of 4 (4-byte copies), and segment widths that are multiples of 32 at 130
+# rows (the TMA cell tile, forced, with rows past B)
+DECODE_SHAPES = {
+    "b70-u40": (70, 11, 20, 12, 36, 40, 40, 300),
+    "b130-u300": (130, 9, 40, 36, 28, 300, 300, 40),
+    "unaligned": (9, 5, 9, 5, 3, 13, 13, 40),
+    "tma": (130, 9, 40, 64, 32, 96, 72, 40),
+}
+DECODE_T = 5
+DECODE_PRODUCTS = ("hW2", "cell", "Wi", "Wo")   # lstm_decode_plans' order
+
+
+def _decode_case(device, B, R, A, D, E, U, H, V, seed=0):
+    """K2's arguments, drawn with numpy (the same on every PyTorch release):
+    weights at 1 / sqrt(fan-in), a head widened x4 so that the words vary,
+    every bias live, the vocabulary padded to 128 with bias -1e30."""
+    rng = np.random.default_rng(seed)
+    Vp = -(-V // 128) * 128
+
+    def rand(*shape, scale=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.as_tensor(x).to(device)
+
+    wo = torch.zeros(H, Vp, device=device)
+    wo[:, :V] = rand(H, V, scale=4 / H ** 0.5)
+    bo = torch.full((Vp,), fused_decode.PAD_NEG, device=device)
+    bo[:V] = rand(V, scale=0.2)
+    emb_table = rand(V, E)
+    carry = torch.zeros(B, U, device=device)
+    return (rand(B, R, A), rand(B, R, D), rand(U, A, scale=2 / U ** 0.5),
+            rand(A, scale=0.5), rand(A, scale=3 / A ** 0.5), rand(1),
+            rand(D + E, 4 * U, scale=1 / (D + E) ** 0.5),
+            rand(U, 4 * U, scale=1 / U ** 0.5), rand(4 * U, scale=0.5),
+            rand(U, H, scale=4 / U ** 0.5), rand(H, scale=0.5), wo, bo,
+            emb_table, emb_table[1], carry, carry)
+
+
+def _launch_decode(args, plans):
+    return fused_decode._launch("lstm", args, max_length=DECODE_T, slope=0.2,
+                                attn_slope=0.2, plans=plans)
+
+
+@pytest.mark.parametrize("product, tile", [
+    pytest.param(product, i, id=f"{DECODE_PRODUCTS[product]}-{t.name}")
+    for product in range(4) for i, t in enumerate(TILES)
+    if (t.gates == 4) == (product == 1)])
+def test_every_tile_matches_plain_version_in_the_decode(cuda, product, tile):
+    """K2 with the tile of one product (h W2, the cell, Wi or Wo) forced
+    through ``lstm_decode_plans``, whatever ``pick_tile`` would take, at
+    the shapes of DECODE_SHAPES that the tile's feed can take (the TMA cell
+    tile only at "tma"): rows past B, units past N, a K tail, 4-byte
+    copies. Words equal except at near-ties, alphas within 1e-6."""
+    ran = 0
+    for shape in DECODE_SHAPES.values():
+        args = _decode_case(cuda, *shape)
+        force = [None] * 4
+        force[product] = tile
+        try:
+            plans = fused_decode.lstm_decode_plans(args, force=force)
+        except ValueError:          # a feed that cannot take these shapes
+            continue
+        words, alphas = _launch_decode(args, plans)
+        torch.cuda.synchronize()
+        ref_words, ref_alphas, margins = (
+            fused_decode.fused_greedy_decode_reference(
+                *args, max_length=DECODE_T, return_margins=True))
+        report = fused_decode.compare_with_reference(
+            words, alphas, ref_words, ref_alphas, margins)
+        assert report["bad_rows"] == [], (shape, report)
+        assert report["near_tie_rows"] <= len(words) // 4, (shape, report)
+        assert len(torch.unique(ref_words)) >= 4, shape
+        ran += 1
+    assert ran >= 1
+
+
+@pytest.mark.parametrize("shape", ["b70-u40", "unaligned"])
+def test_decode_kernel_refuses_plans_it_cannot_run(cuda, shape):
+    """K2's C entry point returns an error for a plan of any of its four
+    products that the tile kernel cannot run: an index past the table, a
+    tile of the wrong kind, a feed the tile has not (TMA on a sliced tile,
+    cp.async on the TMA tile, TMA where the widths are off its 32-row
+    chunk, 16-byte copies of widths that are not a multiple of 4) and
+    slices it has not. Nothing falls back to another kernel."""
+    args = _decode_case(cuda, *DECODE_SHAPES[shape])
+    good = fused_decode.lstm_decode_plans(args)
+    hw, cell, wi, wo = good
+    lstm, dense = cell.tile, hw.tile
+    tma = next(i for i, t in enumerate(TILES) if t.tma)
+    bad = {
+        0: [Plan(len(TILES), hw.feed, 8), Plan(lstm, cell.feed, 8),
+            Plan(dense, FEED_TMA, 8), Plan(dense, hw.feed, 0),
+            Plan(dense, hw.feed, TILES[dense].ks + 1)],
+        1: [Plan(-1, 0, 1), Plan(dense, hw.feed, 8),
+            Plan(lstm, FEED_TMA, 8), Plan(tma, 0, 1), Plan(tma, FEED_TMA, 1),
+            Plan(lstm, cell.feed, 0),
+            Plan(lstm, cell.feed, TILES[lstm].ks + 1)],
+        2: [Plan(lstm, cell.feed, 8), Plan(wi.tile, FEED_TMA, 8)],
+        3: [Plan(lstm, cell.feed, 8), Plan(wo.tile, wo.feed, 0)],
+    }
+    if shape == "unaligned":        # D, E, U and H not a multiple of 4
+        bad[1].append(Plan(lstm, FEED_X16, 8))
+        bad[2].append(Plan(wi.tile, FEED_W16, 8))
+        bad[3].append(Plan(wo.tile, FEED_X16, 8))
+    for product, plans in bad.items():
+        for p in plans:
+            forced = list(good)
+            forced[product] = p
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _launch_decode(args, forced)
+    words, _ = _launch_decode(args, good)         # the good plans still run
+    torch.cuda.synchronize()
+    assert words.shape == (DECODE_SHAPES[shape][0], DECODE_T)
 
 
 # (n_patches, in_channels, units, vocab, true_vocab, batch): odd region

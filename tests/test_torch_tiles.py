@@ -7,7 +7,9 @@ shape that ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``
 launch, the tile that ``pick_tile`` gives is instantiated, of the right
 kind, fits the shared memory of a block, covers every row and unit, and
 fills a wave of the card wherever B x N allows; its plan has a feed the
-tile can take and the slices of the kernel K2 runs for the same product.
+tile can take and the slices of the kernel K2 ran for the same product
+before K2 itself ran on the tile kernel (``ops.fused_decode
+.lstm_decode_plans``: h W2, the cell, Wi and Wo).
 """
 
 import math
@@ -15,7 +17,9 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
+from masters_thesis_tpu_torch.ops.fused_decode import lstm_decode_plans
 from masters_thesis_tpu_torch.ops.tiles import (
     FEED_TMA,
     FEED_W16,
@@ -37,7 +41,8 @@ CSRC = Path(__file__).resolve().parents[1] / "masters_thesis_tpu_torch" / "csrc"
 # (B, N, K's segment widths, gates, the tile the main path must get or
 # None). The main path: K4's cell (N = U over [ctx | emb | h], widths
 # (D, E, U)) and h W2 (N = A over h, widths (U,)) at flagship and at the
-# wide shape, and K3's h W2 at CnnRnn width; then the CUDA tests' K4 shapes
+# wide shape, K2's head at LcNIC width (its h W2 and cell are K4's
+# flagship ones), and K3's h W2 at CnnRnn width; then the CUDA tests' K4 shapes
 # (SEQ_SHAPES (B, R, A, D, E, U, T), the LcNIC "small" model of the
 # greedy-words test) and K3's h W2 (GRU_SHAPES: A = U = units).
 CASES = {
@@ -45,6 +50,8 @@ CASES = {
     "k4-flagship-hw": (64, 32, (512,), 1, "d16x8"),
     "k4-wide-cell": (256, 2048, (128, 1024, 2048), 4, "l128x32"),
     "k4-wide-hw": (256, 256, (2048,), 1, "d32x16"),
+    "k2-lcnic-wi": (64, 256, (512,), 1, "d16x8"),
+    "k2-lcnic-wo": (64, 5120, (256,), 1, "d32x16"),
     "k3-cnn_rnn-hw": (64, 512, (512,), 1, "d16x8"),
     "seq-small-odd-cell": (6, 24, (4, 16, 24), 4, None),
     "seq-small-odd-hw": (6, 8, (24,), 1, None),
@@ -232,3 +239,88 @@ def test_a_forced_tile_of_the_wrong_kind_raises():
 def test_pick_tile_raises_for_a_shape_no_tile_takes(shape):
     with pytest.raises(ValueError):
         pick_tile(*shape)
+
+
+# K2's shapes (B, R, A, D, E, U, H, Vp): flagship LcNIC, and the K2 cases
+# of tests/test_torch_kernels_cuda.py (the LcNIC "small" model, the wide
+# attention of the activations test, DECODE_SHAPES with the vocabulary
+# padded to 128)
+K2_SHAPES = {
+    "flagship": (64, 360, 32, 32, 512, 512, 256, 5120),
+    "small": (6, 8, 8, 4, 8, 16, 256, 128),
+    "wide-attention": (32, 8, 512, 32, 64, 48, 256, 128),
+    "b70-u40": (70, 11, 20, 12, 36, 40, 40, 384),
+    "b130-u300": (130, 9, 40, 36, 28, 300, 300, 128),
+    "unaligned": (9, 5, 9, 5, 3, 13, 13, 128),
+    "tma": (130, 9, 40, 64, 32, 96, 72, 128),
+}
+K2_PRODUCTS = ("h W2", "cell", "Wi", "Wo")
+
+
+def _k2_args(B, R, A, D, E, U, H, Vp):
+    """``fused_greedy_decode``'s tensors at these shapes (uninitialised:
+    the plans read shapes and bases only)."""
+    e = torch.empty
+    return (e(B, R, A), e(B, R, D), e(U, A), e(A), e(A), e(1),
+            e(D + E, 4 * U), e(U, 4 * U), e(4 * U), e(U, H), e(H), e(H, Vp),
+            e(Vp), e(Vp, E), e(E), e(B, U), e(B, U))
+
+
+@pytest.mark.parametrize("product, tile, blocks", [
+    ("h W2", "d16x8", 4 * 4), ("cell", "l32x8", 64 * 2),
+    ("Wi", "d16x8", 32 * 4), ("Wo", "d32x16", 320 * 2)])
+def test_lstm_decode_plans_at_lcnic_widths(product, tile, blocks):
+    """Flagship LcNIC's greedy decode (B 64, U 512, A 32, E 512, H 256, Vp
+    5,120): every product on a sliced tile fed by 16-byte copies, in 8
+    slices, and the head's two filling a wave of the card (128 and 640
+    blocks, where rows_kernel had 64 and 1,280)."""
+    B, R, A, D, E, U, H, Vp = K2_SHAPES["flagship"]
+    plans = dict(zip(K2_PRODUCTS, lstm_decode_plans(_k2_args(*K2_SHAPES[
+        "flagship"]))))
+    p = plans[product]
+    N = {"h W2": A, "cell": U, "Wi": H, "Wo": Vp}[product]
+    assert TILES[p.tile].name == tile
+    assert (p.feed, p.slices) == (FEED_W16 | FEED_X16, ROW_SLICES)
+    assert TILES[p.tile].blocks(B, N) == blocks
+
+
+@pytest.mark.parametrize("shape", list(K2_SHAPES))
+def test_lstm_decode_plans_sum_as_k2s_kernels_did(shape):
+    """At every shape K2 is launched at, each product takes a sliced tile
+    whose slices are the classes K2's own kernels summed it in before it
+    ran on the tile kernel: rows_kernel's 8 for the cell and the head,
+    block_vecmat's 256 // A for h W2 where that splits a column (else 8),
+    so that K2's words and alphas stay what they were."""
+    B, R, A = K2_SHAPES[shape][:3]
+    hw, cell, wi, wo = lstm_decode_plans(_k2_args(*K2_SHAPES[shape]))
+    for p in (hw, cell, wi, wo):
+        assert not TILES[p.tile].tma
+    assert cell.slices == wi.slices == wo.slices == ROW_SLICES
+    split = VECMAT_THREADS // A
+    assert hw.slices == (split if split >= 2 else ROW_SLICES)
+
+
+@pytest.mark.parametrize("product", range(len(K2_PRODUCTS)),
+                         ids=K2_PRODUCTS)
+def test_a_forced_tile_of_the_wrong_kind_raises_in_k2s_plans(product):
+    """An LSTM tile forced on a dense product, or a dense one on the cell,
+    raises; so does the TMA tile on a cell whose widths it cannot take."""
+    args = _k2_args(*K2_SHAPES["flagship"])
+    wrong = next(i for i, t in enumerate(TILES)
+                 if (t.gates == 4) != (product == 1))
+    force = [None] * 4
+    force[product] = wrong
+    with pytest.raises(ValueError):
+        lstm_decode_plans(args, force=force)
+    if product == 1:
+        tma = next(i for i, t in enumerate(TILES) if t.tma)
+        lstm_decode_plans(_k2_args(*K2_SHAPES["tma"]),
+                          force=(None, tma, None, None))
+        with pytest.raises(ValueError):
+            lstm_decode_plans(_k2_args(*K2_SHAPES["b70-u40"]),
+                              force=(None, tma, None, None))
+
+
+def test_plan_order_names_a_k2_kernel():
+    with pytest.raises(ValueError):
+        plan(64, 32, (512,), 1, order="columns")
