@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives five paths, each at the full
+``nvcc`` a source, in parallel), then drives six paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -39,7 +39,19 @@ width of its model or at its probe's own sizes:
   version bit for bit, checks P3 (the bulk gather at 4 stages) exactly,
   times each beside the plain version and ``index_select``, runs the probe
   through its entry point, and times P1 and P2 at their best settings
-  beside K1 on the training store.
+  beside K1 on the training store;
+- the training product: ``experiment.run_training`` of
+  ``configs/flagship_synth.yaml`` (2 of its 10 epochs at its 2,571 keys,
+  caption metrics every epoch) writes a run directory, training from the
+  pregathered store through K1 and decoding the val captions through K2;
+  ``run_eval`` decodes the test split through K2 and ``run_metrics`` scores
+  it; a fresh ``CheckpointManager`` restores the trained state on the card
+  bit for bit, and ``Captioner.from_run_dir`` gives ``run_eval``'s words on
+  raw test rows (near-ties excepted). It prints each epoch's loss and
+  steps/s, the checkpoint saves' blocking and commit times and bytes,
+  captions/s through ``run_eval``, BLEU-4, CIDEr and METEOR_lite, and the
+  run directory's files, and fails unless K1 and K2 ran on every batch of
+  the path and the loss fell.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -59,7 +71,9 @@ The flagship layout is the synthetic 360-group one of ``bench.py``. The last
 line is the JSON object ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel with its launches on its path (K2 while serving LcNIC,
 K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
-loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run), its
+loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run; K1
+and K2 also under ``launches_experiment``, their launches in the training
+product's phase), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -80,9 +94,11 @@ import hashlib
 import io
 import json
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -130,6 +146,19 @@ PROBE_WIDE = dict(units=2048, group_size=128, embedding_text=1024,
 PROBE_WIDE_BATCH = 256
 DEC_REPS = 5
 P3_TURNS = 7        # P3 and index_select timed in turns
+# the training product: configs/flagship_synth.yaml through
+# experiment.run_training (2 of its 10 epochs, caption metrics every epoch),
+# run_eval, run_metrics, a restore on the card and from_run_dir
+EXPERIMENT_CONFIG = Path(__file__).resolve().parent / "configs" / (
+    "flagship_synth.yaml")
+EXPERIMENT_EPOCHS = 2
+EXPERIMENT_KEYS = TRAIN_KEYS
+SERVED_ROWS = 64            # test rows through Captioner.from_run_dir
+# the keys of the JAX package's run_metrics without a USE bundle or a
+# METEOR synonym table (masters_thesis_tpu/evalsuite/metric_suite.py)
+JAX_METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR_lite",
+                   "ROUGE_L", "CIDEr", "SPICE_lite", "GUSE_hash_pearson_r",
+                   "GUSE_hash_mean_corr")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1354,6 +1383,215 @@ def gather_probe(train_data, device, card: str) -> list[dict]:
         "launches": launches["P3"], **entries["P3"]}]
 
 
+# ---- the training product: config -> run_training -> run_eval ->
+# run_metrics -> restore -> from_run_dir ----
+
+def raw_rows(rows: torch.Tensor, layout) -> torch.Tensor:
+    """Rows of a pregathered store back in voxel order: each voxel's one
+    slot in the grouped padded layout (the synthetic groups cover every
+    voxel once)."""
+    flat = layout.flat_indices()
+    real = np.nonzero(flat < layout.n_voxels)[0]
+    slot = np.empty(layout.n_voxels, np.int64)
+    slot[flat[real]] = real
+    return rows.index_select(1, torch.as_tensor(slot, device=rows.device))
+
+
+def check_restore(bundle, device, card: str) -> None:
+    """A fresh manager's restore, on the card, into a fresh state gives
+    back every parameter, BatchNorm statistic, mu, nu, count and step of
+    the trained state bit for bit."""
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
+    from masters_thesis_tpu_torch.train.state import new_state
+
+    cfg, trained = bundle["cfg"], bundle["state"]
+    layout = trained.model.encoder.layout
+    model, _, _ = experiment.build_model(cfg, layout.to_groups(),
+                                         layout.n_voxels, pregathered=True)
+    fresh = new_state(model, cfg, device, seed=cfg.seed + 1)
+    mgr = CheckpointManager(bundle["manager"].directory)
+    fresh, epoch = mgr.restore(fresh)
+    pairs = [(f"model.{k}", v, fresh.model.state_dict()[k])
+             for k, v in trained.model.state_dict().items()]
+    for slot in ("mu", "nu"):
+        pairs += [(f"{slot}.{i}", a, b) for i, (a, b) in enumerate(
+            zip(getattr(trained.tx, slot), getattr(fresh.tx, slot)))]
+    bad = [name for name, a, b in pairs
+           if a.device != b.device or not torch.equal(a, b)]
+    if bad or (fresh.tx.count, fresh.step, fresh.seed) != (
+            trained.tx.count, trained.step, trained.seed):
+        raise RuntimeError(f"the restore of epoch {epoch} differs: {bad[:5]}, "
+                           f"count/step/seed {fresh.tx.count}/{fresh.step}/"
+                           f"{fresh.seed}")
+    print(f"restore of epoch {epoch} on the card: {len(pairs)} tensors, "
+          f"count {fresh.tx.count}, step {fresh.step}, seed {fresh.seed}: "
+          f"bit for bit [{card}]")
+
+
+def check_served(run_path: str, bundle, out: dict, device, card: str) -> None:
+    """``Captioner.from_run_dir`` on the card, on raw rows of the first
+    SERVED_ROWS test keys, gives ``run_eval``'s words and attention
+    (``attention_scores_{e}.npy``): a row may take another word only at a
+    near-tie of the plain version, and its alphas agree within ALPHA_ATOL
+    up to that step. A model two epochs into random captions emits the same
+    words for every row, so the alphas, which depend on the row, carry the
+    check: they must differ between rows, and the same rows in a wrong
+    voxel order must fail it on every row."""
+    from masters_thesis_tpu_torch.ops.fused_decode import (
+        compare_with_reference,
+        decode_inputs,
+        fused_greedy_decode_reference,
+        make_whole_fused_greedy_decoder,
+    )
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    store, layout = bundle["store"], bundle["model"].encoder.layout
+    # a key's pairs share its row: one pair of each key
+    _, first = np.unique(out["keys"], return_index=True)
+    pick = np.sort(first)[:SERVED_ROWS]
+    keys = out["keys"][pick]
+    idx = torch.as_tensor(store.indices_for(keys), device=store.device)
+    rows = store.device_array().index_select(0, idx.long()).float()
+    if bundle["model"].encoder.pregathered:
+        rows = raw_rows(rows, layout)
+    cap = Captioner.from_run_dir(run_path, best=False, device=device)
+    start_id = bundle["tokenizer"].start_id
+    served = cap.caption_ids(rows.cpu().numpy())
+    decode = make_whole_fused_greedy_decoder(cap.model, cap.max_length)
+    words, alphas = decode(rows, start_id)
+    if not np.array_equal(served, words.cpu().numpy()):
+        raise RuntimeError("Captioner.caption_ids and its decoder disagree "
+                           "on the same rows")
+    want_words = torch.as_tensor(out["words"][pick], device=device)
+    want_alphas = torch.as_tensor(np.load(
+        Path(run_path) / f"attention_scores_{out['epoch']}.npy")[pick],
+        device=device)
+    with torch.inference_mode():
+        _, _, margins = fused_greedy_decode_reference(
+            *decode_inputs(cap.model, rows, start_id),
+            max_length=cap.max_length, return_margins=True)
+    report = compare_with_reference(words, alphas, want_words, want_alphas,
+                                    margins, alpha_atol=ALPHA_ATOL,
+                                    tie_margin=TIE_MARGIN)
+    if report["bad_rows"]:
+        raise RuntimeError(f"from_run_dir differs from run_eval on test rows "
+                           f"{report['bad_rows']}: {report}")
+    spread = float((alphas[:, 0] - alphas[:1, 0]).abs().max())
+    if not spread > ALPHA_ATOL:
+        raise RuntimeError(f"the alphas of {len(keys)} different rows agree "
+                           f"within {spread}: the check cannot see the rows")
+    wrong = compare_with_reference(*decode(rows.roll(1, dims=1), start_id),
+                                   want_words, want_alphas, margins,
+                                   alpha_atol=ALPHA_ATOL,
+                                   tie_margin=TIE_MARGIN)
+    if len(wrong["bad_rows"]) != len(keys):
+        raise RuntimeError(f"rows in a wrong voxel order passed the "
+                           f"from_run_dir check: {wrong}")
+    print(f"Captioner.from_run_dir on {len(keys)} raw test rows: run_eval's "
+          f"words ({len(set(map(bytes, served)))} distinct captions), "
+          f"{report['near_tie_rows']} rows apart at near-ties; alphas within "
+          f"{report['max_abs_err']:.3g} of attention_scores_{out['epoch']}"
+          f".npy (tolerance {ALPHA_ATOL:g}; step-0 spread across rows "
+          f"{spread:.3g}); the rows rolled by one voxel fail on all "
+          f"{len(wrong['bad_rows'])} (max alpha error "
+          f"{wrong['max_abs_err']:.3g}) [{card}]")
+
+
+def experiment_phase(device, card: str) -> dict:
+    """The training product at flagship width: ``run_training`` of
+    ``configs/flagship_synth.yaml`` (EXPERIMENT_EPOCHS epochs, caption
+    metrics every epoch, scanned steps from the pregathered store through
+    K1), ``run_eval`` (K2), ``run_metrics``, a restore on the card and
+    ``from_run_dir``. Returns K1's and K2's launches on this path."""
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    cfg = Config.load(EXPERIMENT_CONFIG)
+    with tempfile.TemporaryDirectory(prefix="mtt_run_") as log:
+        cfg.log = log
+        cfg.epochs = EXPERIMENT_EPOCHS
+        cfg.caption_metrics_every = 1
+        gather_rows.launches = 0
+        fd.fused_greedy_decode.launches = 0
+        t0 = time.perf_counter()
+        run_path, logs, bundle = experiment.run_training(
+            cfg, smoke_keys=EXPERIMENT_KEYS, device=device)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        k1, k2_train = gather_rows.launches, fd.fused_greedy_decode.launches
+        steps = len(bundle["pairs"]["train"]) // cfg.batch_size
+        val_batches = len(bundle["pairs"]["val"]) // cfg.batch_size
+        epochs = [json.loads(line) for line in
+                  open(Path(run_path) / "metrics.jsonl")]
+        losses = [r["loss"] for r in epochs if r["kind"] == "epoch"]
+        meta = json.loads((Path(run_path) / "run_meta.json").read_text())
+        print(f"experiment: {EXPERIMENT_CONFIG.name}, {EXPERIMENT_KEYS} keys, "
+              f"{EXPERIMENT_EPOCHS} epochs, run_training {run_s:.2f} s (data, "
+              f"store, fit), fit {meta['train_wall_s']} s; backend "
+              f"{meta['backend']} [{card}]")
+        for r in epochs:
+            if r["kind"] == "epoch":
+                print(f"  epoch {int(r['epoch'])}: loss {r['loss']}, "
+                      f"val_loss {r['val_loss']}, {r['steps_per_sec']} "
+                      f"steps/s, epoch {r['epoch_time']} s [{card}]")
+            else:
+                print(f"  caption metrics epoch {int(r['epoch'])}: "
+                      f"val BLEU-1 {r['val_bleu1']}, BLEU-4 {r['val_bleu4']}, "
+                      f"CIDEr {r['val_cider']} ({int(r['n_captions'])} "
+                      f"captions)")
+        print(f"  run_meta.json: steps_per_sec_final_epoch "
+              f"{meta['steps_per_sec_final_epoch']}, steps_per_sec_median "
+              f"{meta.get('steps_per_sec_median')}, epochs_ran "
+              f"{meta['epochs_ran']} [{card}]")
+        for t in bundle["manager"].timings:
+            print(f"  checkpoint epoch {t['epoch']}: save blocked "
+                  f"{t['blocked_ms']:.1f} ms, committed after "
+                  f"{t['commit_ms']:.1f} ms, {t['bytes']} bytes (parameters, "
+                  f"BatchNorm statistics, Adam mu and nu) [{card}]")
+        train_batches = EXPERIMENT_EPOCHS * (steps + val_batches)
+        if k1 < train_batches:
+            raise RuntimeError(f"K1 launched {k1} times in run_training, for "
+                               f"{train_batches} train and val batches")
+        if len(losses) != EXPERIMENT_EPOCHS or not losses[1] < losses[0]:
+            raise RuntimeError(f"the epoch losses did not fall: {losses}")
+
+        fd.fused_greedy_decode.launches = 0
+        t0 = time.perf_counter()
+        out = experiment.run_eval(bundle, run_path)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        k2 = fd.fused_greedy_decode.launches
+        n = len(out["texts"])
+        test_batches = -(-n // min(cfg.batch_size, n))
+        print(f"run_eval: {n} test captions in {eval_s:.3f} s, "
+              f"{n / eval_s:.1f} captions/s (host clock, K2 in "
+              f"{test_batches} batches) [{card}]")
+        if k2 < test_batches:
+            raise RuntimeError(f"K2 launched {k2} times for {test_batches} "
+                               f"test batches")
+        t0 = time.perf_counter()
+        scores = experiment.run_metrics(bundle, out)
+        missing = set(JAX_METRIC_KEYS) - set(scores)
+        print(f"run_metrics in {time.perf_counter() - t0:.2f} s: "
+              + ", ".join(f"{k} {scores[k]}" for k in
+                          ("Bleu_4", "CIDEr", "METEOR_lite") if k in scores))
+        if missing:
+            raise RuntimeError(f"run_metrics lacks {sorted(missing)}")
+        check_restore(bundle, device, card)
+        check_served(run_path, bundle, out, device, card)
+        files = sorted(str(p.relative_to(run_path))
+                       for p in Path(run_path).rglob("*") if p.is_file())
+        print(f"run directory: {', '.join(files)}")
+        del bundle
+    print(f"K1 launches in run_training: {k1} (train and val batches "
+          f"{train_batches}); K2 launches in run_training {k2_train}, in "
+          f"run_eval {k2}")
+    return {"K1": k1, "K2": k2_train + k2}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1437,17 +1675,21 @@ def main(argv=None) -> int:
     probes = gather_probe(train_data, device, card)
     del train_data
     release()
+    product = experiment_phase(device, card)
+    release()
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
-        "launches": launches, **k2}, {
+        "launches": launches, "launches_experiment": product["K2"],
+        **k2}, {
         "name": "fused_greedy_decode_gru", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276", **k3}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
-        "replaces": "masters_thesis_tpu/ops/gather.py:49", **k1}, {
+        "replaces": "masters_thesis_tpu/ops/gather.py:49",
+        "launches_experiment": product["K1"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},

@@ -2,26 +2,29 @@
 
 The port's own copy of ``masters_thesis_tpu/data/tokenizer.py``, with the
 same names and meaning (``tests/test_torch_copies.py`` holds the two
-together), less what no part of the port calls yet: the Keras-json
-persistence and ``sequences_to_texts`` come with ``from_run_dir`` (ROADMAP
-M10).
+together).
 
 The reference builds its vocabulary with
 ``tf.keras.preprocessing.text.Tokenizer(num_words=5000, oov_token='<unk>',
 filters='!"#$%&()*+.,-/:;=?@[\\]^_`{|}~\\t\\n ')`` and then manually installs
 ``word_index['<pad>'] = 0`` (reference: AttemptFour/DataLoaders/load_avg_betas.py:187-191).
-This module reimplements that behaviour bit-for-bit, so vocabularies built
-here from the same corpus match the reference's ids.
+This module reimplements that behaviour bit-for-bit so that
+
+- vocabularies built here from the same corpus match the reference's ids, and
+- reference ``tokenizer_73k.json`` files load directly (``from_keras_json``)
+  for seed-fixed caption parity.
 
 Key Keras behaviours replicated:
 - lowercasing, filter chars translated to the split char, empty tokens dropped;
 - word ids assigned by descending count with stable (first-seen) tie order,
   ids starting at 1, oov token always id 1;
-- ``texts_to_sequences`` maps ids ``>= num_words`` to the oov id.
+- ``texts_to_sequences`` maps ids ``>= num_words`` to the oov id;
+- ``sequences_to_texts`` mirrors that mapping.
 """
 
 from __future__ import annotations
 
+import json
 from collections import OrderedDict
 
 import numpy as np
@@ -97,6 +100,24 @@ class Tokenizer:
             out.append(vect)
         return out
 
+    def sequences_to_texts(self, sequences) -> list[str]:
+        oov = self.oov_token
+        out = []
+        for seq in sequences:
+            vect = []
+            for num in np.asarray(seq).reshape(-1).tolist():
+                word = self.index_word.get(int(num))
+                if word is not None:
+                    if self.num_words and num >= self.num_words:
+                        if oov is not None:
+                            vect.append(oov)
+                    else:
+                        vect.append(word)
+                elif oov is not None:
+                    vect.append(oov)
+            out.append(" ".join(vect))
+        return out
+
     # ---- special ids ----
     @property
     def start_id(self) -> int:
@@ -105,6 +126,58 @@ class Tokenizer:
     @property
     def end_id(self) -> int:
         return self.word_index[END]
+
+    # ---- persistence (Keras-json compatible) ----
+    def to_json(self) -> str:
+        config = {
+            "num_words": self.num_words,
+            "filters": self.filters,
+            "lower": self.lower,
+            "split": self.split,
+            "char_level": False,
+            "oov_token": self.oov_token,
+            "document_count": 0,
+            "word_counts": json.dumps(dict(self.word_counts)),
+            "word_docs": json.dumps({}),
+            "index_docs": json.dumps({}),
+            "index_word": json.dumps({str(k): v for k, v in self.index_word.items()}),
+            "word_index": json.dumps(self.word_index),
+        }
+        return json.dumps({"class_name": "Tokenizer", "config": config})
+
+    @classmethod
+    def from_json(cls, payload: str | dict) -> "Tokenizer":
+        """Load from a Keras ``tokenizer.to_json()`` payload (or its dict)."""
+        if isinstance(payload, str):
+            payload = json.loads(payload)
+        cfg = payload["config"] if "config" in payload else payload
+        tok = cls(
+            num_words=cfg.get("num_words"),
+            oov_token=cfg.get("oov_token"),
+            filters=cfg.get("filters", KERAS_FILTERS),
+            lower=cfg.get("lower", True),
+            split=cfg.get("split", " "),
+        )
+        wc = cfg.get("word_counts")
+        if wc:
+            tok.word_counts = OrderedDict(json.loads(wc) if isinstance(wc, str) else wc)
+        wi = cfg.get("word_index")
+        if wi:
+            tok.word_index = dict(json.loads(wi) if isinstance(wi, str) else wi)
+        iw = cfg.get("index_word")
+        if iw:
+            iw = json.loads(iw) if isinstance(iw, str) else iw
+            tok.index_word = {int(k): v for k, v in iw.items()}
+        return tok
+
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def load(cls, path) -> "Tokenizer":
+        with open(path) as f:
+            return cls.from_json(f.read())
 
 
 def pad_sequences(

@@ -1,10 +1,9 @@
 """Token-id → caption text post-processing.
 
-The port's own copy of ``ids_to_caption`` from
-``masters_thesis_tpu/evalsuite/tokens.py``, with the same meaning: truncate
-at the first ``<end>`` (soloist/evaluate.py:89-98; CNN_RNN cython kernel
-zeroes everything past ``<end>``, cython_functions.pyx:40-43) and drop
-``<pad>``/``<start>``.
+The port's own copy of ``masters_thesis_tpu/evalsuite/tokens.py``, with the
+same meaning: truncate at the first ``<end>`` (soloist/evaluate.py:89-98;
+CNN_RNN cython kernel zeroes everything past ``<end>``,
+cython_functions.pyx:40-43) and drop ``<pad>``/``<start>``.
 """
 
 from __future__ import annotations
@@ -27,3 +26,16 @@ def ids_to_caption(ids, tokenizer: Tokenizer) -> str:
             continue
         words.append(w)
     return " ".join(words)
+
+
+def postprocess_text(text: str) -> str:
+    """Truncate an already-decoded string at '<end>' (evaluate.py:89-98)."""
+    words = text.split()
+    out = []
+    for w in words:
+        if w == END:
+            break
+        if w in (PAD, START):
+            continue
+        out.append(w)
+    return " ".join(out)

@@ -2,9 +2,8 @@
 
 The port's own copy of ``masters_thesis_tpu/ops/group_layout.py``, with the
 same names and meaning (``tests/test_torch_copies.py`` holds the two
-together), less the run-directory persistence and the report, which come
-with ``from_run_dir`` (ROADMAP M10). ``BUCKET_LADDER`` fixes the encoder's
-parameter shapes, so the two copies must not drift apart.
+together). ``BUCKET_LADDER`` fixes the encoder's parameter shapes, so the
+two copies must not drift apart.
 
 The reference's "LocallyDense" brain encoder is 345-360 parallel Keras Dense
 layers, one per Glasser region, each applied to ``tf.gather(x, idx)`` in a
@@ -105,3 +104,27 @@ class GroupLayout:
         data = np.asarray(data)
         padded = np.pad(data, ((0, 0), (0, 1)))
         return padded[:, self.flat_indices()]
+
+    # ---- persistence (run-dir artefact so models can be rebuilt) ----
+    def save(self, path: str) -> None:
+        groups = self.to_groups()
+        flat = np.concatenate(groups) if groups else np.zeros(0, np.int64)
+        offsets = np.cumsum([0] + [len(g) for g in groups])
+        np.savez(path, flat=flat, offsets=offsets, n_voxels=self.n_voxels)
+
+    @classmethod
+    def load(cls, path: str) -> "GroupLayout":
+        z = np.load(path)
+        flat, offsets = z["flat"], z["offsets"]
+        groups = [
+            flat[offsets[i] : offsets[i + 1]] for i in range(len(offsets) - 1)
+        ]
+        return cls(groups, int(z["n_voxels"]))
+
+    def to_groups(self) -> list[np.ndarray]:
+        """Recover the original ragged groups in original order."""
+        out: dict[int, np.ndarray] = {}
+        for b in self.buckets:
+            for row, gid in enumerate(b.group_ids):
+                out[int(gid)] = b.indices[row, : b.sizes[row]].astype(np.int64)
+        return [out[i] for i in range(self.n_groups)]

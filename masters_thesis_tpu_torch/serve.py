@@ -5,6 +5,7 @@ Counterpart of ``masters_thesis_tpu/serve.py``:
 
     cap = Captioner.from_components(model, params, batch_stats, tokenizer,
                                     units, max_length)
+    cap = Captioner.from_run_dir("Log/run")          # a port training run
     texts = cap.caption(rows)                        # greedy
 
 The Captioner runs on the card (``cuda``) unless it is given
@@ -22,9 +23,11 @@ A row is whatever the model's encoder reads: (n_voxels,) betas for LcNIC,
 and ``input_width`` its last dimension, as in the JAX ``Captioner`` and
 server.
 
-Beam and sampling decoders wait for ROADMAP M9; ``from_run_dir`` waits for
-M10, because the run directory's orbax checkpoint and ``config.yaml`` need
-libraries that the port does not use.
+``from_run_dir`` rebuilds the model of a run directory that the port's
+``experiment.run_training`` wrote (``config.yaml``, ``tokenizer.json``,
+``layout.npz``, ``run_meta.json`` and the best or latest checkpoint under
+``model/``), taking raw rows whether or not the run trained from a
+pregathered store. Beam and sampling decoders wait for ROADMAP M9.
 """
 
 from __future__ import annotations
@@ -101,6 +104,48 @@ class Captioner:
         model.load_state_dict(
             from_flax({"params": params, "batch_stats": batch_stats}))
         return cls(model, tokenizer, units, max_length, **kw)
+
+    @classmethod
+    def from_run_dir(cls, run_path: str, best: bool = True, device=None,
+                     **kw) -> "Captioner":
+        """Rebuild the model and its weights from a training run directory
+        (the JAX ``Captioner.from_run_dir``): the best checkpoint by val
+        loss, or the latest with ``best=False``, on ``device`` (by default
+        ``cuda``). Other keyword arguments go to ``Captioner``."""
+        import json
+        import os
+
+        from masters_thesis_tpu_torch.config import Config
+        from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
+        from masters_thesis_tpu_torch.experiment import build_model
+        from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+        from masters_thesis_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+        )
+
+        cfg = Config.load(os.path.join(run_path, "config.yaml"))
+        tokenizer = Tokenizer.load(os.path.join(run_path, "tokenizer.json"))
+        layout = GroupLayout.load(os.path.join(run_path, "layout.npz"))
+        # the trained row shape, recorded before any permutation of the store
+        with open(os.path.join(run_path, "run_meta.json")) as f:
+            row_shape = tuple(json.load(f)["input_row_shape"])
+        if row_shape != (layout.n_voxels,):
+            raise ValueError(f"run_meta.json's input_row_shape {row_shape} "
+                             f"does not match layout.npz's "
+                             f"{layout.n_voxels} voxels")
+        model, _, _ = build_model(cfg, layout.to_groups(), layout.n_voxels)
+        mgr = CheckpointManager(os.path.join(run_path, "model"))
+        epoch = mgr.best_epoch() if best else None
+        epoch = mgr.latest_epoch() if epoch is None else epoch
+        if epoch is None:
+            raise FileNotFoundError(f"{run_path!r} holds no saved checkpoint")
+        saved = mgr.read(epoch)
+        model.load_state_dict(from_flax(
+            {c: saved[c] for c in ("params", "batch_stats") if saved[c]}))
+        inst = cls(model, tokenizer, cfg.units, cfg.max_length,
+                   device=device, **kw)
+        inst.epoch = epoch
+        return inst
 
     def _decoder(self):
         """decode(rows, start_id) -> a tuple that starts with the words."""

@@ -9,8 +9,10 @@ SIGTERM -> KeyboardInterrupt -> ``on_interrupt`` partial-stop path.
 Metrics stay on the device for the whole epoch and come to the host in one
 copy at its end (or when it is cut short), where the batch callbacks then
 fire in step order: a host read per step would hold the host behind the
-card. The concrete callbacks (CSV logs, checkpoints, previews) and the mesh
-input placement wait for ROADMAP M10 and M13.
+card. The hooks the callbacks of ``train/callbacks.py`` read are the JAX
+Trainer's: ``metric_logger`` (one ``epoch`` record per epoch in
+``metrics.jsonl``), ``_target_epochs`` and ``epoch_steps_per_sec``. The
+mesh input placement waits for ROADMAP M13.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import time
 
 import numpy as np
 import torch
+
+from masters_thesis_tpu_torch.ops.gather import gather_rows
 
 logger = logging.getLogger(__name__)
 
@@ -67,8 +71,9 @@ def _mean_metrics(rows: list[dict]) -> dict:
 
 class Trainer:
     def __init__(self, cfg, train_step, eval_step, state, train_pipe,
-                 val_pipe=None, callbacks=(), store=None):
+                 val_pipe=None, callbacks=(), store=None, metric_logger=None):
         self.cfg = cfg
+        self.metric_logger = metric_logger
         self.train_step = train_step
         self.eval_step = eval_step
         self.state = state
@@ -85,6 +90,7 @@ class Trainer:
         # never reads the state's counter behind the device's back
         self._host_step = int(state.step)
         self._epoch = 0
+        self._target_epochs = None
         self._preempted = False
         self.epoch_steps_per_sec: list[float] = []
 
@@ -116,7 +122,10 @@ class Trainer:
         self.scanned_eval = scanned_eval
 
     def _batch_arrays(self, batch):
-        return (self.store.device_gather(batch["idx"]),
+        """The batch on the device, its rows gathered from the store through
+        K1."""
+        idx = torch.as_tensor(batch["idx"], device=self.device)
+        return (gather_rows(self.store.device_array(), idx),
                 torch.as_tensor(batch["tokens"], device=self.device),
                 torch.as_tensor(batch["target"], device=self.device))
 
@@ -171,6 +180,7 @@ class Trainer:
 
     def fit(self, epochs: int | None = None, start_epoch: int = 0) -> dict:
         epochs = self.cfg.epochs if epochs is None else epochs
+        self._target_epochs = epochs    # the callbacks' final-epoch checks
         for cb in self.callbacks:
             cb.on_train_begin(self)
         logs: dict = {}
@@ -257,6 +267,8 @@ class Trainer:
         logs["epoch_time"] = time.perf_counter() - t0
         logs["steps_per_sec"] = len(rows) / t_train if rows else 0.0
         self.epoch_steps_per_sec.append(logs["steps_per_sec"])
+        if self.metric_logger is not None:
+            self.metric_logger.log("epoch", epoch=epoch, **logs)
         logger.info("epoch %d: loss=%.4f val_loss=%s (%.1fs, %.2f steps/s)",
                     epoch, logs.get("loss", float("nan")),
                     f"{logs['val_loss']:.4f}" if "val_loss" in logs else "n/a",

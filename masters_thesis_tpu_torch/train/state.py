@@ -42,15 +42,13 @@ class TrainState:
         return self.generator.manual_seed(self.dropout_key())
 
 
-def init_model(cfg, layout, device=None, seed: int | None = None,
-               pregathered: bool = False) -> TrainState:
-    """A flagship LcNIC from ``cfg`` initialised from ``seed`` (default
-    ``cfg.seed``), on ``device`` (by default ``cuda``; pass ``device="cpu"``
-    for the CPU), with its optimizer and dropout generator. ``pregathered``
-    takes the grouped padded input of a permuted store."""
+def lc_nic_for(cfg, layout, seed: int | None = None,
+               pregathered: bool = False):
+    """A flagship LcNIC of ``cfg``'s widths and dropouts on ``layout``,
+    initialised on the CPU from ``seed`` (default ``cfg.seed``).
+    ``pregathered`` takes the grouped padded input of a permuted store."""
     seed = cfg.seed if seed is None else seed
-    device = resolve_device(device)
-    model = LcNIC(
+    return LcNIC(
         layout, units=cfg.units, group_size=cfg.group_size,
         embedding_text=cfg.embedding_text, attn_units=cfg.attn_units,
         vocab_size=cfg.vocab_size, max_length=cfg.max_length,
@@ -59,7 +57,28 @@ def init_model(cfg, layout, device=None, seed: int | None = None,
         dropout_text=cfg.dropout_text, dropout_attn=cfg.dropout_attn,
         dropout_lstm=cfg.dropout_lstm, dropout_out=cfg.dropout_out,
         pregathered=pregathered,
-        generator=torch.Generator().manual_seed(seed)).to(device)
+        generator=torch.Generator().manual_seed(seed))
+
+
+def new_state(model: nn.Module, cfg, device=None,
+              seed: int | None = None) -> TrainState:
+    """``model`` on ``device`` (by default ``cuda``) with a fresh optimizer
+    of ``cfg`` and the dropout generator of ``seed`` (default
+    ``cfg.seed``)."""
+    device = resolve_device(device)
+    model = model.to(device)
     return TrainState(model=model,
                       tx=make_optimizer(cfg, model.parameters()),
-                      generator=torch.Generator(device=device), seed=seed)
+                      generator=torch.Generator(device=device),
+                      seed=cfg.seed if seed is None else seed)
+
+
+def init_model(cfg, layout, device=None, seed: int | None = None,
+               pregathered: bool = False) -> TrainState:
+    """A flagship LcNIC from ``cfg`` initialised from ``seed`` (default
+    ``cfg.seed``), on ``device`` (by default ``cuda``; pass ``device="cpu"``
+    for the CPU), with its optimizer and dropout generator. ``pregathered``
+    takes the grouped padded input of a permuted store."""
+    device = resolve_device(device)
+    return new_state(lc_nic_for(cfg, layout, seed, pregathered), cfg,
+                     device, seed)

@@ -197,3 +197,34 @@ def make_scanned_eval_steps_from_tables(cfg, l2_rules, masked: bool = False):
                        for p in pair_idx])
 
     return steps
+
+
+def make_grad_stats_fn(cfg, l2_rules, masked: bool = False):
+    """Per-parameter gradient statistics on one batch (the reference's
+    ``df_grads.csv``, AttemptFour/main.py:359-361): ``fn(state, betas,
+    tokens, target) -> {param_path: (norm, mean_abs, max_abs)}`` with
+    '/'-joined flax paths, from the training forward at the state's step
+    (its dropout masks) and autograd. The state is left as it was: the
+    BatchNorm statistics the forward moves are put back."""
+
+    def fn(state, betas, tokens, target):
+        model = state.model
+        names, params = zip(*model.named_parameters())
+        stats = [b for b in model.buffers() if b.is_floating_point()]
+        saved = [b.clone() for b in stats]
+        mask = (target != 0) if masked else None
+        try:
+            total, _ = _forward_loss(model, cfg, l2_rules, betas, tokens,
+                                     target, mask, state.dropout_generator())
+            grads = torch.autograd.grad(total, params)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(stats, saved):
+                    b.copy_(s)
+        table = torch.stack([torch.stack([torch.linalg.vector_norm(g),
+                                          g.abs().mean(), g.abs().max()])
+                             for g in grads]).cpu().tolist()
+        return {name.replace(".", "/"): tuple(row)
+                for name, row in zip(names, table)}
+
+    return fn

@@ -1,7 +1,10 @@
 """The port's own copies of the JAX package's framework-free modules against
-their originals, on the same inputs: tokenizer, pairs, the batch pipeline,
-the group layout, the synthetic fixtures and their key split, caption
-post-processing, the serving chunker and the HTTP server."""
+their originals, on the same inputs: tokenizer (with its Keras-json
+persistence), pairs, the batch pipeline, the group layout (with its
+``layout.npz``), the synthetic fixtures (the structured and compositional
+modes too) and their key split, caption post-processing, the serving
+chunker, the HTTP server, the run-directory logs and the TensorBoard event
+writer."""
 
 import io
 import json
@@ -18,16 +21,26 @@ from masters_thesis_tpu.data import synthetic as jsynthetic
 from masters_thesis_tpu.data import tokenizer as jtokenizer
 from masters_thesis_tpu.data.store import ArrayStore as JArrayStore
 from masters_thesis_tpu.evalsuite.tokens import ids_to_caption as j_ids_to_caption
+from masters_thesis_tpu.evalsuite.tokens import (
+    postprocess_text as j_postprocess_text,
+)
 from masters_thesis_tpu.ops import group_layout as jgroup_layout
 from masters_thesis_tpu.serve import padded_chunk_ids as j_padded_chunk_ids
 from masters_thesis_tpu.server import make_caption_server as j_make_server
+from masters_thesis_tpu.utils import logging as jlogging
+from masters_thesis_tpu.utils import tensorboard as jtensorboard
 from masters_thesis_tpu_torch.data import pairs, pipeline, synthetic
 from masters_thesis_tpu_torch.data import tokenizer
 from masters_thesis_tpu_torch.data.store import ArrayStore
-from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption
+from masters_thesis_tpu_torch.evalsuite.tokens import (
+    ids_to_caption,
+    postprocess_text,
+)
 from masters_thesis_tpu_torch.ops import group_layout
 from masters_thesis_tpu_torch.serve import padded_chunk_ids
 from masters_thesis_tpu_torch.server import make_caption_server
+from masters_thesis_tpu_torch.utils import logging as plogging
+from masters_thesis_tpu_torch.utils import tensorboard as ptensorboard
 
 CAPTIONS = jsynthetic.synthetic_captions(range(1, 13), seed=3)
 TEXTS = [jpairs.clean_caption(c) for lines in CAPTIONS.values()
@@ -261,3 +274,147 @@ def test_caption_server_serves_the_port_captioner_like_original():
     want = _talk(j_make_server(cap, port=0, max_wait_s=0.0), rows)
     assert got == want
     assert got[1][0] == cap.caption(rows)
+
+
+def test_tokenizer_persistence_and_texts_match_original(tmp_path):
+    """``to_json``/``save``/``load`` and ``sequences_to_texts``: each
+    package reads the other's tokenizer.json to the same vocabulary."""
+    tok, jtok = _fit(tokenizer, 12), _fit(jtokenizer, 12)
+    tok.install_pad()
+    jtok.install_pad()
+    assert tok.to_json() == jtok.to_json()
+    tok.save(tmp_path / "port.json")
+    jtok.save(tmp_path / "jax.json")
+    for a, b in ((tokenizer.Tokenizer.load(tmp_path / "jax.json"), jtok),
+                 (jtokenizer.Tokenizer.load(tmp_path / "port.json"), tok)):
+        assert a.word_index == b.word_index
+        assert a.index_word == b.index_word
+        assert a.word_counts == b.word_counts
+    seqs = [[tok.start_id, 3, 11, 12, 40, 0], [], np.asarray([5, 6])]
+    assert tok.sequences_to_texts(seqs) == jtok.sequences_to_texts(seqs)
+
+
+@pytest.mark.parametrize("mode", ["structured", "compositional"])
+def test_structured_synthetic_dataset_matches_original(mode):
+    """The structured and compositional modes: betas, pairs, tokenizer and
+    groups, exactly; and the factor helpers alone."""
+    split, prs, tok, betas, keys, groups = synthetic.synthetic_dataset(
+        n_keys=30, n_voxels=64, n_groups=4, top_k=40, seed=2,
+        structured=mode)
+    jsplit, jprs, jtok, jstore, jgroups = jsynthetic.synthetic_dataset(
+        n_keys=30, n_voxels=64, n_groups=4, top_k=40, seed=2,
+        structured=mode)
+    for field in ("train", "val", "test"):
+        np.testing.assert_array_equal(getattr(split, field),
+                                      getattr(jsplit, field))
+    assert prs == jprs and tok.word_index == jtok.word_index
+    np.testing.assert_array_equal(betas, np.asarray(jstore.data))
+    np.testing.assert_array_equal(keys, jstore.keys)
+    for a, b in zip(groups, jgroups):
+        np.testing.assert_array_equal(a, b)
+    for holdout in (None, "seen", "unseen"):
+        f = synthetic.synthetic_factors(keys, seed=4, holdout=holdout)
+        np.testing.assert_array_equal(
+            f, jsynthetic.synthetic_factors(keys, seed=4, holdout=holdout))
+        np.testing.assert_array_equal(synthetic.combo_held_out(f),
+                                      jsynthetic.combo_held_out(f))
+    assert (synthetic.structured_captions(keys, f, n_caps=3)
+            == jsynthetic.structured_captions(keys, f, n_caps=3))
+    np.testing.assert_array_equal(
+        synthetic.structured_betas(f, 16, seed=1, ambiguity=0.3),
+        jsynthetic.structured_betas(f, 16, seed=1, ambiguity=0.3))
+
+
+def test_group_layout_persistence_matches_original(tmp_path):
+    """``layout.npz`` either package wrote loads in the other to the same
+    groups, which ``to_groups`` gives back in their original order."""
+    groups = jsynthetic.synthetic_groups(3000, 11, seed=6)
+    layout = group_layout.GroupLayout(groups, 3000)
+    jlayout = jgroup_layout.GroupLayout(groups, 3000)
+    layout.save(tmp_path / "port.npz")
+    jlayout.save(tmp_path / "jax.npz")
+    for a, b in ((group_layout.GroupLayout.load(tmp_path / "jax.npz"),
+                  jlayout),
+                 (jgroup_layout.GroupLayout.load(tmp_path / "port.npz"),
+                  layout)):
+        assert a.n_voxels == b.n_voxels
+        for ga, gb in zip(a.to_groups(), b.to_groups(), strict=True):
+            np.testing.assert_array_equal(ga, gb)
+    for ga, gb in zip(layout.to_groups(), groups, strict=True):
+        np.testing.assert_array_equal(ga, gb)
+
+
+def test_postprocess_text_matches_original():
+    for text in ("a dog <end> runs", "<start> a <pad> cat", "", "<end>",
+                 "no end here"):
+        assert postprocess_text(text) == j_postprocess_text(text)
+
+
+def _masked_jsonl(path):
+    rows = [json.loads(line) for line in open(path)]
+    for row in rows:
+        row["ts"] = None
+    return rows
+
+
+def test_run_logs_match_original(tmp_path):
+    """``setup_run_dir`` (its config snapshot aside), ``CSVLogger`` and
+    ``MetricLogger`` write the same lines, timestamps masked."""
+    for module, name in ((plogging, "port"), (jlogging, "jax")):
+        run = module.setup_run_dir(str(tmp_path / name), "r", None,
+                                   file_log=False)
+        csv = module.CSVLogger(f"{run}/h.csv", ["epoch", "loss", "x"])
+        csv.write({"epoch": 0, "loss": "0.500000", "y": 3})
+        csv.write({"loss": 1.25})
+        csv.close()
+        csv = module.CSVLogger(f"{run}/h.csv", ["epoch", "loss", "x"])
+        csv.write({"epoch": 2})     # appends, no second header
+        csv.close()
+        log = module.MetricLogger(f"{run}/m.jsonl")
+        log.log("epoch", epoch=1, loss=np.float32(0.25), steps=3,
+                note="text", val=torch.tensor(2.5))
+        log.log("caption_metrics", epoch=0, val_bleu4=0.5, n_captions=7)
+        log.close()
+    port, jax_ = tmp_path / "port" / "r", tmp_path / "jax" / "r"
+    assert (port / "h.csv").read_text() == (jax_ / "h.csv").read_text()
+    assert _masked_jsonl(port / "m.jsonl") == _masked_jsonl(jax_ / "m.jsonl")
+
+
+def _records(path):
+    """The event file's records with their crc checked, each payload with
+    its wall time (the leading double field) cut off."""
+    import struct
+
+    data = path.read_bytes()
+    out, i = [], 0
+    while i < len(data):
+        (n,) = struct.unpack("<Q", data[i:i + 8])
+        payload = data[i + 12:i + 12 + n]
+        (crc,) = struct.unpack("<I", data[i + 12 + n:i + 16 + n])
+        assert crc == jtensorboard._masked_crc(payload)
+        assert payload[:1] == b"\x09"          # field 1, 64-bit: wall time
+        out.append(payload[9:])
+        i += 16 + n
+    return out
+
+
+def test_event_writer_matches_original(tmp_path):
+    """``EventWriter`` records (scalars, text, an image) and
+    ``encode_png``, byte for byte with the wall times masked."""
+    img = np.random.default_rng(0).integers(0, 256, (5, 7, 3),
+                                            dtype=np.uint8)
+    assert ptensorboard.encode_png(img) == jtensorboard.encode_png(img)
+    files = {}
+    for module, name in ((ptensorboard, "port"), (jtensorboard, "jax")):
+        w = module.EventWriter(str(tmp_path / name), filename_suffix=".x")
+        w.scalar("loss", 0.5, 3)
+        w.scalars({"a": 1.0, "b": np.float32(2.5)}, 4, prefix="epoch/")
+        w.scalars({}, 5)
+        w.text("preview", "a dog", 6)
+        w.image("captions/sample_0", module.encode_png(img), 5, 7, 7)
+        w.close()
+        (files[name],) = (tmp_path / name).glob("events.out.tfevents.*.x")
+    assert _records(files["port"]) == _records(files["jax"])
+    assert len(_records(files["port"])) == 5
+    with pytest.raises(NotImplementedError, match="matplotlib"):
+        ptensorboard.render_caption_image(None, "a caption")

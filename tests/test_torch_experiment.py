@@ -1,0 +1,470 @@
+"""The ported training product against the JAX package's, on the CPU.
+
+From a temporary copy of ``configs/smoke.yaml`` with every dropout 0: JAX
+``run_training`` A (1 epoch) makes a checkpoint; JAX run B warm-starts
+from A and trains 2 epochs; A's best parameters, read through the JAX
+``CheckpointManager`` and ``transplant.from_flax``, become a port checkpoint
+directory, from which the port's ``run_training`` warm-starts and trains 2
+epochs. The per-epoch ``loss`` and ``val_loss`` match B's within 2e-5, as
+the trainer tests hold them; the two run directories hold the same files
+outside ``model/``, the same ``metrics.jsonl`` kinds and keys and CSV
+headers. The port's ``run_eval`` on B's final parameters gives B's words,
+near-ties excepted, and ``run_metrics`` on B's texts gives the JAX dict
+exactly. Then the port alone: resume is bit for bit with dropout on,
+``from_run_dir`` serves the run's words, the CLI prints the JAX CLI's keys,
+and every part that waits refuses, naming its ROADMAP item."""
+
+import copy
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from masters_thesis_tpu import experiment as jexp
+from masters_thesis_tpu.config import Config as JConfig
+from masters_thesis_tpu.train.checkpoint import (
+    CheckpointManager as JCheckpointManager,
+)
+from masters_thesis_tpu_torch import cli, experiment
+from masters_thesis_tpu_torch.config import Config
+from masters_thesis_tpu_torch.data.store import permute_rows
+from masters_thesis_tpu_torch.ops.fused_decode import (
+    decode_inputs,
+    fused_greedy_decode_reference,
+    make_whole_fused_greedy_decoder,
+)
+from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.serve import Captioner
+from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
+from masters_thesis_tpu_torch.train.state import new_state
+from masters_thesis_tpu_torch.transplant import from_flax
+
+ROOT = Path(__file__).resolve().parents[1]
+SMOKE = ROOT / "configs" / "smoke.yaml"
+KEYS = 24
+TRAJ = dict(rtol=2e-5, atol=2e-5)       # tests/test_torch_trainer.py:38
+TIE_MARGIN = 1e-3
+DROPOUTS = ("dropout_features", "dropout_text", "dropout_lstm",
+            "dropout_attn", "dropout_out")
+
+
+def _smoke_yaml(tmp: Path, dropout_off: bool = True,
+                extra: str = "") -> Path:
+    """A copy of configs/smoke.yaml logging under ``tmp``."""
+    text = SMOKE.read_text().replace("log: /tmp/mtt_logs/",
+                                     f"log: {tmp / 'logs'}/")
+    if dropout_off:
+        text += "".join(f"{k}: 0.0\n" for k in DROPOUTS)
+    text += extra
+    path = tmp / "smoke.yaml"
+    path.write_text(text)
+    return path
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, dict(tree))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """JAX A -> JAX B (warm start, 2 epochs, then run_eval and
+    run_metrics); A's best parameters as a port checkpoint -> port P (warm
+    start, 2 epochs)."""
+    tmp = tmp_path_factory.mktemp("slice")
+    path = _smoke_yaml(tmp, extra="caption_metrics_every: 1\n")
+    jcfg = JConfig.load(path)
+    run_a, _, _ = jexp.run_training(dataclasses.replace(jcfg, run="A"),
+                                    epochs=1, smoke_keys=KEYS)
+    jb_path, jb_logs, jb = jexp.run_training(
+        dataclasses.replace(jcfg, run="B", warm_start=run_a), epochs=2,
+        smoke_keys=KEYS)
+    jb_eval = jexp.run_eval(jb, jb_path)
+    jb_metrics = jexp.run_metrics(jb, jb_eval)
+
+    # A's best parameters, through the JAX manager, into a port checkpoint
+    params, epoch = JCheckpointManager(
+        os.path.join(run_a, "model")).restore_params_only(None, best=True)
+    cfg = Config.load(path)
+    _, _, _, store, groups = experiment.build_data(cfg, KEYS)
+    model, _, _ = experiment.build_model(cfg, groups, store.row_shape[0])
+    missing, unexpected = model.load_state_dict(
+        from_flax({"params": _np(params)}), strict=False)
+    assert not unexpected and all(k.endswith((".mean", ".var"))
+                                  for k in missing)
+    port_a = tmp / "logs" / "portA"
+    mgr = CheckpointManager(str(port_a / "model"))
+    mgr.save(new_state(model, cfg, "cpu"), epoch)
+    mgr.close()
+
+    p_cfg = dataclasses.replace(cfg, run="P", warm_start=str(port_a))
+    p_path, p_logs, p = experiment.run_training(p_cfg, epochs=2,
+                                                smoke_keys=KEYS,
+                                                device="cpu")
+    return {"jb": jb, "jb_path": jb_path, "jb_logs": jb_logs,
+            "jb_eval": jb_eval, "jb_metrics": jb_metrics, "p": p,
+            "p_path": p_path, "p_logs": p_logs, "tmp": tmp, "yaml": path}
+
+
+def _records(run_path, kind="epoch"):
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+
+def test_training_matches_the_jax_run(runs):
+    got, want = _records(runs["p_path"]), _records(runs["jb_path"])
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [0, 1]
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose([r[key] for r in got],
+                                   [r[key] for r in want], **TRAJ,
+                                   err_msg=key)
+    assert got[-1]["loss"] == runs["p_logs"]["loss"]
+
+
+def _listing(run_path):
+    """Every file of a run directory outside model/; TensorBoard event
+    files by their suffix alone (their names carry a time and a pid)."""
+    out = set()
+    for path in Path(run_path).rglob("*"):
+        rel = path.relative_to(run_path)
+        if rel.parts[0] == "model" or path.is_dir():
+            continue
+        if rel.name.startswith("events.out.tfevents."):
+            # events.out.tfevents.<time>.mtt.<pid><suffix>
+            suffix = rel.name.split(".")[6:]
+            rel = rel.parent / ".".join(["events", *suffix])
+        out.add(str(rel))
+    return out
+
+
+def test_run_directory_matches_the_jax_run(runs):
+    """The same files, with one exception: the JAX run's
+    ``tb/events.captions`` of CaptionImagePreview, which draws with
+    matplotlib and waits in the port (ROADMAP M14)."""
+    p, jb = runs["p_path"], runs["jb_path"]
+    experiment.run_eval(runs["p"], p)
+    assert _listing(jb) - _listing(p) == {"tb/events.captions"}
+    assert _listing(p) - _listing(jb) == set()
+    assert sorted(os.listdir(Path(p) / "model")) == [
+        "ep000", "ep001", "meta.json"]
+    for name in ("loss_history.csv", "batch_training_log.csv",
+                 "df_grads.csv"):
+        assert ((Path(p) / name).read_text().splitlines()[0]
+                == (Path(jb) / name).read_text().splitlines()[0]), name
+    assert ((Path(p) / "df_grads.csv").read_text().count("\n")
+            == (Path(jb) / "df_grads.csv").read_text().count("\n"))
+    assert ((Path(p) / "modelsummary.txt").read_text()
+            == (Path(jb) / "modelsummary.txt").read_text())
+    for kind in ("epoch", "caption_metrics"):
+        got, want = _records(p, kind), _records(jb, kind)
+        assert [sorted(r) for r in got] == [sorted(r) for r in want], kind
+        assert len(got) == 2, kind
+    meta = json.loads((Path(p) / "run_meta.json").read_text())
+    jmeta = json.loads((Path(jb) / "run_meta.json").read_text())
+    # the port also records tpu.prng_impl, which changes nothing there
+    assert set(meta) - set(jmeta) == {"prng_impl"}
+    assert set(jmeta) - set(meta) == set()
+    assert meta["input_row_shape"] == jmeta["input_row_shape"]
+    assert meta["backend"] == "cpu"
+    assert Config.load(Path(p) / "config.yaml").to_dict() == JConfig.load(
+        Path(p) / "config.yaml").to_dict()
+
+
+def _port_bundle_with_jax_weights(runs):
+    """The port's bundle with B's final parameters and BatchNorm statistics
+    loaded into a copy of its model."""
+    bundle = dict(runs["p"])
+    jstate = runs["jb"]["state"]
+    model = copy.deepcopy(bundle["model"])
+    model.load_state_dict(from_flax({
+        "params": _np(jstate.params),
+        "batch_stats": _np(jstate.batch_stats)}))
+    bundle["model"] = model
+    return bundle
+
+
+def test_eval_on_jax_weights_gives_the_jax_words(runs):
+    bundle = _port_bundle_with_jax_weights(runs)
+    out_dir = runs["tmp"] / "eval"
+    out_dir.mkdir()
+    got = experiment.run_eval(bundle, str(out_dir))
+    want = runs["jb_eval"]
+    np.testing.assert_array_equal(got["keys"], want["keys"])
+    assert got["epoch"] == want["epoch"] == 1
+    words, jwords = got["words"], np.asarray(want["words"])
+    assert words.shape == jwords.shape and words.dtype == np.int32
+    differs = np.nonzero((words != jwords).any(axis=1))[0]
+    if len(differs):
+        # a near-tie of the port's plain decode at the first step that
+        # differs is no fault: the two sum in different orders
+        store, cfg = bundle["store"], bundle["cfg"]
+        rows = store.device_array()[store.indices_for(got["keys"][differs])]
+        model = bundle["model"].eval()
+        _, _, margins = fused_greedy_decode_reference(
+            *decode_inputs(model, rows, bundle["tokenizer"].start_id),
+            max_length=cfg.max_length, return_margins=True)
+        for i, row in enumerate(differs):
+            first = int(np.argmax(words[row] != jwords[row]))
+            assert float(margins[i, first]) < TIE_MARGIN, row
+    assert len(differs) <= len(words) // 10
+    for name in ("output_captions_1.npy", "attention_scores_1.npy",
+                 "captions_1.txt"):
+        assert (out_dir / name).exists()
+
+
+def test_metrics_on_the_jax_texts_give_the_jax_dict(runs):
+    got = experiment.run_metrics(runs["p"], runs["jb_eval"])
+    assert got == runs["jb_metrics"]
+    assert "GUSE_hash_pearson_r" in got and "METEOR_lite" in got
+
+
+def test_resume_is_bit_for_bit_with_dropout_on(tmp_path):
+    """Two epochs in one run, or one and then ``resume`` for one more: the
+    same per-epoch metrics, the same final parameters, BatchNorm
+    statistics and Adam state."""
+    cfg = Config.load(_smoke_yaml(tmp_path, dropout_off=False))
+    assert cfg.dropout_lstm == 0.2
+    path_x, _, x = experiment.run_training(
+        dataclasses.replace(cfg, run="X"), epochs=2, smoke_keys=KEYS,
+        device="cpu")
+    ycfg = dataclasses.replace(cfg, run="Y")
+    experiment.run_training(ycfg, epochs=1, smoke_keys=KEYS, device="cpu")
+    path_y, _, y = experiment.run_training(ycfg, epochs=2, smoke_keys=KEYS,
+                                           resume=True, device="cpu")
+    timing = {"ts", "epoch_time", "steps_per_sec"}
+    rx, ry = _records(path_x), _records(path_y)
+    assert len(rx) == len(ry) == 2
+    for a, b in zip(rx, ry):
+        assert ({k: v for k, v in a.items() if k not in timing}
+                == {k: v for k, v in b.items() if k not in timing})
+    assert ((Path(path_x) / "batch_training_log.csv").read_text()
+            == (Path(path_y) / "batch_training_log.csv").read_text())
+    sx, sy = x["state"], y["state"]
+    assert (sx.step, sx.tx.count) == (sy.step, sy.tx.count)
+    for (name, a), b in zip(sx.model.state_dict().items(),
+                            sy.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    for slot in ("mu", "nu"):
+        for a, b in zip(getattr(sx.tx, slot), getattr(sy.tx, slot)):
+            assert torch.equal(a, b), slot
+
+
+def test_from_run_dir_serves_the_runs_words(runs):
+    """The run directory's best checkpoint, rebuilt on the CPU, gives the
+    words of an in-memory Captioner on the same weights and rows."""
+    p = runs["p"]
+    cap = Captioner.from_run_dir(runs["p_path"], device="cpu")
+    best = p["manager"].best_epoch()
+    assert cap.epoch == best
+    model = copy.deepcopy(p["model"])
+    saved = p["manager"].read(best)
+    model.load_state_dict(from_flax({"params": saved["params"],
+                                     "batch_stats": saved["batch_stats"]}))
+    mem = Captioner(model, p["tokenizer"], p["cfg"].units,
+                    p["cfg"].max_length, device="cpu")
+    rows = p["store"].device_array()[:11].numpy()
+    np.testing.assert_array_equal(cap.caption_ids(rows),
+                                  mem.caption_ids(rows))
+    assert cap.input_row_shape == (rows.shape[1],)
+
+
+def test_from_run_dir_takes_raw_rows_of_a_pregathered_model(runs):
+    """A run trained from a pregathered store keeps checkpoints a raw-row
+    model loads: ``layout.npz`` rebuilds the voxel -> group layout, so the
+    served model on raw rows decodes as the pregathered model on the same
+    rows permuted into its layout, words and attention."""
+    p = runs["p"]
+    cap = Captioner.from_run_dir(runs["p_path"], device="cpu")
+    layout = GroupLayout.load(os.path.join(runs["p_path"], "layout.npz"))
+    pre, _, _ = experiment.build_model(p["cfg"], layout.to_groups(),
+                                       layout.n_voxels, pregathered=True)
+    saved = p["manager"].read(cap.epoch)
+    pre.load_state_dict(from_flax({"params": saved["params"],
+                                   "batch_stats": saved["batch_stats"]}))
+    pre.eval()
+    rows = p["store"].device_array()[:11]
+    start = p["tokenizer"].start_id
+    words, alphas = make_whole_fused_greedy_decoder(
+        cap.model, cap.max_length)(rows, start)
+    pre_words, pre_alphas = make_whole_fused_greedy_decoder(
+        pre, cap.max_length)(permute_rows(rows, layout), start)
+    assert torch.equal(words, pre_words)
+    assert torch.equal(alphas, pre_alphas)
+    assert (alphas[:, 0] - alphas[:1, 0]).abs().max() > 1e-3
+
+
+def _cli(argv, capsys):
+    assert cli.main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_cli_prints_the_jax_cli_keys(runs, tmp_path, capsys):
+    """``train``, ``eval`` and ``metrics`` print the keys the JAX CLI
+    composes from the same calls (``masters_thesis_tpu/cli.py``); ``train``
+    also through ``python -m``."""
+    path = str(_smoke_yaml(tmp_path, extra="caption_metrics_every: 1\n"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "masters_thesis_tpu_torch", "train",
+         "--config", path, "--epochs", "1", "--smoke-keys", "16",
+         "--device", "cpu"], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    train = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(train) == {"run_path", *runs["jb_logs"]}
+    assert os.path.exists(os.path.join(train["run_path"], "tokenizer.json"))
+    common = ["--config", path, "--epochs", "1", "--smoke-keys", "16",
+              "--device", "cpu"]
+    out = _cli(["eval", *common], capsys)
+    assert set(out) == {"run_path", "n_captions"} and out["n_captions"] > 0
+    out = _cli(["metrics", *common], capsys)
+    jkeys = {k for k, v in runs["jb_metrics"].items() if v is not None}
+    assert set(out) == {"run_path", "n_captions", *jkeys}
+    assert "GUSE_hash_pearson_r" in out and "GUSE_pearson_r" not in out
+
+
+def test_cli_eval_resume_decodes_without_retraining(tmp_path, capsys):
+    path = str(_smoke_yaml(tmp_path))
+    common = ["--config", path, "--smoke-keys", "16", "--device", "cpu"]
+    run_path = _cli(["train", *common, "--epochs", "2"], capsys)["run_path"]
+    hist = (Path(run_path) / "loss_history.csv").read_text()
+    out = _cli(["eval", *common, "--epochs", "0", "--resume"], capsys)
+    assert out["run_path"] == run_path and out["n_captions"] > 0
+    assert (Path(run_path) / "loss_history.csv").read_text() == hist
+    assert (Path(run_path) / "output_captions_1.npy").exists()
+
+
+def test_cli_caption_writes_one_line_per_row(runs, tmp_path, capsys):
+    rows = runs["p"]["store"].device_array()[:5].numpy()
+    np.save(tmp_path / "rows.npy", rows)
+    out_txt = tmp_path / "captions.txt"
+    out = _cli(["caption", "--run", runs["p_path"], "--betas",
+                str(tmp_path / "rows.npy"), "--out", str(out_txt),
+                "--device", "cpu"], capsys)
+    assert out == {"n": 5, "out": str(out_txt)}
+    lines = out_txt.read_text().splitlines()
+    cap = Captioner.from_run_dir(runs["p_path"], device="cpu")
+    assert lines == cap.caption(rows)
+    assert cli.main(["caption", "--run", runs["p_path"], "--betas",
+                     str(tmp_path / "rows.npy"), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines() == lines
+
+
+def _cfg(**kw):
+    cfg = Config.load(SMOKE)
+    tpu = {k: kw.pop(k) for k in list(kw) if hasattr(cfg.tpu, k)}
+    dataset = {k: kw.pop(k) for k in list(kw) if hasattr(cfg.dataset, k)}
+    return dataclasses.replace(
+        cfg, **kw, tpu=dataclasses.replace(cfg.tpu, **tpu),
+        dataset=dataclasses.replace(cfg.dataset, **dataset))
+
+
+def _train(tmp_path, **kw):
+    cfg = dataclasses.replace(_cfg(**kw), log=str(tmp_path))
+    experiment.run_training(cfg, epochs=1, smoke_keys=12, device="cpu")
+
+
+def _captioner_decoder(tmp_path, decoder):
+    def run():
+        from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
+        from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
+        from masters_thesis_tpu_torch.models.nic import LcNIC
+        from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+
+        tok = Tokenizer()
+        tok.fit_on_texts(["a dog"])
+        tok.install_pad()
+        layout = GroupLayout(synthetic_groups(32, 4), 32)
+        cap = Captioner(LcNIC(layout, units=8, group_size=4,
+                              embedding_text=4, attn_units=4, vocab_size=6,
+                              max_length=3), tok, 8, 3, device="cpu")
+        cap.caption(np.zeros((1, 32), np.float32), decoder=decoder)
+    return run
+
+
+def _make(cls_name, module="masters_thesis_tpu_torch.train.callbacks"):
+    def run():
+        import importlib
+
+        getattr(importlib.import_module(module), cls_name)("dir", None)
+    return run
+
+
+def _use_bundle(tmp_path):
+    from masters_thesis_tpu_torch.evalsuite.guse_sim import default_embedder
+
+    np.savez(tmp_path / "use_dan.npz", x=np.zeros(1))
+    return lambda: default_embedder(str(tmp_path / "use_dan.npz"))
+
+
+REFUSALS = {
+    "real NSD data": (lambda t: lambda: _train(t, betas_path=str(t)),
+                      "M19"),
+    "another model family": (lambda t: lambda: _train(t, model="showtell"),
+                             "M11"),
+    "GloVe table": (lambda t: lambda: _train(t, glove_path="g.npy"), "M11"),
+    "learned initial state": (
+        lambda t: lambda: _train(t, learned_init_state=True), "M11"),
+    "data mesh": (lambda t: lambda: _train(t, mesh_data=2), "M13"),
+    "model mesh": (lambda t: lambda: _train(t, mesh_model=2), "M13"),
+    "bf16 params": (lambda t: lambda: _train(t, param_dtype="bfloat16"),
+                    "M16"),
+    "bf16 compute": (lambda t: lambda: _train(t, compute_dtype="bfloat16"),
+                     "M16"),
+    "remat": (lambda t: lambda: _train(t, remat=True), "M15"),
+    "padded vocab": (lambda t: lambda: _train(t, vocab_pad_multiple=128),
+                     "M13"),
+    "step profiling": (lambda t: lambda: _train(t, profile_steps=5), "M14"),
+    "profiler trace": (lambda t: lambda: _train(t, profile_trace=True),
+                       "M14"),
+    "beam eval": (lambda t: lambda: experiment.run_eval(
+        {}, str(t), decoder="beam"), "M9"),
+    "beam serving": (lambda t: _captioner_decoder(t, "beam"), "M9"),
+    "sampled serving": (lambda t: _captioner_decoder(t, "sample"), "M9"),
+    "CaptionImagePreview": (lambda t: _make("CaptionImagePreview"), "M14"),
+    "render_caption_image": (lambda t: lambda: __import__(
+        "masters_thesis_tpu_torch.utils.tensorboard",
+        fromlist=["x"]).render_caption_image(None, "a"), "M14"),
+    "StepProfiling": (lambda t: _make("StepProfiling"), "M14"),
+    "TraceCapture": (lambda t: _make("TraceCapture"), "M14"),
+    "USE encoder": (_use_bundle, "M12"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_unported_parts_refuse_naming_their_roadmap_item(case, tmp_path):
+    make, item = REFUSALS[case]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
+        make(tmp_path)()
+    assert not list(tmp_path.rglob("run_meta.json"))
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["train", "--processes", "2"], "M13"),
+    (["train", "--devices-per-process", "8"], "M13"),
+    (["eval", "--decoder", "beam"], "M9"),
+    (["eval", "--beam-width", "3"], "M9"),
+    (["metrics", "--subject", "b"], "M11"),
+    (["metrics", "--beam-width", "3"], "M9"),
+    (["caption", "--decoder", "sample"], "M9"),
+    (["caption", "--temperature", "0.7"], "M9"),
+    (["caption", "--sample-top-k", "5"], "M9"),
+    (["caption", "--seed", "3"], "M9"),
+    (["caption", "--shard", "2"], "M13"),
+    (["caption", "--pre", "pre_dir"], "M19"),
+])
+def test_cli_flags_without_a_port_exit_naming_their_item(argv, item):
+    if argv[0] == "caption":
+        argv = [*argv, "--run", "r", "--betas", "b.npy"]
+    else:
+        argv = [*argv, "--config", str(SMOKE)]
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}\\b") as err:
+        cli.main(argv)
+    assert err.value.code != 0

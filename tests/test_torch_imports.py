@@ -2,10 +2,13 @@
 optax, orbax, yaml and the JAX package itself blocked by a meta-path finder,
 every module of the port and ``chip_smoke.py`` import, and importing them
 loads no module of the JAX package, does not load triton and builds no
-kernel. No import statement of the port or of ``chip_smoke.py`` names the
+kernel; under the same block the port's CLI (``python -m
+masters_thesis_tpu_torch``) reads a config, trains, decodes and scores on
+the CPU. No import statement of the port or of ``chip_smoke.py`` names the
 JAX package, not even inside a function."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -23,6 +26,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "triton",
 def _port_modules() -> list[str]:
     names = []
     for path in sorted(PORT.rglob("*.py")):
+        if path.name == "__main__.py":      # runs the CLI: see below
+            continue
         parts = path.relative_to(ROOT).with_suffix("").parts
         names.append(".".join(parts[:-1] if parts[-1] == "__init__"
                               else parts))
@@ -59,16 +64,17 @@ def imported():
          f"MODULES = {MODULES!r}\nBLOCKED = {BLOCKED!r}\n{SCRIPT}"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    import json
-
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def test_port_imports_with_jax_flax_and_yaml_blocked(imported):
     loaded = set(imported["loaded"])
     assert set(MODULES) <= loaded
-    assert "masters_thesis_tpu_torch.server" in loaded
-    assert "masters_thesis_tpu_torch.models.encoders" in loaded
+    for name in ("server", "models.encoders", "experiment", "cli",
+                 "train.checkpoint", "train.callbacks",
+                 "evalsuite.metric_suite", "evalsuite.guse_sim",
+                 "utils.tensorboard", "utils.summary"):
+        assert f"masters_thesis_tpu_torch.{name}" in loaded
     for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
         assert blocked not in loaded
 
@@ -99,3 +105,45 @@ def test_port_shares_only_framework_free_modules_of_the_reference(imported):
     for path in sources:
         for name in _imported_names(path):
             assert name.split(".")[0] != "masters_thesis_tpu", (path, name)
+
+
+CLI_SCRIPT = textwrap.dedent("""
+    import importlib.abc, json, runpy, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked")
+
+    sys.meta_path.insert(0, Block())
+    sys.argv = ["masters_thesis_tpu_torch", *ARGV]
+    try:
+        runpy.run_module("masters_thesis_tpu_torch", run_name="__main__")
+    except SystemExit as exc:
+        assert not exc.code, exc.code
+    print(json.dumps(sorted(sys.modules)))
+""")
+
+
+def test_cli_runs_with_jax_flax_and_yaml_blocked(tmp_path):
+    """``metrics`` on a copy of configs/smoke.yaml, on the CPU: the port's
+    own YAML reader, training, decoding and the metric suite, with no module
+    of the JAX package, jax or yaml loaded."""
+    cfg = tmp_path / "smoke.yaml"
+    cfg.write_text((ROOT / "configs" / "smoke.yaml").read_text().replace(
+        "log: /tmp/mtt_logs/", f"log: {tmp_path}/"))
+    argv = ["metrics", "--config", str(cfg), "--epochs", "1",
+            "--smoke-keys", "12", "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"ARGV = {argv!r}\nBLOCKED = {BLOCKED!r}\n{CLI_SCRIPT}"],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    *_, result, loaded = proc.stdout.strip().splitlines()
+    assert "Bleu_4" in json.loads(result)
+    loaded = set(json.loads(loaded))
+    assert "masters_thesis_tpu_torch.cli" in loaded
+    for blocked in BLOCKED:
+        assert not any(m.split(".")[0] == blocked for m in loaded), blocked

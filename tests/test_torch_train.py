@@ -513,9 +513,9 @@ def test_config_defaults_and_names_match_the_jax_config():
     ref = JConfig().to_dict()
     cfg = Config.from_dict(ref)
     for key, value in vars(cfg).items():
-        if key == "tpu":
+        if key in ("tpu", "dataset", "input"):
             for k, v in vars(value).items():
-                assert ref["tpu"][k] == v, k
+                assert ref[key][k] == v, k
         else:
             assert ref[key] == value, key
     assert Config() == cfg and cfg.vocab_size == JConfig().vocab_size
