@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives six paths, each at the full
+``nvcc`` a source, in parallel), then drives seven paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -51,7 +51,22 @@ width of its model or at its probe's own sizes:
   steps/s, the checkpoint saves' blocking and commit times and bytes,
   captions/s through ``run_eval``, BLEU-4, CIDEr and METEOR_lite, and the
   run directory's files, and fails unless K1 and K2 ran on every batch of
-  the path and the loss fell.
+  the path and the loss fell;
+- the other model families: K2 on the flagship LcNIC with a learned initial
+  carry, a frozen seeded (5001, 512) GloVe table, and that table over a
+  padded vocab of 5,120, and K3 on a learned-init CnnRnn (both zero-state
+  values), each against its plain version and float64; beam-1 and the
+  top-1 sampler against K2's greedy words, beam-5 in fp32 against beam-5
+  in float64, near-ties excepted and counted, and beam-5's and sampling's
+  captions/s through ``Captioner``; then, with the launch counts set to 0,
+  ``run_training`` of every family's config (``cnn_rnn``, ``showtell``,
+  ``thinkandtell``, ``guse_nic``, ``ms2_nic``, and on
+  ``flagship_synth.yaml`` the learned-init and frozen-GloVe ``lc_nic``,
+  ``deep_lc_nic``, ``concat_lc_nic``, ``fc_nic`` and ``img_nic``) for 2
+  epochs at 256 keys, each at its config's widths, then ``run_eval``
+  greedy and beam-3; it fails unless each val loss fell, K1 ran on every
+  train and val batch, K2 or K3 on every greedy test batch of a NIC, and
+  the step loop for the ShowTell family, and prints each run's wall time.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -73,7 +88,8 @@ it lists each kernel with its launches on its path (K2 while serving LcNIC,
 K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
 loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run; K1
 and K2 also under ``launches_experiment``, their launches in the training
-product's phase), its
+product's phase, and K1, K2 and K3 under ``launches_families``, theirs in
+the families' runs), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -154,6 +170,30 @@ EXPERIMENT_CONFIG = Path(__file__).resolve().parent / "configs" / (
 EXPERIMENT_EPOCHS = 2
 EXPERIMENT_KEYS = TRAIN_KEYS
 SERVED_ROWS = 64            # test rows through Captioner.from_run_dir
+# the other model families: the NIC variants at flagship width through K2
+# and K3, the beam and the sampler on the flagship LcNIC, and 2 epochs of
+# run_training at 256 keys for each family of experiment.build_model (each
+# at its config's widths), then run_eval greedy and beam
+FAMILY_KEYS, FAMILY_EPOCHS, FAMILY_BEAM = 256, 2, 3
+SERVE_BEAM = 5              # the beam's captions/s through Captioner
+PADDED_VOCAB = 5120         # a padded vocab axis over the true 5,001
+CONFIG_DIR = Path(__file__).resolve().parent / "configs"
+# (label, config, overrides); "glove" is a seeded (5001, 512) .npy table
+FAMILY_RUNS = (
+    ("cnn_rnn", "cnn_rnn.yaml", {}),
+    ("showtell", "show_and_tell.yaml", {}),
+    ("thinkandtell", "think_and_tell_pca.yaml", {}),
+    ("guse_nic", "guse_nic.yaml", {}),
+    ("ms2_nic", "multi_subject.yaml", {}),
+    ("lc_nic learned init", "flagship_synth.yaml",
+     {"learned_init_state": True}),
+    ("lc_nic frozen GloVe", "flagship_synth.yaml", {"glove": True}),
+    ("deep_lc_nic", "flagship_synth.yaml", {"model": "deep_lc_nic"}),
+    ("concat_lc_nic", "flagship_synth.yaml", {"model": "concat_lc_nic"}),
+    ("fc_nic", "flagship_synth.yaml", {"model": "fc_nic"}),
+    ("img_nic", "flagship_synth.yaml", {"model": "img_nic"}),
+)
+STEP_LOOP_FAMILIES = ("showtell", "thinkandtell", "guse_nic")
 # the keys of the JAX package's run_metrics without a USE bundle or a
 # METEOR synonym table (masters_thesis_tpu/evalsuite/metric_suite.py)
 JAX_METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR_lite",
@@ -230,7 +270,10 @@ def build_kernels() -> None:
             print(f"  ptxas: {line.strip()}")
 
 
-def flagship_model(device):
+def flagship_model(device, **variant):
+    """The flagship LcNIC, seeded and spread, on ``device``; ``variant``
+    overrides its keyword arguments (a learned carry, a GloVe table, a
+    padded vocab)."""
     from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
     from masters_thesis_tpu_torch.models.nic import LcNIC
     from masters_thesis_tpu_torch.ops.fused_decode import spread_for_check
@@ -239,7 +282,7 @@ def flagship_model(device):
     layout = GroupLayout(synthetic_groups(N_VOXELS, N_GROUPS, seed=SEED),
                          N_VOXELS)
     gen = torch.Generator().manual_seed(SEED)
-    model = LcNIC(layout, generator=gen, **WIDTHS)
+    model = LcNIC(layout, generator=gen, **{**WIDTHS, **variant})
     spread_for_check(model, gen)
     return model.to(device).eval()
 
@@ -413,19 +456,20 @@ def serve(captioner, rows: np.ndarray, card: str,
 
 
 def throughput(captioner, rows: np.ndarray, card: str,
-               label: str = "") -> float:
-    """Captions/s over ``WINDOWS`` windows of at least ``WINDOW_S`` s of
-    ``caption`` calls; prints the median and the spread across windows."""
-    captioner.caption(rows[:BATCH])                      # warm
+               label: str = "", decoder: str = "greedy") -> float:
+    """Captions/s of ``decoder`` over ``WINDOWS`` windows of at least
+    ``WINDOW_S`` s of ``caption`` calls; prints the median and the spread
+    across windows."""
+    captioner.caption(rows[:BATCH], decoder)             # warm
     rates = []
     for _ in range(WINDOWS):
         n, t0 = 0, time.perf_counter()
         while (seconds := time.perf_counter() - t0) < WINDOW_S:
-            captioner.caption(rows)
+            captioner.caption(rows, decoder)
             n += len(rows)
         rates.append(n / seconds)
     median = float(np.median(rates))
-    print(f"{label}greedy captions/s through Captioner (batch {BATCH}, "
+    print(f"{label}{decoder} captions/s through Captioner (batch {BATCH}, "
           f"{len(rows)} host rows a call, fp32): median {median:.1f} over "
           f"{WINDOWS} windows of >= {WINDOW_S} s, min {min(rates):.1f}, max "
           f"{max(rates):.1f}, spread {(max(rates) - min(rates)) / median:.1%}"
@@ -1592,6 +1636,274 @@ def experiment_phase(device, card: str) -> dict:
     return {"K1": k1, "K2": k2_train + k2}
 
 
+# ---- the other model families ----
+
+def glove_table(vocab: int, dim: int) -> np.ndarray:
+    """A seeded stand-in for a GloVe table (there is no download): N(0,
+    0.05), the spread of the trained embedding's initialiser."""
+    return np.random.default_rng(SEED).normal(0.0, 0.05, (vocab, dim)).astype(
+        np.float32)
+
+
+def first_end(words: torch.Tensor, end_id: int) -> torch.Tensor:
+    """(B,) the step of each row's first ``<end>`` from the second step on,
+    else the last step."""
+    T = words.shape[1]
+    hit = words == end_id
+    hit[:, 0] = False
+    steps = torch.arange(T, device=words.device).expand_as(words)
+    return torch.where(hit, steps, T - 1).amin(dim=1)
+
+
+def held_to(words, want, margins, stop, what: str, card: str) -> int:
+    """``words`` equal ``want`` on every row up to its ``stop`` step, but on
+    rows whose ``margins`` (B,) make them near-ties; returns their count."""
+    steps = torch.arange(words.shape[1], device=words.device)
+    upto = steps[None, :] <= stop[:, None]
+    differs = ((words != want) & upto).any(dim=1)
+    near_tie = margins < TIE_MARGIN
+    bad = (differs & ~near_tie).nonzero().flatten().tolist()
+    print(f"{what}: {int((~differs).sum())}/{len(words)} rows identical, "
+          f"{int((differs & near_tie).sum())} apart at near-ties, near-tie "
+          f"rows {int(near_tie.sum())} (margin < {TIE_MARGIN}) [{card}]")
+    if bad:
+        raise RuntimeError(f"{what}: rows {bad} differ at no near-tie")
+    return int(near_tie.sum())
+
+
+@torch.inference_mode()
+def check_decoders(device, tok, card: str) -> dict:
+    """Beam and sampling on the flagship LcNIC: beam-1 is K2's greedy
+    decode up to ``<end>``, the sampler from the top 1 is K2's greedy
+    decode, the beam of SERVE_BEAM in fp32 is the same beam in float64,
+    near-ties excepted and counted; then each decoder's captions/s through
+    Captioner on THROUGHPUT_ROWS host rows."""
+    import copy
+
+    from masters_thesis_tpu_torch.decode.beam import make_beam_decoder
+    from masters_thesis_tpu_torch.decode.sampling import (
+        make_sampling_decoder,
+    )
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    model = flagship_model(device)
+    T, start, end = model.max_length, tok.start_id, tok.end_id
+    rows = torch.randn(BATCH, N_VOXELS, device=device,
+                       generator=torch.Generator(device=device)
+                       .manual_seed(SEED + 1))
+    greedy, _ = fd.make_whole_fused_greedy_decoder(model, T)(rows, start)
+    _, _, margins = fd.fused_greedy_decode_reference(
+        *fd.decode_inputs(model, rows, start), max_length=T,
+        return_margins=True)
+    greedy_margin = margins.amin(dim=1)
+    stop = first_end(greedy, end)
+    beam1 = make_beam_decoder(model, T, beam_width=1)(rows, start, end)[0]
+    ties = {"beam-1": held_to(beam1, greedy, greedy_margin, stop,
+                              "beam-1 vs K2's greedy words up to <end>",
+                              card)}
+    top1 = make_sampling_decoder(model, T, top_k=1)(
+        rows, start, torch.Generator(device=device).manual_seed(SEED))
+    ties["sample top-1"] = held_to(
+        top1, greedy, greedy_margin, torch.full_like(stop, T - 1),
+        "sample (top_k 1) vs K2's greedy words", card)
+    beam = make_beam_decoder(model, T, beam_width=SERVE_BEAM)(rows, start,
+                                                             end)
+    wide = copy.deepcopy(model).double()
+    beam64 = make_beam_decoder(wide, T, beam_width=SERVE_BEAM,
+                               return_margins=True)(rows.double(), start, end)
+    del wide
+    ties[f"beam-{SERVE_BEAM}"] = held_to(
+        beam[0], beam64[0], beam64[5], torch.full_like(stop, T - 1),
+        f"beam-{SERVE_BEAM} in fp32 vs in float64 on the card", card)
+    if len(torch.unique(beam[0])) < MIN_DISTINCT_WORDS:
+        raise RuntimeError("the beam's words are degenerate")
+
+    captioner = Captioner(model, tok, model.units, T, batch_size=BATCH,
+                          device=device, beam_width=SERVE_BEAM)
+    host = np.random.default_rng(SEED).standard_normal(
+        (THROUGHPUT_ROWS, N_VOXELS), dtype=np.float32)
+    rates = {f"beam-{SERVE_BEAM}": throughput(
+        captioner, host, card, label=f"width {SERVE_BEAM} ", decoder="beam"),
+        "sample": throughput(captioner, host, card, decoder="sample")}
+    return {"near_ties": ties, "captions_per_s": rates}
+
+
+def family_batches(n_train: int, n_val: int, cfg, subject_split: bool) -> int:
+    """The train and val batches of an epoch of run_training on ``n_train``
+    and ``n_val`` pairs (an ms2_nic run's pseudo-subjects alternate, and
+    each of its batches takes half of them from each)."""
+    bs = min(cfg.batch_size, max(2, n_train // 2))
+    if not subject_split:
+        return n_train // bs + n_val // bs
+    half = (bs - bs % 2) // 2
+    return sum((n // 2) // half for n in (n_train, n_val))
+
+
+def family_run(label: str, config: str, overrides: dict, log: str,
+               device, card: str) -> dict:
+    """run_training of one family for FAMILY_EPOCHS epochs at FAMILY_KEYS
+    keys, then run_eval greedy and beam; returns its launches and times."""
+    import dataclasses
+
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.models.nic import NIC
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    cfg = Config.load(CONFIG_DIR / config)
+    overrides = dict(overrides)
+    if overrides.pop("glove", False):
+        path = Path(log) / "glove.npy"
+        np.save(path, glove_table(cfg.vocab_size, cfg.embedding_text))
+        overrides.update(glove_path=str(path), glove_trainable=False)
+    cfg = dataclasses.replace(cfg, log=log, epochs=FAMILY_EPOCHS,
+                              run=label.replace(" ", "_"), **overrides)
+    kernels = (gather_rows, fd.fused_greedy_decode,
+               fd.fused_greedy_decode_gru)
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    run_path, _, bundle = experiment.run_training(
+        cfg, smoke_keys=FAMILY_KEYS, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1 = gather_rows.launches - before[0]
+    model, tok, pairs = bundle["model"], bundle["tokenizer"], bundle["pairs"]
+    epochs = [r for r in map(json.loads, open(
+        Path(run_path) / "metrics.jsonl")) if r["kind"] == "epoch"]
+    losses = [r["loss"] for r in epochs]
+    # the val loss carries no dropout noise: at the SGD rate of 1e-2 of
+    # think_and_tell_pca.yaml an epoch moves the train loss by ~1e-4, less
+    # than its dropout noise (the JAX package's runs alike)
+    val_losses = [r["val_loss"] for r in epochs]
+    split = cfg.model == "ms2_nic"
+    batches = FAMILY_EPOCHS * family_batches(len(pairs["train"]),
+                                             len(pairs["val"]), cfg, split)
+    nic = isinstance(model, NIC)
+    kernel = fd.decode_kernel(model)[0] if nic else None
+    steps = []
+    if not nic:
+        # the step loop: count the decode steps it takes
+        def counted(*args, _step=model.decode_step):
+            steps.append(1)
+            return _step(*args)
+        model.decode_step = counted
+    k23 = kernel.launches if nic else 0
+    t0 = time.perf_counter()
+    out = experiment.run_eval(bundle, run_path)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    k23 = (kernel.launches - k23) if nic else 0
+    loop_steps = len(steps)
+    t0 = time.perf_counter()
+    beam = experiment.run_eval(bundle, run_path, decoder="beam",
+                               beam_width=FAMILY_BEAM)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    if not nic:
+        del model.decode_step
+    n = len(out["texts"])
+    test_batches = -(-n // min(cfg.batch_size, n))
+    attn = np.load(Path(run_path) / f"attention_scores_{beam['epoch']}.npy")
+    T = cfg.max_length
+    print(f"family {label} ({config}, model {cfg.model}, row "
+          f"{bundle['store'].row_shape}): run_training {train_s:.2f} s, "
+          f"losses {[round(x, 5) for x in losses]}, val losses "
+          f"{[round(x, 5) for x in val_losses]}, K1 {k1} (train and val "
+          f"batches {batches}); run_eval greedy {greedy_s:.2f} s "
+          + (f"({kernel.__name__} {k23} for {test_batches} test batches)"
+             if nic else f"(step loop, {loop_steps} decode steps for "
+             f"{test_batches} test batches of {T} steps)")
+          + f", beam-{FAMILY_BEAM} {beam_s:.2f} s; {n} test captions, "
+          f"e.g. {out['texts'][0]!r} [{card}]")
+    if len(val_losses) != FAMILY_EPOCHS or not val_losses[-1] < val_losses[0]:
+        raise RuntimeError(f"{label}: the epoch val losses did not fall: "
+                           f"{val_losses}")
+    if k1 < batches:
+        raise RuntimeError(f"{label}: K1 launched {k1} times for {batches} "
+                           f"train and val batches")
+    if nic and k23 < test_batches:
+        raise RuntimeError(f"{label}: {kernel.__name__} launched {k23} times "
+                           f"for {test_batches} greedy test batches")
+    if not nic and loop_steps < test_batches * T:
+        raise RuntimeError(f"{label}: the step loop took {loop_steps} steps "
+                           f"for {test_batches} batches of {T}")
+    if (beam["words"].shape != out["words"].shape
+            or attn.shape[:2] != out["words"].shape
+            or not np.isfinite(attn).all()):
+        raise RuntimeError(f"{label}: the beam's words {beam['words'].shape} "
+                           f"or attention {attn.shape} are malformed")
+    del bundle, model
+    release()
+    return {"K1": k1, "K2/K3": k23, "seconds": train_s + greedy_s + beam_s}
+
+
+def families(device, tok, card: str) -> dict:
+    """The families phase: K2 on the NIC variants and K3 on a learned-init
+    CnnRnn against their plain versions (and float64), the beam and the
+    sampler on the flagship LcNIC, then every family's run_training with
+    the launch counts set to 0 just before and read just after. Returns
+    K1's, K2's and K3's launches there, the variants' errors, the near-tie
+    counts and the decoders' captions/s."""
+    from masters_thesis_tpu_torch.models.nic import CnnRnnNIC
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
+    frozen = dict(pretrained_embedding=glove_table(
+        WIDTHS["vocab_size"], WIDTHS["embedding_text"]),
+        embedding_trainable=False)
+    errs = {"K2": [], "K3": []}
+    for label, variant in (
+            ("learned initial carry", dict(learned_init_state=True)),
+            ("frozen GloVe", frozen),
+            (f"frozen GloVe, vocab {PADDED_VOCAB} over true "
+             f"{WIDTHS['vocab_size']}",
+             dict(frozen, vocab_size=PADDED_VOCAB,
+                  true_vocab=WIDTHS["vocab_size"]))):
+        model = flagship_model(device, **variant)
+        errs["K2"].append(check_kernel(model, betas, card, f"K2 ({label})",
+                                       timed=False)["max_abs_err"])
+        del model
+        release()
+    gen_m = torch.Generator().manual_seed(SEED)
+    model = CnnRnnNIC(generator=gen_m, learned_init_state=True,
+                      **CNN_RNN_WIDTHS)
+    fd.spread_for_check(model, gen_m)
+    model = model.to(device).eval()
+    rows = torch.randn(BATCH, *model.encoder.row_shape, generator=gen,
+                       device=device)
+    for zero_state in (True, False):
+        model.gru_zero_state = zero_state
+        errs["K3"].append(check_kernel(
+            model, rows, card, f"K3 (learned initial carry, zero state "
+            f"{zero_state})", timed=False)["max_abs_err"])
+    del model, rows, betas
+    release()
+    decoders = check_decoders(device, tok, card)
+    release()
+
+    runs = {}
+    kernels = (gather_rows, fd.fused_greedy_decode,
+               fd.fused_greedy_decode_gru)
+    for k in kernels:
+        k.launches = 0
+    t_runs = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtt_families_") as log:
+        for label, config, overrides in FAMILY_RUNS:
+            runs[label] = family_run(label, config, overrides, log, device,
+                                     card)
+    launches = {k.__name__: k.launches for k in kernels}
+    runs_s = time.perf_counter() - t_runs
+    print(f"families: {len(runs)} runs in {runs_s:.1f} s, the phase in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches} "
+          f"[{card}]")
+    return {"launches": launches, "errors": errs, **decoders}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1677,19 +1989,26 @@ def main(argv=None) -> int:
     release()
     product = experiment_phase(device, card)
     release()
+    fam = families(device, tok, card)
+    release()
+    k2["max_abs_err"] = max([k2["max_abs_err"], *fam["errors"]["K2"]])
+    k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"]])
+    counts = fam["launches"]
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
         "launches": launches, "launches_experiment": product["K2"],
-        **k2}, {
+        "launches_families": counts["fused_greedy_decode"], **k2}, {
         "name": "fused_greedy_decode_gru", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
-        "replaces": "masters_thesis_tpu/ops/fused_decode.py:276", **k3}, {
+        "replaces": "masters_thesis_tpu/ops/fused_decode.py:276",
+        "launches_families": counts["fused_greedy_decode_gru"], **k3}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
         "replaces": "masters_thesis_tpu/ops/gather.py:49",
-        "launches_experiment": product["K1"], **k1}, {
+        "launches_experiment": product["K1"],
+        "launches_families": counts["gather_rows"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},

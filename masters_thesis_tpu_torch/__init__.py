@@ -5,9 +5,9 @@ The JAX package beside it is the reference. This package mirrors its file
 layout and names, imports ``torch`` and never ``jax``, and imports nothing of
 the JAX package: the framework-free modules it needs (``ops.group_layout``,
 ``data.tokenizer``, ``data.pairs``, ``data.splits``, ``data.pipeline``,
-``data.synthetic``, ``evalsuite``, ``utils.logging``, ``utils.tensorboard``,
-``serve.padded_chunk_ids`` and ``server``) are its own copies, held against
-their originals by the tests.
+``data.synthetic``, ``data.captions``, ``evalsuite``, ``utils.logging``,
+``utils.tensorboard``, ``serve.padded_chunk_ids`` and ``server``) are its own
+copies, held against their originals by the tests.
 Every Pallas kernel on a ported path becomes a hand-written Hopper kernel
 under ``csrc/``, with a plain PyTorch version beside it.
 
@@ -25,7 +25,10 @@ reader), ``experiment`` (``run_training`` with the callbacks of
 ``train.callbacks`` and the async checkpoints of ``train.checkpoint``,
 ``run_eval``, ``run_metrics`` over the copied ``evalsuite``),
 ``Captioner.from_run_dir`` and the CLI (``python -m
-masters_thesis_tpu_torch train|eval|metrics|caption``). Entry points run
+masters_thesis_tpu_torch train|eval|metrics|caption``), for every model
+family of the JAX package (``train.state.model_for``: the NIC variants,
+the other encoders, ShowTell, GuseNIC, Ms2NIC), with beam search
+(``decode.beam``) and sampling (``decode.sampling``). Entry points run
 on the card (``cuda``) unless the caller passes ``device="cpu"`` (the
 CLI: ``--device cpu``).
 """

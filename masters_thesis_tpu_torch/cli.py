@@ -7,6 +7,7 @@ and its last-line JSON:
   python -m masters_thesis_tpu_torch eval    --config c.yaml   (eval.py)
   python -m masters_thesis_tpu_torch metrics --config c.yaml   (metric_suit.py)
   python -m masters_thesis_tpu_torch caption --run DIR --betas x.npy
+      [--decoder greedy|beam|sample] [--subject a|b]
 
 Each runs on the card unless it is given ``--device cpu``. A flag of the
 JAX CLI that the port does not honour yet exits non-zero with a message
@@ -26,28 +27,11 @@ _REFUSED = {
               ("devices_per_process", 4, "--devices-per-process (the devices "
                "of a multi-process mesh) is ported with parallel/ (ROADMAP "
                "M13)")),
-    "eval": (("decoder", "greedy", "--decoder beam is ported with beam "
-              "search (ROADMAP M9)"),
-             ("beam_width", 5, "--beam-width is ported with beam search "
-              "(ROADMAP M9)"),
-             ("subject", "a", "--subject b decodes an ms2_nic run, ported "
-              "with the other model families (ROADMAP M11)")),
-    "caption": (("decoder", "greedy", "--decoder beam|sample is ported with "
-                 "beam search and sampling (ROADMAP M9)"),
-                ("temperature", 1.0, "--temperature is ported with sampling "
-                 "(ROADMAP M9)"),
-                ("sample_top_k", 0, "--sample-top-k is ported with sampling "
-                 "(ROADMAP M9)"),
-                ("seed", 0, "--seed (the sampler's seed) is ported with "
-                 "sampling (ROADMAP M9)"),
-                ("subject", "a", "--subject b decodes an ms2_nic run, ported "
-                 "with the other model families (ROADMAP M11)"),
-                ("shard", 0, "--shard (a data-parallel serving mesh) is "
+    "caption": (("shard", 0, "--shard (a data-parallel serving mesh) is "
                  "ported with parallel/ (ROADMAP M13)"),
                 ("pre", None, "--pre (a preprocess run's transform chain) is "
                  "ported with data/preprocess (ROADMAP M19)")),
 }
-_REFUSED["metrics"] = _REFUSED["eval"]
 
 
 def _add_common(p):
@@ -97,11 +81,11 @@ def _parser() -> argparse.ArgumentParser:
     cp.add_argument("--decoder", choices=["greedy", "beam", "sample"],
                     default="greedy")
     cp.add_argument("--temperature", type=float, default=1.0,
-                    help="not ported: sampling")
+                    help="sampling temperature (--decoder sample)")
     cp.add_argument("--sample-top-k", type=int, default=0,
-                    help="not ported: sampling")
+                    help="sample from the top k logits (0: all)")
     cp.add_argument("--seed", type=int, default=0,
-                    help="not ported: the sampler's seed")
+                    help="the sampler's seed")
     cp.add_argument("--out", default=None,
                     help="write captions here (one line per row) instead "
                     "of stdout")
@@ -114,7 +98,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    for attr, ported, message in _REFUSED[args.cmd]:
+    for attr, ported, message in _REFUSED.get(args.cmd, ()):
         if getattr(args, attr) != ported:
             raise SystemExit(f"masters_thesis_tpu_torch {args.cmd}: "
                              f"{message}")
@@ -124,8 +108,11 @@ def main(argv=None) -> int:
 
         from masters_thesis_tpu_torch.serve import Captioner
 
-        cap = Captioner.from_run_dir(args.run, device=args.device)
-        texts = cap.caption(np.load(args.betas))
+        cap = Captioner.from_run_dir(
+            args.run, device=args.device, subject=args.subject,
+            temperature=args.temperature, sample_top_k=args.sample_top_k,
+            seed=args.seed)
+        texts = cap.caption(np.load(args.betas), decoder=args.decoder)
         if args.out:
             with open(args.out, "w") as f:
                 f.write("\n".join(texts) + "\n")
@@ -150,7 +137,8 @@ def main(argv=None) -> int:
         print(json.dumps({"run_path": run_path,
                           **{k: float(v) for k, v in logs.items()}}))
         return 0
-    out = run_eval(bundle, run_path, decoder=args.decoder)
+    out = run_eval(bundle, run_path, decoder=args.decoder,
+                   beam_width=args.beam_width, ms2_subject=args.subject)
     result = {"run_path": run_path, "n_captions": len(out["texts"])}
     if args.cmd == "metrics":
         scores = run_metrics(bundle, out)

@@ -8,8 +8,12 @@ pipeline and the trainer read: ``keys``, ``key_to_idx``, ``indices_for``,
 ``device_resident``, ``n_cols``, ``row_shape``, ``device_array()`` and
 ``device_gather(idx)``.
 
-The store is 2-D. The TPU's lane-packed layout is not ported, and the mesh-
-sharded store waits for the ``parallel`` port. ``permute_rows`` lays rows
+The store is 2-D: rows of more than one dimension, the (P, C) conv-feature
+patches of the image families, are stored as P·C columns, ``row_shape``
+keeps their shape, and K1 gathers them flat like any row (the encoder,
+``models.encoders.PatchDense``, shapes a gathered row back). The TPU's
+lane-packed layout is not ported, and the mesh-sharded store waits for the
+``parallel`` port. ``permute_rows`` lays rows
 out in the encoder's grouped padded order (``GroupLayout.permute_rows``) on
 whatever device they are, for ``LocallyDense(pregathered=True)``.
 """
@@ -56,7 +60,8 @@ def permute_rows(data: torch.Tensor, layout, chunk: int = 256) -> torch.Tensor:
 
 class ArrayStore:
     """Dense (N, W) row store on ``device`` (by default ``cuda``; pass
-    ``device="cpu"`` for the CPU), with key -> row lookup. ``dtype``
+    ``device="cpu"`` for the CPU), with key -> row lookup; (N, P, C) rows
+    are kept as (N, P·C). ``dtype``
     ('float32' | 'bfloat16', ``tpu.store_dtype``) casts the rows at upload;
     by default they keep their own."""
 
@@ -72,8 +77,11 @@ class ArrayStore:
         self.key_to_idx = {k: i for i, k in enumerate(keys)}
         self.keys = np.asarray(keys, dtype=np.int64)
         data = torch.as_tensor(data)
-        if data.ndim != 2:
-            raise ValueError(f"expected (N, W) rows, got {tuple(data.shape)}")
+        if data.ndim < 2:
+            raise ValueError(f"expected (N, ...) rows, got "
+                             f"{tuple(data.shape)}")
+        self._row_shape = tuple(int(d) for d in data.shape[1:])
+        data = data.reshape(len(data), -1)
         dtype = store_dtype(dtype) if dtype else data.dtype
         self.data = data.to(device=resolve_device(device), dtype=dtype)
         self.device = self.data.device
@@ -93,7 +101,8 @@ class ArrayStore:
 
     @property
     def row_shape(self) -> tuple[int, ...]:
-        return (self.n_cols,)
+        """The shape of one row as it was given: (n_cols,) for flat rows."""
+        return self._row_shape
 
     def __len__(self) -> int:
         return len(self.keys)

@@ -1,11 +1,12 @@
 """Greedy caption decoding, the unfused step loop, in PyTorch.
 
 Counterpart of ``masters_thesis_tpu/decode/greedy.py::make_greedy_decoder``:
-encode once, then ``max_length`` steps of ``NIC.decode_step`` and argmax, for
-either cell (a GRU carries ``c`` through unchanged). Like the reference it
-always runs every step (no stop at ``<end>``). It is the
-oracle for the whole-decode kernel and the path behind
-``Captioner(use_fused=False)``. The scanned multi-batch variant waits for a
+encode once, then ``max_length`` steps of ``decode_step`` and argmax, for
+either cell of ``NIC`` (a GRU carries ``c`` through unchanged) and for
+``ShowTell``. Like the reference it always runs every step (no stop at
+``<end>``). It is the oracle for the whole-decode kernel, the path behind
+``Captioner(use_fused=False)``, and the greedy decoder of the ShowTell
+family, which has no kernel in the JAX package either. The scanned multi-batch variant waits for a
 later PR (ROADMAP M6).
 """
 

@@ -1,12 +1,14 @@
 """Experiment wiring: config -> data -> model -> trainer / eval / metrics.
 
 Counterpart of ``masters_thesis_tpu/experiment.py`` (reference
-AttemptFour/main.py, eval.py, metric_suit.py) for the flagship family,
-``lc_nic``: ``build_data``, ``build_model``, ``run_training`` (a
-``Trainer`` with the standard callbacks and async checkpoints), ``run_eval``
-(greedy decoding of the test split) and ``run_metrics`` (the metric suite).
-``run_training`` writes the JAX package's run directory: ``config.yaml``,
-``log.log``, ``tokenizer.json``, ``layout.npz``, ``modelsummary.txt``,
+AttemptFour/main.py, main_ms.py, main_images.py, eval.py, metric_suit.py)
+for every model family of its ``build_model``: ``build_data``,
+``build_model``, ``run_training`` (a ``Trainer`` with the standard
+callbacks and async checkpoints), ``run_eval`` (greedy or beam decoding of
+the test split) and ``run_metrics`` (the metric suite). ``run_training``
+writes the JAX package's run directory: ``config.yaml``, ``log.log``,
+``tokenizer.json``, ``layout.npz`` (for the families whose encoder reads a
+group layout), ``glove_table.npy`` (for a GloVe run), ``modelsummary.txt``,
 ``run_meta.json``, ``metrics.jsonl``, the CSV logs, ``caption_previews.txt``,
 ``df_grads.csv``, ``tb/`` and ``model/``, whose checkpoint files are
 torch's (``train/checkpoint.py``).
@@ -14,16 +16,19 @@ torch's (``train/checkpoint.py``).
 Every entry point runs on the card (``cuda``) unless it is given
 ``device="cpu"``. There, every train and val batch gathers its rows from
 the device store through K1 (``ops.gather``), with ``tpu.scan_steps`` > 0
-from a store permuted once into the encoder's grouped layout
-("pregathered"), and every decode runs K2 (``ops.fused_decode``). On the
-CPU each takes its plain PyTorch version. ``layout.npz`` lets serving
-(``serve.Captioner.from_run_dir``) rebuild a model that takes raw rows.
+for ``lc_nic``/``ms_nic`` from a store permuted once into the encoder's
+grouped layout ("pregathered"), and every greedy decode of a ``NIC`` runs
+K2 (LSTM) or K3 (GRU) (``ops.fused_decode``). The ShowTell family has no
+kernel, here as in the JAX package, and decodes through the step loop; beam
+and sampling are plain PyTorch on any device. On the CPU each kernel takes
+its plain PyTorch version. ``layout.npz`` and ``run_meta.json``'s
+``input_row_shape`` let serving (``serve.Captioner.from_run_dir``) rebuild
+a model that takes raw rows.
 
 Without NSD data the data is ``data.synthetic`` made from the seed, at the
 sizes the JAX package uses. What waits raises ``NotImplementedError``
-naming its ROADMAP item: real data (M19), the other model families, GloVe
-tables and the learned initial state (M11), beam and sampling decoders
-(M9), and the ``tpu:`` knobs of ``config.unsupported_knobs``.
+naming its ROADMAP item: real data (M19) and the ``tpu:`` knobs of
+``config.unsupported_knobs``.
 """
 
 from __future__ import annotations
@@ -43,27 +48,30 @@ from masters_thesis_tpu_torch.data.pairs import encode_pairs
 from masters_thesis_tpu_torch.data.pipeline import BatchPipeline, EvalPipeline
 from masters_thesis_tpu_torch.data.store import ArrayStore, permute_rows
 from masters_thesis_tpu_torch.data.synthetic import synthetic_dataset
+from masters_thesis_tpu_torch.decode.beam import make_beam_decoder
+from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
 from masters_thesis_tpu_torch.device import resolve_device
 from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption
+from masters_thesis_tpu_torch.models.multisubject import DualSubjectEncoder
+from masters_thesis_tpu_torch.models.nic import NIC
+from masters_thesis_tpu_torch.models.showtell import showtell_l2_rules
 from masters_thesis_tpu_torch.ops.fused_decode import (
     make_whole_fused_greedy_decoder,
 )
 from masters_thesis_tpu_torch.ops.gather import gather_rows
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
-from masters_thesis_tpu_torch.train.state import lc_nic_for, new_state
+from masters_thesis_tpu_torch.train.state import (
+    LAYOUT_MODELS,
+    MODELS,
+    model_for,
+    new_state,
+)
 from masters_thesis_tpu_torch.utils.logging import MetricLogger, setup_run_dir
 
 logger = logging.getLogger(__name__)
 
-PORTED_MODELS = ("lc_nic",)
-
-
-def _check_family(cfg: Config) -> None:
-    if cfg.model.lower() not in PORTED_MODELS:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is ported with the other model families "
-            f"(ROADMAP M11); the port trains {', '.join(PORTED_MODELS)}")
+PORTED_MODELS = MODELS
 
 
 # ---------------------------------------------------------------- data
@@ -73,13 +81,16 @@ def build_data(cfg: Config, smoke_keys: int = 48):
     ``ArrayStore`` over the host rows (``run_training`` moves it to the
     device). The synthetic data of the JAX ``build_data``, row for row:
     ``smoke_keys`` keys, 2,048 voxels in 4-16 groups up to 64 keys, else the
-    configured input width (360 Glasser-like groups at full width)."""
+    configured input width (360 Glasser-like groups at full width); 512-wide
+    GUSE vectors for ``guse_nic``; (16, C) patch rows for ``img_nic`` and
+    ``cnn_rnn``."""
     if cfg.dataset.betas_path and os.path.isdir(cfg.dataset.betas_path):
         raise NotImplementedError(
-            f"real NSD data ({cfg.dataset.betas_path}) needs data/pack.py and "
-            "data/captions.py, ported with data ingestion (ROADMAP M19)")
-    _check_family(cfg)
+            f"real NSD data ({cfg.dataset.betas_path}) needs data/pack.py, "
+            "ported with data ingestion (ROADMAP M19)")
     n_voxels = min(cfg.input_dim(), 2048) if smoke_keys <= 64 else cfg.input_dim()
+    if cfg.model.lower() == "guse_nic":
+        n_voxels = 512  # GUSE sentence-embedding width (get_guse.py)
     n_groups = (360 if n_voxels >= 65536
                 else min(16, max(4, n_voxels // 128)))
     split, pairs, tok, betas, keys, groups = synthetic_dataset(
@@ -93,6 +104,13 @@ def build_data(cfg: Config, smoke_keys: int = 48):
                                                  "compositional")
                     else False),
     )
+    if cfg.model.lower() in ("img_nic", "cnn_rnn"):
+        # image models read (patches, channels) conv features, not flat
+        # vectors (VGG16 (196, 512) / InceptionV3 (64, 2048))
+        rng = np.random.Generator(np.random.PCG64(cfg.seed))
+        n_patches, channels = 16, max(32, min(cfg.embedding_features, 128))
+        betas = rng.standard_normal(
+            (len(keys), n_patches, channels)).astype(np.float32)
     store = ArrayStore(betas, keys, device="cpu")
     if cfg.groups_to_remove:
         # the flagship trains on 345 of 360 regions (main.py:115); indices
@@ -107,26 +125,56 @@ def build_data(cfg: Config, smoke_keys: int = 48):
 
 # ---------------------------------------------------------------- model
 
+def resolve_glove_table(cfg: Config, tokenizer):
+    """cfg.glove_path -> (vocab_size, E) float32 table, or None.
+
+    The glove_NIC variant (AttemptFour/Model/glove_NIC.py) swaps the learned
+    text embedding for pretrained GloVe vectors. A ``.npy`` path loads a
+    prebuilt table; anything else parses as GloVe text, filtered to the run
+    tokenizer's vocab (``data.captions.build_glove_table``)."""
+    if not cfg.glove_path:
+        return None
+    if cfg.glove_path.endswith(".npy"):
+        table = np.load(cfg.glove_path).astype(np.float32)
+    else:
+        from masters_thesis_tpu_torch.data.captions import build_glove_table
+
+        table = build_glove_table(cfg.glove_path, tokenizer,
+                                  dim=cfg.embedding_text)
+    if table.ndim != 2 or table.shape[0] != cfg.vocab_size:
+        raise ValueError(
+            f"glove table {cfg.glove_path!r} has shape {table.shape}; "
+            f"expected ({cfg.vocab_size}, E) for top_k={cfg.top_k}")
+    return table
+
+
 def build_model(cfg: Config, groups, n_voxels: int,
-                pregathered: bool = False):
-    """The model family of ``cfg.model``: (model on the CPU, l2_rules,
-    masked). ``pregathered`` builds the encoder for rows already in the
-    grouped padded layout (a permuted device store); its parameters are the
-    same either way."""
-    _check_family(cfg)
-    if cfg.glove_path or cfg.learned_init_state:
-        raise NotImplementedError(
-            "GloVe tables and the learned initial state are ported with the "
-            "other model variants (ROADMAP M11)")
-    model = lc_nic_for(cfg, GroupLayout(groups, n_voxels),
-                       pregathered=pregathered)
-    return model, lc_nic_l2_rules(cfg), False
+                pregathered: bool = False, embedding_table=None,
+                row_shape=None):
+    """The model family of ``cfg.model`` (``train.state.model_for``, with
+    the JAX ``build_model``'s refusals): (model on the CPU, l2_rules,
+    masked). ``row_shape`` is one input row's shape, by default
+    (n_voxels,): (P, C) for the image families. ``pregathered``
+    (``lc_nic``/``ms_nic``) builds the encoder for rows already in the
+    grouped padded layout (a permuted device store), with the same
+    parameters; ``embedding_table`` is a resolved GloVe table."""
+    name = cfg.model.lower()
+    layout = GroupLayout(groups, n_voxels) if name in LAYOUT_MODELS else None
+    model = model_for(cfg, layout, pregathered=pregathered,
+                      row_shape=row_shape or (n_voxels,),
+                      embedding_table=embedding_table)
+    if name in ("showtell", "thinkandtell", "guse_nic"):
+        return model, showtell_l2_rules(cfg), True
+    return model, lc_nic_l2_rules(cfg), name == "cnn_rnn"
 
 
 def _greedy_decoder(model, cfg: Config):
-    """decode(betas, start_id) -> (words, ..., alphas): K2 on the card, its
-    plain version on the CPU."""
-    return make_whole_fused_greedy_decoder(model, cfg.max_length)
+    """decode(betas, start_id) -> (words, ..., alphas): for a ``NIC``, K2 or
+    K3 on the card and its plain version on the CPU; the step loop for the
+    ShowTell family, which has no kernel."""
+    if isinstance(model, NIC):
+        return make_whole_fused_greedy_decoder(model, cfg.max_length)
+    return make_greedy_decoder(model, cfg.max_length)
 
 
 def _git_revision() -> str | None:
@@ -181,26 +229,44 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
 
     device = resolve_device(device)
     unsupported_knobs(cfg, device)
-    _check_family(cfg)
+    name = cfg.model.lower()
+    if name not in PORTED_MODELS:
+        raise ValueError(f"unknown model {cfg.model!r}")
     run_path = setup_run_dir(cfg.log, cfg.run, cfg)
     split, pairs, tok, host_store, groups = build_data(cfg, smoke_keys)
     tok.save(os.path.join(run_path, "tokenizer.json"))
+    # glove_NIC: resolve the table once and keep it in the run directory,
+    # which serving rebuilds from (a frozen table is no checkpoint entry);
+    # on resume the kept table is authoritative, whatever glove_path holds
+    glove_table = None
+    if cfg.glove_path:
+        persisted = os.path.join(run_path, "glove_table.npy")
+        if resume and os.path.exists(persisted):
+            glove_table = np.load(persisted)
+        else:
+            glove_table = resolve_glove_table(cfg, tok)
+            np.save(persisted, glove_table)
 
-    n_voxels = host_store.row_shape[0]
-    input_row_shape = [int(d) for d in host_store.row_shape]
+    row_shape = host_store.row_shape
+    n_voxels = row_shape[0]
+    input_row_shape = [int(d) for d in row_shape]
     # on the card with the scanned trainer, permute the store into the
-    # encoder's grouped padded layout once at upload: the encoder then
+    # LcNIC encoder's grouped padded layout once at upload: the encoder then
     # skips its own voxel -> group gather (the JAX package does the same on
     # the TPU); parameters and checkpoints are the same either way
-    pregathered = cfg.tpu.scan_steps > 0 and device.type == "cuda"
+    pregathered = (cfg.tpu.scan_steps > 0 and device.type == "cuda"
+                   and name in ("lc_nic", "ms_nic"))
     model, l2_rules, masked = build_model(cfg, groups, n_voxels,
-                                          pregathered=pregathered)
-    layout = GroupLayout(groups, n_voxels)
-    layout.save(os.path.join(run_path, "layout.npz"))
+                                          pregathered=pregathered,
+                                          embedding_table=glove_table,
+                                          row_shape=row_shape)
+    if name in LAYOUT_MODELS:
+        layout = GroupLayout(groups, n_voxels)
+        layout.save(os.path.join(run_path, "layout.npz"))
 
     # the store on the device; the host rows go as soon as it is there
     keys = host_store.keys
-    data = host_store.data.to(device)
+    data = host_store.data.to(device).view(len(keys), *row_shape)
     del host_store
     if pregathered:
         data = permute_rows(data, layout)
@@ -210,11 +276,30 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     train_enc = encode_pairs(pairs["train"], tok, cfg.max_length)
     val_enc = encode_pairs(pairs["val"], tok, cfg.max_length)
     bs = min(cfg.batch_size, max(2, len(train_enc) // 2))
-    train_pipe = BatchPipeline(train_enc, store, bs, seed=cfg.seed)
-    val_pipe = BatchPipeline(val_enc, store, bs, seed=cfg.seed, shuffle=False)
-    # the GradStats batch, with the training objective's targets
+    # ms2_NIC's two encoders need every batch laid out [A-half ; B-half]
+    # (main_ms.py's generator contract)
+    subject_split = name == "ms2_nic"
+    if subject_split:
+        for enc in (train_enc, val_enc):
+            if len(np.unique(enc.subjects)) < 2:
+                # a single-subject pair list (the synthetic data):
+                # alternating pseudo-subject ids keep the batch layout, and
+                # both encoders see one distribution
+                logger.warning(
+                    "ms2_nic with a single-subject pair list: assigning "
+                    "alternating pseudo-subject ids (real two-subject runs "
+                    "need per-subject pair lists / subject_ids)")
+                enc.subjects = np.arange(len(enc), dtype=np.int32) % 2
+        bs -= bs % 2
+    # ThinkAndTell (ShowTell align="self") supervises unshifted targets
+    pipe_kw = dict(subject_split=subject_split,
+                   self_target=name == "thinkandtell")
+    train_pipe = BatchPipeline(train_enc, store, bs, seed=cfg.seed, **pipe_kw)
+    val_pipe = BatchPipeline(val_enc, store, bs, seed=cfg.seed, shuffle=False,
+                             **pipe_kw)
+    # the GradStats batch, with the training objective's targets and layout
     batch = next(iter(BatchPipeline(train_enc, store, bs, seed=0,
-                                    prefetch=0).epoch()))
+                                    prefetch=0, **pipe_kw).epoch()))
 
     state = new_state(model, cfg, device)
     model = state.model
@@ -339,27 +424,45 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
 # ---------------------------------------------------------------- eval
 
 def run_eval(bundle, run_path: str, epoch: int | None = None,
-             decoder: str = "greedy"):
-    """Test-set decoding (reference eval.py:147-193): greedy words of every
-    test pair (val when there is no test split) through K2, written as
+             decoder: str = "greedy", beam_width: int = 5,
+             ms2_subject: str = "a"):
+    """Test-set decoding (reference eval.py:147-193): the words of every
+    test pair (val when there is no test split), written as
     ``output_captions_{e}.npy``, ``attention_scores_{e}.npy`` and
-    ``captions_{e}.txt``. Returns {"words", "keys", "texts", "epoch"}."""
-    if decoder != "greedy":
-        raise NotImplementedError(
-            f"decoder {decoder!r} is ported with beam search and sampling "
-            "(ROADMAP M9)")
+    ``captions_{e}.txt``. ``decoder`` "greedy" runs K2 or K3 for a ``NIC``
+    (the step loop for the ShowTell family); "beam" the fixed-lattice beam
+    of ``beam_width``, whose attention file holds the winning hypothesis'
+    own trail. ``ms2_subject`` picks the encoder that decodes an ms2_nic
+    run (the split layout is a training batch contract; the reference
+    evaluates one subject at a time). Returns {"words", "keys", "texts",
+    "epoch"}."""
+    if decoder not in ("greedy", "beam"):
+        raise ValueError(f"unknown decoder {decoder!r}: expected 'greedy' "
+                         f"or 'beam'")
     cfg, model, tok = bundle["cfg"], bundle["model"], bundle["tokenizer"]
     store = bundle["store"]
     pairs = bundle["pairs"]["test"] or bundle["pairs"]["val"]
     enc = encode_pairs(pairs, tok, cfg.max_length)
     bs = min(cfg.batch_size, len(enc))
     pipe = EvalPipeline(enc, store, bs)
-    dec = _greedy_decoder(model, cfg)
+    if decoder == "greedy":
+        dec = _greedy_decoder(model, cfg)
+    else:
+        beam = make_beam_decoder(model, cfg.max_length, beam_width=beam_width)
+
+        def dec(betas, start_id):
+            words, _, alphas, _, _ = beam(betas, start_id, tok.end_id)
+            return words, alphas
 
     all_words, all_attn, all_keys = [], [], []
     was_training = model.training
+    encoder = getattr(model, "encoder", None)
+    dual = isinstance(encoder, DualSubjectEncoder) and encoder.mode == "split"
     model.eval()
     try:
+        if dual:
+            logger.info("ms2 eval: decoding through encoder_%s", ms2_subject)
+            encoder.mode = ms2_subject
         for batch in pipe.epoch():
             betas = gather_rows(
                 store.device_array(),
@@ -370,6 +473,8 @@ def run_eval(bundle, run_path: str, epoch: int | None = None,
             all_attn.append(out[-1].cpu().numpy()[valid])
             all_keys.append(batch["keys"][valid])
     finally:
+        if dual:
+            encoder.mode = "split"
         model.train(was_training)
 
     words = np.concatenate(all_words)

@@ -1,7 +1,17 @@
-"""Image-patch encoder for the NIC family, in PyTorch.
+"""Feature encoders for the NIC family besides LocallyDense, in PyTorch.
 
-Counterpart of ``PatchDense`` in ``masters_thesis_tpu/models/encoders.py``:
-(B, P, C) conv-feature patches -> (B, P, D), in two reference flavours.
+Counterpart of ``masters_thesis_tpu/models/encoders.py``:
+
+- ``PatchDense``: (B, P, C) conv-feature patches -> (B, P, D);
+- ``FullyConnectedEncoder``: one Dense + BatchNorm + dropout over the whole
+  flat input (AttemptFour/Model/fullyConnected.py:6-27) -> (B, 1, D);
+- ``ConcatLocallyDense``: linear per-group projections concatenated flat,
+  then a LeakyReLU(0.2) Dense bottleneck (localDense.py:44-63, the "concat
+  method") -> (B, 1, embed_dim);
+- ``DeepLocallyDense``: depth-n per-region stacks with BatchNorm between
+  layers (deep_layers.py:6-75) -> (B, G, D).
+
+``PatchDense`` comes in two reference flavours:
 
 - shared (``per_patch=False``): ONE Dense ``proj`` over the channel axis,
   the CNN_RNN CNN_Encoder (CNN_RNN/model.py:23-36);
@@ -10,8 +20,11 @@ Counterpart of ``PatchDense`` in ``masters_thesis_tpu/models/encoders.py``:
   img_localDense of AttemptFour (img_localDense.py:20-38).
 
 Then ``relu`` or LeakyReLU(0.2), the optional BatchNorm ``bn`` over D (the
-port's flax-exact one), and dropout in training. Parameter names follow the
-flax tree. The other encoders of that module wait for ROADMAP M11.
+port's flax-exact one), and dropout in training. It also takes a row flat,
+(B, P·C), as the 2-D device store gathers it, and shapes it back.
+
+Each encoder has the flax tree's parameter names, ``out_dim`` (the width of
+a region's features) and ``row_shape`` (one input row's shape).
 """
 
 from __future__ import annotations
@@ -27,8 +40,11 @@ from masters_thesis_tpu_torch.models.common import (
     activation,
     dropout,
     he_normal,
+    leaky_relu,
     truncated_normal,
 )
+from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
+from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
 ACTIVATIONS = ("relu", "leaky_relu")
 
@@ -63,6 +79,8 @@ class PatchDense(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator=None) -> torch.Tensor:
+        if x.ndim == 2:
+            x = x.reshape(x.shape[0], *self.row_shape)
         if self.per_patch:
             y = torch.einsum("bpc,pcd->bpd", x, self.kernel) + self.bias
         else:
@@ -70,4 +88,86 @@ class PatchDense(nn.Module):
         y = activation(y, self.activation)
         if self.bn is not None:
             y = self.bn(y, training)
+        return dropout(y, self.dropout, generator, training)
+
+
+class FullyConnectedEncoder(nn.Module):
+    """(B, N) -> (B, 1, D): Dense ``fc`` + LeakyReLU + BatchNorm ``bn`` +
+    dropout on the whole input."""
+
+    def __init__(self, n_inputs: int, out_dim: int, dropout: float = 0.2,
+                 generator=None):
+        super().__init__()
+        self.row_shape = (n_inputs,)
+        self.out_dim = out_dim
+        self.dropout = dropout
+        self.fc = Dense(n_inputs, out_dim, he_normal, generator)
+        self.bn = BatchNorm(out_dim)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None) -> torch.Tensor:
+        y = self.bn(leaky_relu(self.fc(x)), training)
+        return dropout(y, self.dropout, generator, training)[:, None, :]
+
+
+class ConcatLocallyDense(nn.Module):
+    """(B, N) -> (B, 1, embed_dim): per-group linear Dense ``groups``
+    (no BatchNorm, as the reference configures it, lc_NIC.py:71-80),
+    concatenated to (B, G·D), dropout, then Dense ``embed`` to
+    ``embed_dim`` with LeakyReLU(0.2) (localDense.py:36-39, 58-63)."""
+
+    def __init__(self, layout: GroupLayout, out_dim: int = 32,
+                 embed_dim: int = 512, dropout: float = 0.2,
+                 generator=None):
+        super().__init__()
+        self.row_shape = (layout.n_voxels,)
+        self.out_dim = embed_dim
+        self.dropout = dropout
+        self.groups = LocallyDense(layout, out_dim, dropout=0.0,
+                                   use_bn=False, activation="linear",
+                                   generator=generator)
+        self.embed = Dense(layout.n_groups * out_dim, embed_dim, he_normal,
+                           generator)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None) -> torch.Tensor:
+        y = self.groups(x, training, generator)
+        y = dropout(y.reshape(y.shape[0], -1), self.dropout, generator,
+                    training)
+        return leaky_relu(self.embed(y))[:, None, :]
+
+
+class DeepLocallyDense(nn.Module):
+    """(B, N) -> (B, G, D): LocallyDense ``block0`` (no BatchNorm), then
+    ``depth - 1`` times BatchNorm ``bn{d}`` and a per-region Dense
+    (``kernel{d}`` (G, D, D), ``bias{d}`` (G, D)) with LeakyReLU(0.2), then
+    dropout. Each region's kernel is he_normal with fan_in D, as G separate
+    Dense layers would draw it (deep_layers.py)."""
+
+    def __init__(self, layout: GroupLayout, out_dim: int = 32,
+                 depth: int = 2, dropout: float = 0.2, generator=None):
+        super().__init__()
+        self.row_shape = (layout.n_voxels,)
+        self.out_dim = out_dim
+        self.depth = depth
+        self.dropout = dropout
+        self.block0 = LocallyDense(layout, out_dim, dropout=0.0, use_bn=False,
+                                   generator=generator)
+        G = layout.n_groups
+        for d in range(1, depth):
+            self.add_module(f"bn{d}", BatchNorm(out_dim))
+            self.register_parameter(f"kernel{d}", nn.Parameter(
+                truncated_normal((G, out_dim, out_dim),
+                                 math.sqrt(2.0 / out_dim), generator)))
+            self.register_parameter(
+                f"bias{d}", nn.Parameter(torch.zeros(G, out_dim)))
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None) -> torch.Tensor:
+        y = self.block0(x, training, generator)
+        for d in range(1, self.depth):
+            y = getattr(self, f"bn{d}")(y, training)
+            y = leaky_relu(torch.einsum("bgd,gde->bge", y,
+                                        getattr(self, f"kernel{d}"))
+                           + getattr(self, f"bias{d}"))
         return dropout(y, self.dropout, generator, training)

@@ -10,6 +10,10 @@ each bucket is one batched contraction:
     out   = BatchNorm(concat(out_b)[:, unpermute])          # (B, G, D)
     out   = Dropout(out)                                    # training only
 
+``use_bn=False`` drops the BatchNorm and ``activation="linear"`` the
+LeakyReLU, as the concat and deep encoders build it
+(``models/encoders.py``).
+
 The gather is ``index_select`` and the contraction is ``einsum``: the JAX
 package leaves both to XLA, outside any Pallas kernel. With
 ``pregathered=True`` the input is already in the grouped padded layout
@@ -27,8 +31,8 @@ from torch import nn
 
 from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
+    activation,
     dropout,
-    leaky_relu,
     truncated_normal,
 )
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
@@ -49,17 +53,22 @@ class LocallyDense(nn.Module):
     or (B, >= padded_total) -> (B, n_groups, out_dim) when ``pregathered``.
 
     Parameters ``kernel_{b}`` (G_b, P_b, D) and ``bias_{b}`` (G_b, D) per
-    bucket, then ``input_bn`` over D; ``dropout`` (dropout_features) follows
-    BatchNorm in training."""
+    bucket, then ``input_bn`` over D (with ``use_bn``); ``dropout``
+    (dropout_features) follows BatchNorm in training."""
 
     def __init__(self, layout: GroupLayout, out_dim: int = 32,
                  dropout: float = 0.2, pregathered: bool = False,
+                 use_bn: bool = True, activation: str = "leaky_relu",
                  generator=None):
         super().__init__()
+        if activation not in ("leaky_relu", "linear"):
+            raise ValueError(f"activation {activation!r}: expected "
+                             f"'leaky_relu' or 'linear'")
         self.layout = layout
         self.out_dim = out_dim
         self.dropout = dropout
         self.pregathered = pregathered
+        self.activation = activation
         for b, bucket in enumerate(layout.buckets):
             gb, pb = len(bucket.group_ids), bucket.padded
             self.register_parameter(f"kernel_{b}", nn.Parameter(
@@ -77,7 +86,7 @@ class LocallyDense(nn.Module):
         self.register_buffer(
             "unpermute", torch.as_tensor(layout.unpermute, dtype=torch.long),
             persistent=False)
-        self.input_bn = BatchNorm(out_dim)
+        self.input_bn = BatchNorm(out_dim) if use_bn else None
 
     @property
     def row_shape(self) -> tuple[int]:
@@ -109,7 +118,9 @@ class LocallyDense(nn.Module):
         outs = []
         for b, xg in enumerate(self._bucket_inputs(x)):
             y = torch.einsum("bgp,gpd->bgd", xg, getattr(self, f"kernel_{b}"))
-            outs.append(leaky_relu(y + getattr(self, f"bias_{b}")))
+            outs.append(activation(y + getattr(self, f"bias_{b}"),
+                                   self.activation))
         out = torch.cat(outs, dim=1).index_select(1, self.unpermute)
-        out = self.input_bn(out, training)
+        if self.input_bn is not None:
+            out = self.input_bn(out, training)
         return dropout(out, self.dropout, generator, training)

@@ -1,10 +1,13 @@
 """NIC — the attention caption-decoder family, in PyTorch.
 
-Counterpart of ``masters_thesis_tpu/models/nic.py`` for two of its reference
+Counterpart of ``masters_thesis_tpu/models/nic.py`` and its reference
 configurations:
 
 - ``LcNIC`` (AttemptFour/Model/lc_NIC.py:42-263): LocallyDense brain encoder,
-  LSTM(512), LeakyReLU Dense(256) + Dense(vocab) head;
+  LSTM(512), LeakyReLU Dense(256) + Dense(vocab) head; ``GloveNIC`` is the
+  same on a pretrained (GloVe) embedding table (glove_NIC.py);
+- ``ImgNIC`` (img_NIC.py): conv-feature patches through a per-patch
+  LeakyReLU ``PatchDense`` with BatchNorm, the same decoder;
 - ``CnnRnnNIC`` (CNN_RNN/model.py:23-115): InceptionV3 patches through a
   shared relu ``PatchDense``, linear attention, a GRU cell whose recurrence
   restarts from zeros every step (``gru_zero_state``), and a linear
@@ -19,22 +22,22 @@ Forward:
 
 Submodule and parameter names follow the flax tree (``encoder``,
 ``attention``, ``lstm`` or ``gru``, ``embedding``, ``dense_inter``,
-``dense_out``), so ``transplant.from_flax`` loads a JAX checkpoint without a
-key map.
+``dense_out``, and ``hidden_init``/``carry_init`` for the learned initial
+carry), so ``transplant.from_flax`` loads a JAX checkpoint without a key
+map. A frozen pretrained table is a non-persistent buffer: the flax tree has
+no ``params/embedding`` then, and the run directory keeps the table
+(``glove_table.npy``).
 
-The port covers both cells, the zero initial carry and a trainable
-embedding, in eval mode and in training. The training forward has flax's
-four dropout sites of the decoder, in its order: ``drop_input`` on the
-inputs, ``drop_text`` on the embedded tokens, ``drop_lstm`` on each cell
-output (not on the carry) and ``drop_out`` after the head's activation; the
-encoder and the attention hold the other two. Masks are drawn from the
-caller's ``torch.Generator``. The learned initial carry and pretrained
-embeddings raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+The training forward has flax's four dropout sites of the decoder, in its
+order: ``drop_input`` on the inputs, ``drop_text`` on the embedded tokens,
+``drop_lstm`` on each cell output (not on the carry) and ``drop_out`` after
+the head's activation; the encoder and the attention hold the other two.
+Masks are drawn from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -67,7 +70,13 @@ class NIC(nn.Module):
     ``gru_zero_state`` is the CNN_RNN decoder's quirk: it calls its GRU
     without an initial state (CNN_RNN/model.py:103), so the recurrence
     restarts from zeros every step and the carried h feeds only the
-    attention query."""
+    attention query.
+
+    ``pretrained_embedding`` is a (true vocab, embedding_text) table (the
+    glove_NIC variant), padded with zero rows to ``vocab_size``; it trains
+    under ``embedding_trainable`` and is a fixed buffer otherwise.
+    ``learned_init_state`` makes the initial carry two Dense layers on the
+    mean of the features (Xu et al.; lc_NIC.learn_init_state :169-173)."""
 
     def __init__(self, encoder: nn.Module, units: int = 512,
                  embedding_text: int = 512, attn_units: int = 32,
@@ -77,6 +86,7 @@ class NIC(nn.Module):
                  head_activation: str = "leaky_relu",
                  attn_inner_activation: str = "leaky_relu",
                  pretrained_embedding=None,
+                 embedding_trainable: bool = True,
                  learned_init_state: bool = False,
                  dropout_input: float = 0.0, dropout_text: float = 0.2,
                  dropout_attn: float = 0.2, dropout_lstm: float = 0.2,
@@ -88,20 +98,13 @@ class NIC(nn.Module):
         if head_activation not in ACTIVATION_SLOPES:
             raise ValueError(f"head_activation {head_activation!r}: expected "
                              f"one of {sorted(ACTIVATION_SLOPES)}")
-        if learned_init_state:
-            raise NotImplementedError(
-                "learned_init_state is ported with the other families "
-                "(ROADMAP M11)")
-        if pretrained_embedding is not None:
-            raise NotImplementedError(
-                "pretrained (GloVe) embeddings are ported with the other "
-                "families (ROADMAP M11)")
         self.units = units
         self.vocab_size = vocab_size
         self.true_vocab = true_vocab
         self.max_length = max_length
         self.cell_type = cell_type
         self.gru_zero_state = gru_zero_state
+        self.learned_init_state = learned_init_state
         self.head_activation = head_activation
         self.attn_inner_activation = attn_inner_activation
         self.dropout_input = dropout_input
@@ -118,8 +121,23 @@ class NIC(nn.Module):
         cell = KerasLSTMCell if cell_type == "lstm" else KerasGRUCell
         self.add_module(cell_type, cell(features_dim + embedding_text, units,
                                         generator))
-        self.embedding = nn.Parameter(pad_zero_rows(embedding_init, tv)(
-            (vocab_size, embedding_text), generator))
+        if pretrained_embedding is None:
+            self.embedding = nn.Parameter(pad_zero_rows(embedding_init, tv)(
+                (vocab_size, embedding_text), generator))
+        else:
+            table = torch.as_tensor(np.asarray(pretrained_embedding,
+                                               np.float32))
+            if tuple(table.shape) != (tv, embedding_text):
+                raise ValueError(f"pretrained embedding {tuple(table.shape)}:"
+                                 f" expected {(tv, embedding_text)}")
+            table = F.pad(table, (0, 0, 0, vocab_size - tv))
+            if embedding_trainable:
+                self.embedding = nn.Parameter(table)
+            else:
+                self.register_buffer("embedding", table, persistent=False)
+        if learned_init_state:
+            self.hidden_init = Dense(features_dim, units, generator=generator)
+            self.carry_init = Dense(features_dim, units, generator=generator)
         self.dense_inter = Dense(units, head_dim, glorot_normal, generator)
         self.dense_out = Dense(head_dim, vocab_size,
                                pad_zero_cols(glorot_normal, tv), generator)
@@ -164,6 +182,8 @@ class NIC(nn.Module):
         features = self.encode(inputs, training, generator)
         emb = self.embed(tokens)                              # (B, T, E)
         emb = dropout(emb, self.dropout_text, generator, training)
+        if self.learned_init_state:
+            a0, c0 = self.init_carry(features)
         h, c = a0.float(), c0.float()
         hseq, alphas = [], []
         for t in range(tokens.shape[1]):
@@ -175,12 +195,21 @@ class NIC(nn.Module):
                            generator)                         # (B, T, V)
         return logits, torch.stack(alphas, dim=1)
 
-    # ---- single decode step (shared by the greedy decoders) ----
+    # ---- single decode step (shared by the decoders) ----
     def init_carry(self, features: torch.Tensor):
-        """Zeros, as the reference's a0/c0."""
+        """Zeros, as the reference's a0/c0, or the two Dense layers on the
+        mean of the features under ``learned_init_state``."""
+        if self.learned_init_state:
+            mean = features.mean(dim=1)
+            return self.hidden_init(mean), self.carry_init(mean)
         z = torch.zeros(features.shape[0], self.units, dtype=features.dtype,
                         device=features.device)
         return z, z
+
+    @property
+    def row_shape(self) -> tuple[int, ...]:
+        """The shape of one input row (the encoder's)."""
+        return tuple(self.encoder.row_shape)
 
     def decode_step(self, h, c, features, token):
         """One inference step. token: (B,) int.
@@ -221,6 +250,40 @@ def LcNIC(layout: GroupLayout, units: int = 512, group_size: int = 32,
         dropout_attn=dropout_attn,
         dropout_lstm=dropout_lstm,
         dropout_out=dropout_out,
+        generator=generator,
+        **kw,
+    )
+
+
+def GloveNIC(layout: GroupLayout, embedding_table, trainable: bool = True,
+             **kw) -> NIC:
+    """LcNIC on a pretrained (true vocab, E) text-embedding table built
+    offline (glove_NIC.py variant); frozen unless ``trainable``."""
+    return LcNIC(layout, pretrained_embedding=embedding_table,
+                 embedding_trainable=trainable,
+                 embedding_text=int(np.shape(embedding_table)[1]), **kw)
+
+
+def ImgNIC(embed_dim: int = 32, units: int = 512, attn_units: int = 32,
+           vocab_size: int = 5001, max_length: int = 15,
+           embedding_text: int = 512, dropout_features: float = 0.2,
+           n_patches: int = 196, in_channels: int = 512, generator=None,
+           **kw) -> NIC:
+    """Show-Attend-Tell on (``n_patches``, ``in_channels``) conv-feature
+    patches, by default VGG16's (196, 512) (img_NIC.py): a separate Dense
+    per patch to ``embed_dim`` (config group_size) with LeakyReLU and
+    BatchNorm over the stack (img_localDense.py:20-38), then the LcNIC
+    decoder. Initialised on the CPU from ``generator``; extra kwargs pass
+    through to ``NIC``."""
+    return NIC(
+        encoder=PatchDense(n_patches, in_channels, embed_dim,
+                           dropout=dropout_features, activation="leaky_relu",
+                           per_patch=True, use_bn=True, generator=generator),
+        units=units,
+        embedding_text=embedding_text,
+        attn_units=attn_units,
+        vocab_size=vocab_size,
+        max_length=max_length,
         generator=generator,
         **kw,
     )

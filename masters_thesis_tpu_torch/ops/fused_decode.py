@@ -334,7 +334,9 @@ def decode_kernel(model):
 
 def extract_decode_params(model) -> dict:
     """Attention, cell, head and embedding weights of a port ``NIC``, named
-    as in the JAX package's ``extract_decode_params``."""
+    as in the JAX package's ``extract_decode_params``. The embedding is the
+    model's table whether it trains or is a frozen pretrained buffer, which
+    the model padded to ``vocab_size`` rows."""
     attn = model.attention
     out = {
         "w1": attn.W1.kernel, "b1": attn.W1.bias,
@@ -358,7 +360,8 @@ def decode_inputs(model, betas: torch.Tensor, start_id: int) -> tuple:
 
     Encodes, precomputes ``pre = act_a(features W1 + b1)``, pads the vocab
     axis to a multiple of 128 with bias -1e30 from ``model.true_vocab`` on,
-    and takes the start embedding and the model's initial carry."""
+    and takes the start embedding and the model's own initial carry (zeros,
+    or the learned one from the features)."""
     sp = extract_decode_params(model)
     features = model.encode(betas)
     pre = leaky_relu(features @ sp["w1"] + sp["b1"],
@@ -438,9 +441,9 @@ def spread_for_check(model, generator: torch.Generator) -> None:
     BatchNorm at scale 1, shift 0, mean 0, variance 1, so a kernel that
     dropped one of them would still agree with its plain version; and
     their small embedding and head make greedy settle on a few ids. Here
-    the encoder's biases, the BatchNorm's parameters and running statistics
-    (where the encoder has one), the attention's and the cell's biases get
-    seeded random values (variance positive), and the embedding, attention,
+    the encoder's biases, its BatchNorms' parameters and running statistics,
+    the attention's and the cell's biases (and the learned initial carry's)
+    get seeded random values (variance positive), and the embedding, attention,
     context input of the cell and head are widened so that the words vary
     from row to row and step to step. Scales are relative to fan-in, so any
     width works; the fp32 rounding of a decode stays at a few 1e-7 in the
@@ -449,12 +452,14 @@ def spread_for_check(model, generator: torch.Generator) -> None:
         return (torch.randn(t.shape, generator=generator) * std).to(t)
 
     enc, attn, cell = model.encoder, model.attention, model.cell
+    batch_norms = [m for m in enc.modules() if isinstance(m, BatchNorm)]
+    in_bn = {id(p) for bn in batch_norms for p in bn.parameters()}
     for name, p in enc.named_parameters():
-        # LocallyDense's bias_{b}; PatchDense's bias or proj.bias
-        if name.startswith("bias_") or name in ("bias", "proj.bias"):
+        # LocallyDense's bias_{b}, PatchDense's bias or proj.bias, the other
+        # encoders' Dense and per-region biases; not a BatchNorm's shift
+        if name.split(".")[-1].startswith("bias") and id(p) not in in_bn:
             p.copy_(normal(p, 0.1))
-    bn = next((m for m in enc.children() if isinstance(m, BatchNorm)), None)
-    if bn is not None:
+    for bn in batch_norms:
         bn.scale.add_(normal(bn.scale, 0.1))
         bn.bias.copy_(normal(bn.bias, 0.1))
         bn.mean.copy_(normal(bn.mean, 0.5))
@@ -480,3 +485,10 @@ def spread_for_check(model, generator: torch.Generator) -> None:
         fan_in = dense.kernel.shape[0]
         dense.kernel.copy_(normal(dense.kernel, 4.0 / fan_in ** 0.5))
         dense.bias.copy_(normal(dense.bias, bias_std))
+    if model.learned_init_state:
+        # a small live carry: a GRU keeps a large h0 (z h + (1 - z) h~),
+        # and at CnnRnn width one that dominated the head left 8 distinct
+        # words on an H100 where the zero carry gives 16 or more
+        for dense in (model.hidden_init, model.carry_init):
+            dense.kernel.mul_(0.2)
+            dense.bias.copy_(normal(dense.bias, 0.1))

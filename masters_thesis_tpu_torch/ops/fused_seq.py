@@ -392,10 +392,13 @@ def extract_seq_params(model: NIC) -> dict:
 def fused_train_supported(model, cfg) -> bool:
     """Can the train step route through the fused sequence? The custom
     backward implements the LSTM, zero-initial-carry, trainable-embedding
-    teacher-forced loop; the port's ``NIC`` has no other carry or embedding
-    yet (ROADMAP M11). ``remat`` exists to avoid storing per-step
-    activations, which the custom backward stores, so it falls back."""
+    teacher-forced loop, as the JAX package's does: a learned initial carry
+    or a frozen pretrained table takes autograd of the model's forward.
+    ``remat`` exists to avoid storing per-step activations, which the
+    custom backward stores, so it falls back."""
     return (isinstance(model, NIC) and model.cell_type == "lstm"
+            and not model.learned_init_state
+            and isinstance(model.embedding, torch.nn.Parameter)
             and not getattr(cfg.tpu, "remat", False))
 
 

@@ -7,27 +7,37 @@ Counterpart of ``masters_thesis_tpu/serve.py``:
                                     units, max_length)
     cap = Captioner.from_run_dir("Log/run")          # a port training run
     texts = cap.caption(rows)                        # greedy
+    texts = cap.caption(rows, decoder="beam")        # or "sample"
 
 The Captioner runs on the card (``cuda``) unless it is given
-``device="cpu"``. Greedy decoding goes through
-``make_whole_fused_greedy_decoder`` on every device: on CUDA that is the
-hand-written kernel of the model's cell (K2 for an LSTM, K3 for a GRU), on
-the CPU its plain PyTorch version; ``use_fused=False`` selects the unfused
-step loop (``decode.greedy``). The JAX package instead takes its kernel on
-the TPU only (``Captioner._fused_eligible``). Requests are cut into chunks
-of the service batch, and the last chunk is padded by repeating its final
-row (``padded_chunk_ids``, the port's copy of the JAX package's).
+``device="cpu"``. Decoders are chosen by the model's class, never by
+catching a failure: a ``NIC`` (every LSTM and GRU variant) decodes greedily
+through ``make_whole_fused_greedy_decoder``, which on CUDA is the
+hand-written kernel of its cell (K2 for an LSTM, K3 for a GRU) and on the
+CPU its plain PyTorch version; ``use_fused=False`` selects the unfused step
+loop (``decode.greedy``), which is also the greedy decoder of the ShowTell
+family (``ShowTell``, ``GuseNIC``), as in the JAX package, whose kernel
+takes ``NIC`` only. ``decoder="beam"`` runs the fixed-lattice beam of
+``beam_width``, and ``decoder="sample"`` draws with ``temperature`` and
+``sample_top_k``; each call's draw comes from a generator seeded by
+(``seed``, the call's index) alone, as the JAX ``fold_in(PRNGKey(seed),
+calls)``, so two Captioners built alike give the same words on their n-th
+call. Requests are cut into chunks of the service batch, and the last chunk
+is padded by repeating its final row (``padded_chunk_ids``, the port's copy
+of the JAX package's).
 
-A row is whatever the model's encoder reads: (n_voxels,) betas for LcNIC,
-(64, 2048) InceptionV3 patches for CnnRnn. ``input_row_shape`` is that shape
-and ``input_width`` its last dimension, as in the JAX ``Captioner`` and
-server.
+A row is whatever the model reads: (n_voxels,) betas for the brain
+families, (P, C) patches for the image ones, a 512-wide GUSE vector for
+``guse_nic``. ``input_row_shape`` is that shape and ``input_width`` its last
+dimension, as in the JAX ``Captioner`` and server.
 
 ``from_run_dir`` rebuilds the model of a run directory that the port's
 ``experiment.run_training`` wrote (``config.yaml``, ``tokenizer.json``,
-``layout.npz``, ``run_meta.json`` and the best or latest checkpoint under
+``run_meta.json``, ``layout.npz`` where the family reads a layout,
+``glove_table.npy`` for a GloVe run, and the best or latest checkpoint under
 ``model/``), taking raw rows whether or not the run trained from a
-pregathered store. Beam and sampling decoders wait for ROADMAP M9.
+pregathered store; an ``ms2_nic`` run serves one subject's encoder
+(``subject="a"|"b"``).
 """
 
 from __future__ import annotations
@@ -35,9 +45,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from masters_thesis_tpu_torch.decode.beam import make_beam_decoder
 from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
+from masters_thesis_tpu_torch.decode.sampling import make_sampling_decoder
 from masters_thesis_tpu_torch.device import resolve_device
 from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption
+from masters_thesis_tpu_torch.models.multisubject import DualSubjectEncoder
+from masters_thesis_tpu_torch.models.nic import NIC
 from masters_thesis_tpu_torch.ops.fused_decode import (
     make_whole_fused_greedy_decoder,
 )
@@ -79,12 +93,21 @@ def padded_chunk_ids(inputs, batch_size: int, max_length: int,
     return np.concatenate(out)
 
 
+def sample_seed(seed: int, call: int) -> int:
+    """The 64-bit seed of the sampler's ``call``-th draw, from (seed, call)
+    alone."""
+    return (seed * 0x9E3779B97F4A7C15 + call) % 2**64
+
+
 class Captioner:
     def __init__(self, model, tokenizer, units: int, max_length: int,
-                 batch_size: int = 64, use_fused: bool = True, device=None):
+                 batch_size: int = 64, use_fused: bool = True, device=None,
+                 beam_width: int = 5, temperature: float = 1.0,
+                 sample_top_k: int = 0, seed: int = 0):
         """Moves ``model`` to ``device`` (by default ``cuda``; raises
         without a card unless ``device="cpu"``). A request row has the
-        shape of the encoder's ``row_shape``."""
+        shape of the model's ``row_shape``. ``beam_width`` sizes the beam;
+        ``temperature``, ``sample_top_k`` and ``seed`` set the sampler."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
@@ -92,9 +115,14 @@ class Captioner:
         self.max_length = max_length
         self.batch_size = batch_size
         self.use_fused = use_fused
-        self.input_row_shape = tuple(model.encoder.row_shape)
+        self.beam_width = beam_width
+        self.temperature = temperature
+        self.sample_top_k = sample_top_k
+        self.seed = seed
+        self._sample_calls = 0
+        self.input_row_shape = tuple(model.row_shape)
         self.input_width = self.input_row_shape[-1]
-        self._greedy = None
+        self._decoders: dict = {}
 
     @classmethod
     def from_components(cls, model, params, batch_stats, tokenizer, units,
@@ -107,11 +135,12 @@ class Captioner:
 
     @classmethod
     def from_run_dir(cls, run_path: str, best: bool = True, device=None,
-                     **kw) -> "Captioner":
+                     subject: str = "a", **kw) -> "Captioner":
         """Rebuild the model and its weights from a training run directory
         (the JAX ``Captioner.from_run_dir``): the best checkpoint by val
         loss, or the latest with ``best=False``, on ``device`` (by default
-        ``cuda``). Other keyword arguments go to ``Captioner``."""
+        ``cuda``). An ``ms2_nic`` run serves the encoder of ``subject``.
+        Other keyword arguments go to ``Captioner``."""
         import json
         import os
 
@@ -125,15 +154,29 @@ class Captioner:
 
         cfg = Config.load(os.path.join(run_path, "config.yaml"))
         tokenizer = Tokenizer.load(os.path.join(run_path, "tokenizer.json"))
-        layout = GroupLayout.load(os.path.join(run_path, "layout.npz"))
         # the trained row shape, recorded before any permutation of the store
         with open(os.path.join(run_path, "run_meta.json")) as f:
             row_shape = tuple(json.load(f)["input_row_shape"])
-        if row_shape != (layout.n_voxels,):
-            raise ValueError(f"run_meta.json's input_row_shape {row_shape} "
-                             f"does not match layout.npz's "
-                             f"{layout.n_voxels} voxels")
-        model, _, _ = build_model(cfg, layout.to_groups(), layout.n_voxels)
+        groups = []
+        layout_path = os.path.join(run_path, "layout.npz")
+        if os.path.exists(layout_path):
+            layout = GroupLayout.load(layout_path)
+            if row_shape != (layout.n_voxels,):
+                raise ValueError(f"run_meta.json's input_row_shape "
+                                 f"{row_shape} does not match layout.npz's "
+                                 f"{layout.n_voxels} voxels")
+            groups = layout.to_groups()
+        # a frozen GloVe table is no checkpoint entry: the run keeps it
+        glove_path = os.path.join(run_path, "glove_table.npy")
+        glove_table = (np.load(glove_path) if os.path.exists(glove_path)
+                       else None)
+        model, _, _ = build_model(cfg, groups, row_shape[0],
+                                  embedding_table=glove_table,
+                                  row_shape=row_shape)
+        encoder = getattr(model, "encoder", None)
+        if isinstance(encoder, DualSubjectEncoder):
+            # a request's rows all come from one subject
+            encoder.mode = subject
         mgr = CheckpointManager(os.path.join(run_path, "model"))
         epoch = mgr.best_epoch() if best else None
         epoch = mgr.latest_epoch() if epoch is None else epoch
@@ -147,30 +190,49 @@ class Captioner:
         inst.epoch = epoch
         return inst
 
-    def _decoder(self):
-        """decode(rows, start_id) -> a tuple that starts with the words."""
-        if self._greedy is None:
-            make = (make_whole_fused_greedy_decoder if self.use_fused
-                    else make_greedy_decoder)
-            self._greedy = make(self.model, self.max_length)
-        return self._greedy
+    def _decoder(self, kind: str):
+        """decode(rows) -> (B, T) words of the ``kind`` decoder."""
+        if kind in self._decoders:
+            return self._decoders[kind]
+        start, end = self.tokenizer.start_id, self.tokenizer.end_id
+        if kind == "greedy":
+            greedy = (make_whole_fused_greedy_decoder
+                      if self.use_fused and isinstance(self.model, NIC)
+                      else make_greedy_decoder)(self.model, self.max_length)
+
+            def decode(rows):
+                return greedy(rows, start)[0]
+        elif kind == "beam":
+            beam = make_beam_decoder(self.model, self.max_length,
+                                     beam_width=self.beam_width)
+
+            def decode(rows):
+                return beam(rows, start, end)[0]
+        elif kind == "sample":
+            sample = make_sampling_decoder(
+                self.model, self.max_length, temperature=self.temperature,
+                top_k=self.sample_top_k)
+
+            def decode(rows):
+                gen = torch.Generator(device=rows.device).manual_seed(
+                    sample_seed(self.seed, self._sample_calls))
+                self._sample_calls += 1
+                return sample(rows, start, gen)
+        else:
+            raise ValueError(f"unknown decoder {kind!r}: expected one of "
+                             f"{_DECODERS}")
+        self._decoders[kind] = decode
+        return decode
 
     def caption_ids(self, inputs: np.ndarray, decoder: str = "greedy"):
         """(N, *input_row_shape) inputs -> (N, T) token ids; pads to the
         service batch."""
-        if decoder not in _DECODERS:
-            raise ValueError(f"unknown decoder {decoder!r}")
-        if decoder != "greedy":
-            raise NotImplementedError(
-                f"decoder={decoder!r} is ported with beam search and "
-                "sampling (ROADMAP M9)")
-        dec = self._decoder()
+        dec = self._decoder(decoder)
 
         def run_chunk(chunk):
             # torch wants writable memory; copies only a read-only view
             chunk = np.require(chunk, np.float32, ("C", "W"))
-            rows = torch.from_numpy(chunk).to(self.device)
-            return dec(rows, self.tokenizer.start_id)[0].cpu().numpy()
+            return dec(torch.from_numpy(chunk).to(self.device)).cpu().numpy()
 
         return padded_chunk_ids(inputs, self.batch_size, self.max_length,
                                 self.input_width, run_chunk)

@@ -1,4 +1,4 @@
-"""Loss terms of the LcNIC train step, in PyTorch.
+"""Loss terms of the train step, in PyTorch.
 
 Counterpart of ``masters_thesis_tpu/train/losses.py`` (reference
 AttemptFour/Model/lc_NIC.py:328-408):

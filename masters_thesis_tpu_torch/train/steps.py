@@ -1,4 +1,4 @@
-"""Train and eval steps of the LcNIC family, in PyTorch.
+"""Train and eval steps of every model family, in PyTorch.
 
 Counterpart of ``masters_thesis_tpu/train/steps.py``. A train step runs the
 training forward (dropout, BatchNorm batch statistics), the loss, the
@@ -9,7 +9,8 @@ lc_NIC.py:713-838) is its two-pass variant. Every step returns the metrics
 With ``cfg.tpu.fused_seq`` on, a model that ``ops.fused_seq`` supports
 trains its decoder through the fused sequence's custom backward
 (``make_train_forward_loss``); any other model takes autograd of its
-forward.
+forward. ``masked`` (the CnnRnn and ShowTell families) zeroes the CCE of
+padded targets.
 
 "Scanned" steps run K steps inside one call as a Python loop: each step
 indexes the device-resident tables with its row of the (K, B) pair ids,

@@ -2,9 +2,9 @@
 their originals, on the same inputs: tokenizer (with its Keras-json
 persistence), pairs, the batch pipeline, the group layout (with its
 ``layout.npz``), the synthetic fixtures (the structured and compositional
-modes too) and their key split, caption post-processing, the serving
-chunker, the HTTP server, the run-directory logs and the TensorBoard event
-writer."""
+modes too) and their key split, the caption stores and GloVe tables, caption
+post-processing, the serving chunker, the HTTP server, the run-directory
+logs and the TensorBoard event writer."""
 
 import io
 import json
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from masters_thesis_tpu.data import captions as jcaptions
 from masters_thesis_tpu.data import pairs as jpairs
 from masters_thesis_tpu.data import pipeline as jpipeline
 from masters_thesis_tpu.data import synthetic as jsynthetic
@@ -29,7 +30,7 @@ from masters_thesis_tpu.serve import padded_chunk_ids as j_padded_chunk_ids
 from masters_thesis_tpu.server import make_caption_server as j_make_server
 from masters_thesis_tpu.utils import logging as jlogging
 from masters_thesis_tpu.utils import tensorboard as jtensorboard
-from masters_thesis_tpu_torch.data import pairs, pipeline, synthetic
+from masters_thesis_tpu_torch.data import captions, pairs, pipeline, synthetic
 from masters_thesis_tpu_torch.data import tokenizer
 from masters_thesis_tpu_torch.data.store import ArrayStore
 from masters_thesis_tpu_torch.evalsuite.tokens import (
@@ -418,3 +419,61 @@ def test_event_writer_matches_original(tmp_path):
     assert len(_records(files["port"])) == 5
     with pytest.raises(NotImplementedError, match="matplotlib"):
         ptensorboard.render_caption_image(None, "a caption")
+
+
+def _caption_dir(tmp_path):
+    """The fixtures of tests/test_captions_and_variants.py in one
+    directory, with a session-ingest line (``path#i\tcaption``)."""
+    d = tmp_path / "caps"
+    d.mkdir()
+    (d / "subj02_KID7.txt").write_text("a dog.\nthe dog runs.\n")
+    (d / "subj02_KID9.txt").write_text("a cat.\n")
+    (d / "KID3.txt").write_text("b/KID3.npy#0\ta cat\n\n")
+    (d / "KID3.txt~").write_text("STALE BACKUP\n")
+    (d / "KID4.png").write_bytes(b"\x89PNG\x00not-text")
+    (d / "KID5").mkdir()
+    return d
+
+
+@pytest.mark.parametrize("keys", [None, [9], [3, 7, 11]])
+def test_caption_dir_and_annotations_match_original(tmp_path, keys):
+    d = _caption_dir(tmp_path)
+    caps = captions.load_captions_dir(str(d), keys=keys)
+    assert caps == jcaptions.load_captions_dir(str(d), keys=keys)
+    captions.save_annotations_json(str(tmp_path / "a.json"), caps)
+    jcaptions.save_annotations_json(str(tmp_path / "j.json"), caps)
+    assert ((tmp_path / "a.json").read_text()
+            == (tmp_path / "j.json").read_text())
+    assert (captions.load_annotations_json(str(tmp_path / "j.json"))
+            == jcaptions.load_annotations_json(str(tmp_path / "a.json"))
+            == caps)
+
+
+def test_glove_table_matches_original(tmp_path):
+    """A GloVe text file with in-vocab, out-of-vocab, wrong-width and
+    <start>/<end> lines, against each package's tokenizer; then a file whose
+    vectors all have another width, which both refuse alike."""
+    texts = ["<start> dog cat bird <end>", "<start> dog fish <end>"]
+    tok, jtok = _fit_texts(tokenizer, texts), _fit_texts(jtokenizer, texts)
+    g = tmp_path / "glove.txt"
+    g.write_text("dog 1.0 2.0 3.0 4.0\ncat 5.0 6.0 7.0 8.0\n"
+                 "zebra 9 9 9 9\nbird 1 2 3\n<end> 7 7 7 7\n")
+    table = captions.build_glove_table(str(g), tok, dim=4)
+    want = jcaptions.build_glove_table(str(g), jtok, dim=4)
+    assert table.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(table, want)
+    assert table[tok.word_index["dog"]].tolist() == [1, 2, 3, 4]
+    assert table[tok.end_id].tolist() == [0, 0, 0, 1]
+    errors = []
+    for module, t in ((captions, tok), (jcaptions, jtok)):
+        with pytest.raises(ValueError) as err:
+            module.build_glove_table(str(g), t, dim=5)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1] and "4-d" in errors[0]
+
+
+def _fit_texts(module, texts):
+    tok = module.Tokenizer(num_words=10)
+    tok.fit_on_texts(texts)
+    tok.install_pad()
+    return tok

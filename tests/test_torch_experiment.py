@@ -12,7 +12,9 @@ headers. The port's ``run_eval`` on B's final parameters gives B's words,
 near-ties excepted, and ``run_metrics`` on B's texts gives the JAX dict
 exactly. Then the port alone: resume is bit for bit with dropout on,
 ``from_run_dir`` serves the run's words, the CLI prints the JAX CLI's keys,
-and every part that waits refuses, naming its ROADMAP item."""
+the parts a former slice refused (the other families, GloVe tables, the
+learned carry, beam and sampling, and their CLI flags) run, and every part
+that waits refuses, naming its ROADMAP item."""
 
 import copy
 import dataclasses
@@ -379,13 +381,13 @@ def _captioner_decoder(tmp_path, decoder):
         from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
         tok = Tokenizer()
-        tok.fit_on_texts(["a dog"])
+        tok.fit_on_texts(["<start> a dog <end>"])
         tok.install_pad()
         layout = GroupLayout(synthetic_groups(32, 4), 32)
         cap = Captioner(LcNIC(layout, units=8, group_size=4,
                               embedding_text=4, attn_units=4, vocab_size=6,
                               max_length=3), tok, 8, 3, device="cpu")
-        cap.caption(np.zeros((1, 32), np.float32), decoder=decoder)
+        return cap.caption(np.zeros((1, 32), np.float32), decoder=decoder)
     return run
 
 
@@ -407,11 +409,6 @@ def _use_bundle(tmp_path):
 REFUSALS = {
     "real NSD data": (lambda t: lambda: _train(t, betas_path=str(t)),
                       "M19"),
-    "another model family": (lambda t: lambda: _train(t, model="showtell"),
-                             "M11"),
-    "GloVe table": (lambda t: lambda: _train(t, glove_path="g.npy"), "M11"),
-    "learned initial state": (
-        lambda t: lambda: _train(t, learned_init_state=True), "M11"),
     "data mesh": (lambda t: lambda: _train(t, mesh_data=2), "M13"),
     "model mesh": (lambda t: lambda: _train(t, mesh_model=2), "M13"),
     "bf16 params": (lambda t: lambda: _train(t, param_dtype="bfloat16"),
@@ -424,10 +421,6 @@ REFUSALS = {
     "step profiling": (lambda t: lambda: _train(t, profile_steps=5), "M14"),
     "profiler trace": (lambda t: lambda: _train(t, profile_trace=True),
                        "M14"),
-    "beam eval": (lambda t: lambda: experiment.run_eval(
-        {}, str(t), decoder="beam"), "M9"),
-    "beam serving": (lambda t: _captioner_decoder(t, "beam"), "M9"),
-    "sampled serving": (lambda t: _captioner_decoder(t, "sample"), "M9"),
     "CaptionImagePreview": (lambda t: _make("CaptionImagePreview"), "M14"),
     "render_caption_image": (lambda t: lambda: __import__(
         "masters_thesis_tpu_torch.utils.tensorboard",
@@ -449,14 +442,6 @@ def test_unported_parts_refuse_naming_their_roadmap_item(case, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["train", "--processes", "2"], "M13"),
     (["train", "--devices-per-process", "8"], "M13"),
-    (["eval", "--decoder", "beam"], "M9"),
-    (["eval", "--beam-width", "3"], "M9"),
-    (["metrics", "--subject", "b"], "M11"),
-    (["metrics", "--beam-width", "3"], "M9"),
-    (["caption", "--decoder", "sample"], "M9"),
-    (["caption", "--temperature", "0.7"], "M9"),
-    (["caption", "--sample-top-k", "5"], "M9"),
-    (["caption", "--seed", "3"], "M9"),
     (["caption", "--shard", "2"], "M13"),
     (["caption", "--pre", "pre_dir"], "M19"),
 ])
@@ -468,3 +453,80 @@ def test_cli_flags_without_a_port_exit_naming_their_item(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}\\b") as err:
         cli.main(argv)
     assert err.value.code != 0
+
+
+def _glove_run(tmp_path):
+    table = np.random.default_rng(0).standard_normal((61, 16)).astype(
+        np.float32)
+    np.save(tmp_path / "g.npy", table)
+    _train(tmp_path, glove_path=str(tmp_path / "g.npy"),
+           glove_trainable=False)
+    (kept,) = tmp_path.rglob("glove_table.npy")
+    np.testing.assert_array_equal(np.load(kept), table)
+
+
+def _learned_init_run(tmp_path):
+    _train(tmp_path, learned_init_state=True)
+    (summary,) = tmp_path.rglob("modelsummary.txt")
+    assert "hidden_init" in summary.read_text()
+
+
+def _beam_eval(tmp_path):
+    cfg = dataclasses.replace(_cfg(), log=str(tmp_path))
+    run_path, _, bundle = experiment.run_training(cfg, epochs=1,
+                                                  smoke_keys=12, device="cpu")
+    out = experiment.run_eval(bundle, run_path, decoder="beam", beam_width=3)
+    attn = np.load(Path(run_path) / f"attention_scores_{out['epoch']}.npy")
+    assert attn.shape == (*out["words"].shape,
+                          bundle["model"].encoder.layout.n_groups)
+
+
+# parts a former slice refused, naming ROADMAP M9 or M11, now run
+FORMERLY_REFUSED = {
+    "another model family": lambda t: _train(t, model="showtell"),
+    "GloVe table": _glove_run,
+    "learned initial state": _learned_init_run,
+    "beam eval": _beam_eval,
+    "beam serving": lambda t: _captioner_decoder(t, "beam")(),
+    "sampled serving": lambda t: _captioner_decoder(t, "sample")(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_parts_run(case, tmp_path):
+    out = FORMERLY_REFUSED[case](tmp_path)
+    if case.endswith("serving"):
+        assert len(out) == 1 and isinstance(out[0], str)
+    else:
+        assert list(tmp_path.rglob("run_meta.json"))
+
+
+@pytest.mark.parametrize("argv", [
+    ["eval", "--decoder", "beam"],
+    ["eval", "--beam-width", "3"],
+    ["metrics", "--subject", "b"],
+    ["metrics", "--decoder", "beam", "--beam-width", "3"],
+    ["caption", "--decoder", "sample"],
+    ["caption", "--decoder", "sample", "--temperature", "0.7"],
+    ["caption", "--decoder", "sample", "--sample-top-k", "5"],
+    ["caption", "--decoder", "sample", "--seed", "3"],
+])
+def test_cli_decoder_flags_run(argv, runs, tmp_path, capsys):
+    """The flags a former slice refused: eval and metrics decode with the
+    beam (``--subject`` picks an ms2_nic run's encoder and is ignored by
+    any other family); caption samples, a seed fixing the words."""
+    if argv[0] == "caption":
+        rows = runs["p"]["store"].device_array()[:5].numpy()
+        np.save(tmp_path / "rows.npy", rows)
+        argv = [*argv, "--run", runs["p_path"], "--betas",
+                str(tmp_path / "rows.npy"), "--device", "cpu"]
+        assert cli.main(argv) == 0
+        first = capsys.readouterr().out.splitlines()
+        assert len(first) == 5
+        assert cli.main(argv) == 0
+        assert capsys.readouterr().out.splitlines() == first
+    else:
+        path = str(_smoke_yaml(tmp_path))
+        out = _cli([*argv, "--config", path, "--epochs", "1",
+                    "--smoke-keys", "12", "--device", "cpu"], capsys)
+        assert out["n_captions"] > 0

@@ -2,7 +2,9 @@
 version) against the JAX package's whole-decode kernel, which runs in Pallas
 interpret mode on the CPU, and against the JAX XLA greedy decoder: the same
 transplanted weights and numpy inputs give identical words and alphas within
-1e-5 (fp32; only the summation order differs)."""
+1e-5 (fp32; only the summation order differs), also for the JAX package's
+family cases (learned initial carry, frozen GloVe tables, learned-init
+GRU)."""
 
 import jax
 import numpy as np
@@ -19,7 +21,7 @@ from masters_thesis_tpu.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
 from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.ops import fused_decode
-from masters_thesis_tpu_torch.transplant import from_flax
+from masters_thesis_tpu_torch.transplant import from_flax, to_flax
 
 UNITS, T, START = 16, 6, 1
 KW = dict(units=UNITS, group_size=4, embedding_text=8, attn_units=8,
@@ -186,3 +188,67 @@ def test_tensors_off_cpu_and_cuda_are_refused():
             z(V), z(V, E), z(E), z(B, U), z(B, U))
     with pytest.raises(ValueError, match="CUDA device"):
         fused_decode.fused_greedy_decode(*args, max_length=2)
+
+
+# the JAX package's family cases (tests/test_fused_decode.py:88-163): the
+# learned initial carry and a frozen GloVe table (also over a padded vocab)
+# for K2, and the learned-init GRU in both zero-state modes for K3
+VARIANTS = {
+    "learned-init": dict(learned_init_state=True),
+    "glove-frozen": dict(glove=True),
+    "glove-frozen-padded-vocab": dict(glove=True, vocab=48, true_vocab=40),
+    "gru-learned-init-zero-state": dict(learned_init_state=True,
+                                        cell_type="gru",
+                                        gru_zero_state=True),
+    "gru-learned-init-carried": dict(learned_init_state=True,
+                                     cell_type="gru", gru_zero_state=False),
+}
+
+
+def _variant_pair(case, b=6, n_voxels=256, seed=4):
+    """Port model under ``spread_for_check`` and the flax model on the
+    same weights (``to_flax``); a frozen table goes to flax spread as the
+    port holds it."""
+    kw = dict(VARIANTS[case])
+    glove = kw.pop("glove", False)
+    kw = dict(KW, vocab_size=kw.pop("vocab", 40), **kw)
+    if kw.get("cell_type") == "gru":
+        kw.update(head_activation="linear", attn_inner_activation="linear")
+    layout = GroupLayout(synthetic_groups(n_voxels, 6, seed=seed), n_voxels)
+    gen = torch.Generator().manual_seed(seed)
+    if glove:
+        tv = kw.get("true_vocab") or kw["vocab_size"]
+        kw.update(pretrained_embedding=torch.randn(
+            tv, KW["embedding_text"], generator=gen).numpy(),
+            embedding_trainable=False)
+    tmodel = LcNIC(layout, generator=gen, **kw)
+    fused_decode.spread_for_check(tmodel, gen)
+    if glove:
+        kw["pretrained_embedding"] = tmodel.embedding[:tv].numpy()
+    variables = to_flax(tmodel.state_dict())
+    assert ("embedding" in variables["params"]) != glove
+    rows = np.random.default_rng(seed).standard_normal(
+        (b, n_voxels)).astype(np.float32)
+    return JLcNIC(layout=layout, **kw), variables, tmodel.eval(), rows
+
+
+@pytest.mark.parametrize("case", list(VARIANTS))
+def test_variants_match_jax_kernel_and_xla_greedy(case):
+    """K2's and K3's plain versions, through the model's own initial carry
+    and its frozen table, against the JAX whole-decode kernel in interpret
+    mode and the JAX XLA greedy decoder."""
+    jmodel, variables, tmodel, rows = _variant_pair(case)
+    words_k, alphas_k = j_fused(jmodel, UNITS, T)(variables, rows, START)
+    words_x, _, alphas_x = j_greedy(jmodel, UNITS, T)(variables, rows, START)
+    words, alphas = fused_decode.make_whole_fused_greedy_decoder(tmodel, T)(
+        torch.from_numpy(rows), START)
+    for want_w, want_a in ((words_k, alphas_k), (words_x, alphas_x)):
+        np.testing.assert_array_equal(words.numpy(), np.asarray(want_w))
+        np.testing.assert_allclose(alphas.numpy(), np.asarray(want_a),
+                                   rtol=1e-5, atol=1e-5)
+    assert len(np.unique(words.numpy())) > 3
+    if tmodel.learned_init_state:     # the learned carry, not zeros
+        h0, _ = tmodel.init_carry(tmodel.encode(torch.from_numpy(rows)))
+        assert h0.abs().min() > 0
+    if "true_vocab" in VARIANTS[case]:
+        assert int(words.max()) < 40

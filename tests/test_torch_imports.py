@@ -73,7 +73,9 @@ def test_port_imports_with_jax_flax_and_yaml_blocked(imported):
     for name in ("server", "models.encoders", "experiment", "cli",
                  "train.checkpoint", "train.callbacks",
                  "evalsuite.metric_suite", "evalsuite.guse_sim",
-                 "utils.tensorboard", "utils.summary"):
+                 "utils.tensorboard", "utils.summary", "decode.beam",
+                 "decode.sampling", "models.showtell", "models.multisubject",
+                 "data.captions"):
         assert f"masters_thesis_tpu_torch.{name}" in loaded
     for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
         assert blocked not in loaded

@@ -2,8 +2,11 @@
 the LSTM whole-decode kernel (K2) at a small shape and at flagship LcNIC
 width, through the greedy decoders, with other activations and a wide
 attention, and with the tile of each of its tile-kernel products forced at
-shapes that cross the tiles' edges; the GRU whole-decode kernel (K3) in the
-cases of the CPU tests and at full CnnRnn width; the store row gather (K1) at small and flagship
+shapes that cross the tiles' edges, and on the NIC variants (the learned
+initial carry, a frozen GloVe table, also over a padded vocab); the GRU
+whole-decode kernel (K3) in the cases of the CPU tests, with a learned
+initial carry and at full CnnRnn width; the beam and the sampler on CUDA
+tensors against the CPU; the store row gather (K1) at small and flagship
 widths and through three train steps; the teacher-forced sequence forward
 (K4) at odd and flagship widths, through the custom backward, and against
 K2 on K2's own words, and with every tile of its tile kernel forced at
@@ -335,6 +338,141 @@ def test_gru_padded_vocab_never_wins_on_the_card(cuda):
     words, _ = fused_decode.make_whole_fused_greedy_decoder(
         model.to(cuda).eval(), 6)(rows.to(cuda), 1)
     assert int(words.max()) < 33
+
+
+# ---- the NIC variants, and the beam and the sampler on the card ----
+
+# the JAX package's family cases for K2 (tests/test_fused_decode.py:88-163)
+NIC_VARIANTS = {
+    "learned-init": dict(learned_init_state=True),
+    "glove-frozen": dict(glove=True),
+    "glove-frozen-padded-vocab": dict(glove=True, vocab_size=48,
+                                      true_vocab=40),
+}
+
+
+def _variant_model(variant):
+    """A small LcNIC variant on the CPU under ``spread_for_check``, and
+    ``SMALL_ROWS`` rows; a frozen table is seeded before the spread. How
+    varied a small model's words are depends on its draw, which differs
+    between PyTorch releases: the first of ten seeds from ``SMALL_SEED``
+    whose plain greedy decode takes ``SMALL_MIN_DISTINCT`` words is used."""
+    cfg = dict(SHAPES["small"])
+    n_voxels, n_groups, _ = (cfg.pop(k) for k in
+                             ("n_voxels", "n_groups", "batch"))
+    kw = dict(NIC_VARIANTS[variant])
+    glove = kw.pop("glove", False)
+    cfg.update(kw)
+    layout = GroupLayout(synthetic_groups(n_voxels, n_groups, seed=0),
+                         n_voxels)
+    for seed in range(SMALL_SEED, SMALL_SEED + 10):
+        gen = torch.Generator().manual_seed(seed)
+        if glove:
+            true_vocab = cfg.get("true_vocab") or cfg["vocab_size"]
+            cfg.update(pretrained_embedding=torch.randn(
+                true_vocab, cfg["embedding_text"], generator=gen).numpy(),
+                embedding_trainable=False)
+        model = LcNIC(layout, generator=gen, **cfg).eval()
+        fused_decode.spread_for_check(model, gen)
+        rows = torch.randn(SMALL_ROWS, n_voxels, generator=gen)
+        words = fused_decode.make_whole_fused_greedy_decoder(
+            model, model.max_length)(rows, 1)[0]
+        if len(torch.unique(words)) >= SMALL_MIN_DISTINCT:
+            return model, rows
+    raise AssertionError(f"no seed gives {SMALL_MIN_DISTINCT} words")
+
+
+@pytest.mark.parametrize("variant", list(NIC_VARIANTS))
+def test_lstm_kernel_on_the_nic_variants(cuda, variant):
+    """K2 through the learned initial carry and a frozen GloVe table (a
+    buffer, not a parameter), also over a padded vocab, against its plain
+    version."""
+    model, rows = _variant_model(variant)
+    assert ("embedding" in dict(model.named_parameters())) == (
+        "glove" not in variant)
+    _check_decode(model.to(cuda), rows.to(cuda), SMALL_MIN_DISTINCT)
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+def test_gru_kernel_with_a_learned_initial_carry(cuda, zero_state):
+    """K3 from the learned carry; the seed as ``_variant_model`` picks it."""
+    for seed in range(SMALL_SEED, SMALL_SEED + 10):
+        gen = torch.Generator().manual_seed(seed)
+        model = CnnRnnNIC(embed_dim=64, units=16, vocab_size=40,
+                          max_length=6, n_patches=7, in_channels=24,
+                          gru_zero_state=zero_state, learned_init_state=True,
+                          generator=gen).eval()
+        fused_decode.spread_for_check(model, gen)
+        rows = torch.randn(SMALL_ROWS, 7, 24, generator=gen)
+        words = fused_decode.make_whole_fused_greedy_decoder(model, 6)(
+            rows, 1)[0]
+        if len(torch.unique(words)) >= SMALL_MIN_DISTINCT:
+            break
+    _check_decode(model.to(cuda), rows.to(cuda), SMALL_MIN_DISTINCT)
+
+
+@pytest.mark.parametrize("decoder", ["beam-1", "beam-3", "beam-5",
+                                     "sample"])
+def test_beam_and_sampler_on_the_card_match_the_cpu(cuda, decoder):
+    """The same decoder on CUDA tensors and on the CPU: the same words but
+    in rows whose deciding margin on the CPU is a near-tie (< 1e-3); rows
+    that differ stay a small minority. (A beam's margin, the smallest gap
+    at the selection's edge over every step, is often under 1e-3 among
+    W·V candidates, so many rows are excepted but few differ.) The two devices' generators draw different
+    streams, so the sampler is held at ``top_k=1``, where it is greedy
+    (near-ties from the greedy top-2 logit margins), and its draws at a
+    temperature are held to valid, varied ids."""
+    import copy
+
+    from masters_thesis_tpu_torch.decode.beam import make_beam_decoder
+    from masters_thesis_tpu_torch.decode.sampling import (
+        make_sampling_decoder,
+    )
+
+    cpu_model, rows = _variant_model("learned-init")
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    T = cpu_model.max_length
+    if decoder == "sample":
+        gens = (torch.Generator().manual_seed(3),
+                torch.Generator(device=cuda).manual_seed(3))
+        cpu_words = make_sampling_decoder(cpu_model, T, top_k=1)(
+            rows, 1, gens[0])
+        card_words = make_sampling_decoder(card_model, T, top_k=1)(
+            rows.to(cuda), 1, gens[1]).cpu()
+        with torch.inference_mode():
+            _, _, margins = fused_decode.fused_greedy_decode_reference(
+                *fused_decode.decode_inputs(cpu_model, rows, 1),
+                max_length=T, return_margins=True)
+        differs = (card_words != cpu_words).any(dim=1)
+        near_tie = margins.amin(dim=1) < 1e-3
+        assert not (differs & ~near_tie).any()
+        assert int(differs.sum()) <= len(rows) // 4
+        drawn = make_sampling_decoder(card_model, T, temperature=0.7,
+                                      top_k=5)(rows.to(cuda), 1, gens[1])
+        assert 0 <= int(drawn.min()) and int(drawn.max()) < 40
+        assert len(torch.unique(drawn)) >= SMALL_MIN_DISTINCT
+        return
+    width = int(decoder.split("-")[1])
+    # <end> is the commonest greedy word after the first step, so that
+    # beams finish early and freeze
+    greedy = fused_decode.make_whole_fused_greedy_decoder(cpu_model, T)(
+        rows, 1)[0][:, 1:]
+    end = int(torch.mode(greedy.flatten()).values)
+    got = make_beam_decoder(card_model, T, beam_width=width)(rows.to(cuda),
+                                                             1, end)
+    want = make_beam_decoder(cpu_model, T, beam_width=width,
+                             return_margins=True)(rows, 1, end)
+    differs = (got[0].cpu() != want[0]).any(dim=1)
+    near_tie = want[5] < 1e-3
+    assert not (differs & ~near_tie).any(), (differs, want[5])
+    assert int(differs.sum()) <= len(rows) // 4
+    same = ~differs
+    torch.testing.assert_close(got[1].cpu()[same], want[1][same],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[2].cpu()[same], want[2][same],
+                               rtol=1e-5, atol=1e-5)
+    assert len(torch.unique(want[0])) >= 4
+    assert (want[3][:, :, 1:] == end).any()
 
 
 # ---- K1: the store row gather ----

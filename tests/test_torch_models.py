@@ -153,15 +153,37 @@ def test_teacher_forced_forward_matches_flax():
     _close(alphas, alphas_ref)
 
 
-@pytest.mark.parametrize("kw,item", [
-    # the GRU cell is ported (tests/test_torch_cnn_rnn.py); its family's
-    # learned carry is not
-    (dict(cell_type="gru", learned_init_state=True), "M11"),
-    (dict(learned_init_state=True), "M11"),
-    (dict(pretrained_embedding=np.zeros((VOCAB, EMB), np.float32)), "M11"),
-])
-def test_unported_variants_name_their_roadmap_item(kw, item):
+@pytest.mark.parametrize("kw", [
+    dict(cell_type="gru", learned_init_state=True),
+    dict(learned_init_state=True),
+    dict(pretrained_embedding=np.full((VOCAB, EMB), 0.5, np.float32)),
+], ids=["gru-learned-init", "learned-init", "pretrained-embedding"])
+def test_variants_match_flax(kw):
+    """The variants a former slice refused (ROADMAP M11): the flax tree
+    of each loads into the port key for key, and the teacher-forced forward
+    and the initial carry agree (the family tests are
+    tests/test_torch_families.py)."""
     layout = GroupLayout(synthetic_groups(64, 4), 64)
-    with pytest.raises(NotImplementedError, match=item):
-        LcNIC(layout, units=UNITS, group_size=GSIZE, embedding_text=EMB,
-              attn_units=ATTN, vocab_size=VOCAB, **kw)
+    model_kw = dict(units=UNITS, group_size=GSIZE, embedding_text=EMB,
+                    attn_units=ATTN, vocab_size=VOCAB, max_length=T, **kw)
+    jmodel = JLcNIC(layout=layout, **model_kw)
+    rng = np.random.default_rng(0)
+    betas = rng.standard_normal((3, 64)).astype(np.float32)
+    tokens = rng.integers(0, VOCAB, (3, T)).astype(np.int32)
+    a0 = np.zeros((3, UNITS), np.float32)
+    variables = _randomise(jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), betas, tokens, a0, a0)), rng)
+    tmodel = LcNIC(layout, **model_kw).eval()
+    tmodel.load_state_dict(from_flax(variables))
+    logits_ref, alphas_ref = jmodel.apply(variables, betas, tokens, a0, a0)
+    feats = jmodel.apply(variables, betas, False, method="encode")
+    h_ref, c_ref = jmodel.apply(variables, feats, method="init_carry")
+    with torch.no_grad():
+        logits, alphas = tmodel(*(torch.from_numpy(a) for a in
+                                  (betas, tokens.astype(np.int64), a0, a0)))
+        h, c = tmodel.init_carry(tmodel.encode(torch.from_numpy(betas)))
+    for got, want in ((logits, logits_ref), (alphas, alphas_ref),
+                      (h, h_ref), (c, c_ref)):
+        _close(got, want)
+    assert ("hidden_init" in variables["params"]) == bool(
+        kw.get("learned_init_state"))

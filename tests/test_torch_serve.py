@@ -1,6 +1,7 @@
 """The port's Captioner against the JAX package's Captioner on the same
-weights and inputs, and the port's HTTP server (its copy of the JAX
-package's) driving the port's Captioner on the CPU."""
+weights and inputs (greedy and beam), and the port's HTTP server (its copy
+of the JAX package's) driving the port's Captioner on the CPU, with each
+decoder through ``?decoder=``."""
 
 import io
 import json
@@ -74,17 +75,28 @@ def test_caption_ids_match_jax_captioner(setup, n):
         assert port().caption(betas[:n]) == jcap.caption(betas[:n])
 
 
-def test_wrong_width_and_unported_decoders_raise(setup):
+def test_wrong_width_and_unknown_decoders_raise(setup):
     _, port, betas = setup
     cap = port()
     assert cap.input_width == N_VOXELS
     with pytest.raises(ValueError, match="input width"):
         cap.caption_ids(betas[:, :-1])
-    for decoder in ("beam", "sample"):
-        with pytest.raises(NotImplementedError, match="M9"):
-            cap.caption_ids(betas, decoder=decoder)
     with pytest.raises(ValueError, match="unknown decoder"):
         cap.caption_ids(betas, decoder="magic")
+
+
+@pytest.mark.parametrize("width", [1, 3])
+def test_beam_and_top_1_sampling_match_jax_captioner(setup, width):
+    """Beam words equal the JAX Captioner's on the same weights (the last
+    chunk padded); sampling from the top 1 gives the greedy words."""
+    jcap, port, betas = setup
+    jcap.beam_width = width
+    jcap._decoders.pop("beam", None)
+    cap = port(beam_width=width, sample_top_k=1)
+    np.testing.assert_array_equal(cap.caption_ids(betas, decoder="beam"),
+                                  jcap.caption_ids(betas, decoder="beam"))
+    np.testing.assert_array_equal(cap.caption_ids(betas, decoder="sample"),
+                                  jcap.caption_ids(betas))
 
 
 def _post(url, body, content_type):
@@ -117,6 +129,15 @@ def test_http_server_serves_the_port_captioner(setup):
         body = json.dumps({"betas": betas[3:].tolist()}).encode()
         st, out = _post(f"{base}/caption", body, "application/json")
         assert st == 200 and out["captions"] == expected[3:]
+
+        # ?decoder= reaches the Captioner: the beam's words, and a draw
+        st, out = _post(f"{base}/caption?decoder=beam", body,
+                        "application/json")
+        assert st == 200 and out["decoder"] == "beam"
+        assert out["captions"] == cap.caption(betas[3:], decoder="beam")
+        st, out = _post(f"{base}/caption?decoder=sample", body,
+                        "application/json")
+        assert st == 200 and len(out["captions"]) == len(betas) - 3
     finally:
         server.shutdown()
         server.batcher.close()
