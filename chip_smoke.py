@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives seven paths, each at the full
+``nvcc`` a source, in parallel), then drives eight paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -66,7 +66,31 @@ width of its model or at its probe's own sizes:
   epochs at 256 keys, each at its config's widths, then ``run_eval``
   greedy and beam-3; it fails unless each val loss fell, K1 ran on every
   train and val batch, K2 or K3 on every greedy test batch of a NIC, and
-  the step loop for the ShowTell family, and prints each run's wall time.
+  the step loop for the ShowTell family, and prints each run's wall time;
+- the input side (the ``ingest`` phase): writes a subject's NSD session
+  files at full width (2 of its 40 sessions of 750 trials, one ``.npy`` and
+  one ``.mgh``, 163,842 vertices a hemisphere; 1,200 of its 10,000 keys,
+  300 of them shown twice), a behavior CSV, captions, the split CSVs and a
+  2 x 180-label atlas whose visual parcels cover 62,756 vertices; runs
+  ``preprocess`` through the CLI (sessions, pack, statistics, vc mask,
+  normalize, a 512-component PCA fitted and applied on the card), printing
+  each stage's seconds; uploads the pack in blocks against a whole copy,
+  bit for bit; trains LcNIC (``configs/attempt_four.yaml``) and ThinkAndTell
+  (``configs/think_and_tell_pca.yaml``) one epoch each on the packs, each
+  failing unless its val loss fell from before training, K1 ran on every
+  train and val batch of the epoch and K2 on every greedy test batch of the
+  LcNIC; holds K1 against its plain version on each run's uploaded store and
+  each NIC's K2 or K3 against its plain version on 64 of the run's rows,
+  on a copy of the trained model spread by ``spread_for_check`` (launches
+  of these checks are not counted); holds ``PreTransformCaptioner`` on raw
+  rows to the run's captioner on the PCA pack's rows, by the greedy
+  decode's logits (and shows that other keys' rows fail that check); fits the PCA at ThinkAndTell's reference shape (27,000 x
+  62,756 -> 5,000, components orthonormal within 1e-4, timed) and at a
+  reduced shape on the card against the CPU (1e-4, up to sign); runs
+  ``features`` on 256 images per backbone at its published resolution
+  (each file against the CPU forward within 1e-4 of its largest value,
+  images/s), and trains ``cnn_rnn`` on the InceptionV3 pack and
+  ``img_nic`` on the VGG16 conv5 pack, K1, K2 and K3 counted as above.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -88,8 +112,9 @@ it lists each kernel with its launches on its path (K2 while serving LcNIC,
 K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
 loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run; K1
 and K2 also under ``launches_experiment``, their launches in the training
-product's phase, and K1, K2 and K3 under ``launches_families``, theirs in
-the families' runs), its
+product's phase, K1, K2 and K3 under ``launches_families``, theirs in
+the families' runs, and under ``launches_ingest``, theirs in the ingest
+phase's runs), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -105,6 +130,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import io
@@ -1904,6 +1930,578 @@ def families(device, tok, card: str) -> dict:
     return {"launches": launches, "errors": errs, **decoders}
 
 
+# the ingest phase: a subject's NSD session files at full width (2 of its
+# 40 sessions, 1,200 of its 10,000 keys) -> preprocess -> LcNIC and
+# ThinkAndTell trained and captioning; the ThinkAndTell PCA at its reference
+# shape; CNN features at the backbones' published resolutions -> packs ->
+# cnn_rnn and img_nic trained
+HEMI_VERTICES = N_VOXELS // 2
+INGEST_SESSIONS, INGEST_TRIALS = 2, 750
+INGEST_UNIQUE, INGEST_SHARED, INGEST_TEST = 1_000, 200, 100
+VISUAL_VERTICES = 62_756            # the reference's visual-cortex mask
+VISUAL_PARCELS = 30                 # labels 1..30 of each hemisphere
+ATLAS_LABELS = 180
+INGEST_PCA = 512
+INGEST_EPOCHS = 1
+PRE_TRANSFORM_ROWS = 64             # raw test rows through --pre serving
+PRE_LOGIT_RTOL = 1e-4               # of the largest |logit| of the decode
+PCA_REF = (27_000, VISUAL_VERTICES, 5_000)     # ThinkAndTell SVD/svd.py
+PCA_CHECK = (2_000, 256)            # card against CPU, one test matrix
+PCA_ATOL, ORTHO_ATOL = 1e-4, 1e-4
+FEATURE_IMAGES, FEATURE_CHECK, FEATURE_BATCH = 256, 8, 64
+FEATURE_TRAIN, FEATURE_SHARED, FEATURE_TEST = 200, 56, 28
+FEATURE_RTOL = 1e-4                 # of the largest |feature|
+# (backbone, published resolution, head of the features command)
+BACKBONES = (("vgg16", 224, "fc2"), ("resnet50", 224, "pooled"),
+             ("inception_v3", 299, "patches"),
+             ("efficientnet_b3", 300, "pooled"))
+
+
+def val_loss_at_start():
+    """A callback that runs the validation pass once before training, so
+    that a one-epoch run can show its val loss fall; ``.loss`` holds it, and
+    ``.k1`` K1's count just after it, where the epoch's batches start."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+    from masters_thesis_tpu_torch.train.loop import Callback
+
+    class ValLossAtStart(Callback):
+        loss = k1 = None
+
+        def on_train_begin(self, trainer) -> None:
+            self.loss = float(trainer._run_validation()["loss"])
+            self.k1 = gather_rows.launches
+
+    return ValLossAtStart()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The launches made inside are checks of a kernel against its plain
+    version, not the main path's: K1's, K2's and K3's counts are put back
+    on leaving as they were on entering."""
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    kernels = (gather_rows, fd.fused_greedy_decode,
+               fd.fused_greedy_decode_gru)
+    before = [k.launches for k in kernels]
+    try:
+        yield
+    finally:
+        for k, n in zip(kernels, before):
+            k.launches = n
+
+
+def check_ingest_kernels(label: str, bundle, device, card: str) -> dict:
+    """K1 against its plain version on the run's uploaded store; for a NIC,
+    its decode kernel (K2 or K3) against its plain version (and float64) on
+    BATCH of the store's rows, the run's test keys first (patch rows with
+    each column standardised over them), on a copy of the trained model whose weights
+    ``spread_for_check`` spreads, so that the greedy words vary. Returns
+    the errors by kernel."""
+    import copy
+
+    from masters_thesis_tpu_torch.models.nic import NIC
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+
+    store, model = bundle["store"], bundle["model"]
+    errs = {"K1": check_gather(store, card)["max_abs_err"]}
+    if not isinstance(model, NIC):
+        return errs
+    test = list(dict.fromkeys(int(p[0]) for p in bundle["pairs"]["test"]))
+    seen = set(test)
+    keys = (test + [int(k) for k in store.keys if int(k) not in seen])[:BATCH]
+    idx = torch.as_tensor(store.indices_for(keys), dtype=torch.long,
+                          device=device)
+    rows = store.device_array().index_select(0, idx)
+    if len(store.row_shape) > 1:
+        # a random-init backbone's features are ~1e-4 and alike from image
+        # to image, and any decode of them settles on a few words: each
+        # column is standardised over the rows, which keeps the path's
+        # shapes and lets the images' and the patches' differences reach
+        # the words (the betas are N(0, 1) already)
+        rows = (rows - rows.mean(0)) / rows.std(0).clamp_min(1e-12)
+    spread = copy.deepcopy(model)
+    fd.spread_for_check(spread, torch.Generator().manual_seed(SEED))
+    name = "K3" if model.cell_type == "gru" else "K2"
+    errs[name] = check_kernel(
+        spread.eval(), rows, card, f"{name} on the ingest {label} run's "
+        f"store rows ({len(test)} test keys first), weights spread",
+        timed=False)["max_abs_err"]
+    del spread, rows
+    return errs
+
+
+def write_split(nsd: Path, unique, shared, test) -> None:
+    nsd.mkdir(parents=True, exist_ok=True)
+    (nsd / "subj01_conditions.csv").write_text(
+        "nsd_key,is_shared\n" + "".join(f"{k},0\n" for k in unique)
+        + "".join(f"{k},1\n" for k in shared))
+    (nsd / "test_conditions.csv").write_text(
+        "nsd_key\n" + "".join(f"{k}\n" for k in test))
+
+
+def write_ingest_fixture(root: Path, device) -> dict:
+    """A subject's session files in the real formats: session 1 as .npy and
+    session 2 as .mgh, each hemisphere (163,842, 750) fp32 drawn on the card;
+    every key once and 300 keys twice; the behavior CSV, the captions JSON,
+    the split CSVs and a 2 x 180-label atlas whose labels 1..30 cover
+    62,756 vertices."""
+    from masters_thesis_tpu_torch.data.preprocess.mgh import write_mgh
+    from masters_thesis_tpu_torch.data.synthetic import synthetic_captions
+
+    rng = np.random.default_rng(SEED)
+    sessions, nsd = root / "sessions", root / "nsd"
+    sessions.mkdir()
+    unique = list(range(1, INGEST_UNIQUE + 1))
+    shared = list(range(INGEST_UNIQUE + 1,
+                        INGEST_UNIQUE + INGEST_SHARED + 1))
+    keys = unique + shared
+    n_trials = INGEST_SESSIONS * INGEST_TRIALS
+    schedule = np.concatenate([keys, rng.choice(keys, n_trials - len(keys),
+                                                replace=False)])
+    rng.shuffle(schedule)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lines = ["SUBJECT,SESSION,RUN,TRIAL,73KID"]
+    for s in range(1, INGEST_SESSIONS + 1):
+        for hemi in ("lh", "rh"):
+            arr = torch.randn(HEMI_VERTICES, INGEST_TRIALS, generator=gen,
+                              device=device).cpu().numpy()
+            path = sessions / f"{hemi}.betas_session{s:02d}"
+            if s % 2:
+                np.save(f"{path}.npy", arr)
+            else:
+                write_mgh(f"{path}.mgh", arr)
+            del arr
+        for t in range(INGEST_TRIALS):
+            lines.append(f"1,{s},{1 + t // 75},{1 + t % 75},"
+                         f"{schedule[(s - 1) * INGEST_TRIALS + t]}")
+    (root / "behavior.csv").write_text("\n".join(lines) + "\n")
+    (root / "captions.json").write_text(json.dumps(
+        {str(k): v for k, v in synthetic_captions(keys, seed=SEED).items()}))
+    write_split(nsd, unique, shared, shared[:INGEST_TEST])
+    per_hemi = VISUAL_VERTICES // 2
+    for hemi in ("lh", "rh"):
+        labels = np.empty(HEMI_VERTICES, np.int32)
+        order = rng.permutation(HEMI_VERTICES)
+        labels[order[:per_hemi]] = 1 + np.arange(per_hemi) % VISUAL_PARCELS
+        rest = HEMI_VERTICES - per_hemi
+        labels[order[per_hemi:]] = (VISUAL_PARCELS + 1 + np.arange(rest)
+                                    % (ATLAS_LABELS - VISUAL_PARCELS + 1))
+        labels[labels > ATLAS_LABELS] = 0      # unlabelled vertices
+        np.save(nsd / f"glasser_{hemi}.npy", labels)
+    return {"sessions": sessions, "nsd": nsd, "keys": keys,
+            "test": shared[:INGEST_TEST], "repeats": n_trials - len(keys)}
+
+
+def ingest_config(name: str, log: str, **dataset):
+    import dataclasses
+
+    from masters_thesis_tpu_torch.config import Config
+
+    cfg = Config.load(CONFIG_DIR / name)
+    cfg = dataclasses.replace(cfg, log=log, epochs=INGEST_EPOCHS)
+    for key, value in dataset.items():
+        setattr(cfg.dataset, key, str(value))
+    return cfg
+
+
+def ingest_run(label: str, cfg, device, card: str) -> dict:
+    """run_training of ``cfg`` on the card, then run_eval greedy; fails
+    unless K1 ran on every train and val batch of the epoch, the greedy
+    decode kernel (or ShowTell's step loop) on every test batch, and the val
+    loss fell from before training; then ``check_ingest_kernels``, its
+    launches not counted. Returns the bundle, run path, eval output and the
+    checks' errors."""
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.models.nic import NIC
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    start = val_loss_at_start()
+    t0 = time.perf_counter()
+    run_path, logs, bundle = experiment.run_training(
+        cfg, device=device, extra_callbacks=(start,))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1 = gather_rows.launches - start.k1
+    model, pairs = bundle["model"], bundle["pairs"]
+    batches = INGEST_EPOCHS * family_batches(len(pairs["train"]),
+                                             len(pairs["val"]), cfg, False)
+    nic = isinstance(model, NIC)
+    kernel = fd.decode_kernel(model)[0] if nic else None
+    k23 = kernel.launches if nic else 0
+    t0 = time.perf_counter()
+    out = experiment.run_eval(bundle, run_path)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    k23 = kernel.launches - k23 if nic else 0
+    n = len(out["texts"])
+    test_batches = -(-n // min(cfg.batch_size, n))
+    store = bundle["store"]
+    print(f"ingest {label} ({cfg.model}, store {len(store)} x "
+          f"{store.row_shape}): run_training {train_s:.2f} s, "
+          f"{logs['steps_per_sec']:.2f} steps/s, val loss {start.loss:.5f} "
+          f"-> {logs['val_loss']:.5f}; K1 {k1} after the val pass before "
+          f"training (the epoch's train and val batches {batches}); run_eval greedy {eval_s:.2f} s, "
+          + (f"{kernel.__name__} {k23} for {test_batches} test batches"
+             if nic else "step loop")
+          + f"; {n} test captions, {len(set(out['texts']))} distinct, e.g. "
+          f"{out['texts'][0]!r} [{card}]")
+    if not logs["val_loss"] < start.loss:
+        raise RuntimeError(f"ingest {label}: the val loss did not fall: "
+                           f"{start.loss} -> {logs['val_loss']}")
+    if k1 < batches:
+        raise RuntimeError(f"ingest {label}: K1 launched {k1} times for "
+                           f"{batches} train and val batches")
+    if nic and k23 < test_batches:
+        raise RuntimeError(f"ingest {label}: {kernel.__name__} launched "
+                           f"{k23} times for {test_batches} test batches")
+    with uncounted():
+        errs = check_ingest_kernels(label, bundle, device, card)
+    return {"bundle": bundle, "run_path": run_path, "out": out,
+            "errors": errs}
+
+
+def check_upload(pack_dir: Path, device, card: str) -> None:
+    """The pack's rows to the card in blocks through the pinned staging
+    buffer, against a whole copy bit for bit; both rates."""
+    from masters_thesis_tpu_torch.data.pack import open_pack
+    from masters_thesis_tpu_torch.data.store import upload_rows
+
+    mm = open_pack(str(pack_dir)).data
+    gb = mm.nbytes / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = upload_rows(mm, device)
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = torch.from_numpy(np.array(mm)).to(device)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    same = torch.equal(got, whole.reshape(got.shape))
+    print(f"pack upload: {mm.shape[0]} x {mm.shape[1]} fp32, {gb:.3f} GB in "
+          f"{block_s:.3f} s by blocks ({gb / block_s:.2f} GB/s; a whole "
+          f"host copy and .to: {whole_s:.3f} s, {gb / whole_s:.2f} GB/s); "
+          f"bit for bit: {same} [{card}]")
+    if not same:
+        raise RuntimeError("the block upload differs from a whole copy")
+    del got, whole
+
+
+def check_pre_transform(pre: Path, run_path: str, device, card: str) -> None:
+    """``PreTransformCaptioner`` on raw test rows gives the words the run's
+    own captioner gives on the PCA pack's rows of the same keys; and the
+    host chain's rows hold the greedy decode to the pack rows' decode by its
+    logits, which vary where the words of a one-epoch ThinkAndTell do not:
+    within PRE_LOGIT_RTOL of the largest, up to a row's first word apart at
+    a near-tie. The pack's rows of other keys must fail that check on every
+    row, or the check could not tell the rows apart."""
+    from masters_thesis_tpu_torch.data.pack import open_pack
+    from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
+    from masters_thesis_tpu_torch.experiment import apply_preprocess_chain
+    from masters_thesis_tpu_torch.ops.fused_decode import (
+        compare_with_reference,
+    )
+    from masters_thesis_tpu_torch.serve import (
+        Captioner,
+        PreTransformCaptioner,
+    )
+
+    raw, pca = (open_pack(str(pre / name))
+                for name in ("betas_pack", "betas_pack_pca"))
+    keys = pca.keys[-PRE_TRANSFORM_ROWS:]
+    raw_rows = raw.gather_host(raw.indices_for(keys))
+    pca_rows = pca.gather_host(pca.indices_for(keys))
+    inner = Captioner.from_run_dir(run_path, device=device)
+    outer = PreTransformCaptioner(inner, str(pre))
+    t0 = time.perf_counter()
+    got = outer.caption(raw_rows)
+    wrapped_s = time.perf_counter() - t0
+    want = inner.caption(pca_rows)
+    replay = apply_preprocess_chain(str(pre), raw_rows)
+    err = float(np.abs(replay - pca_rows).max() / np.abs(pca_rows).max())
+    apart = sum(a != b for a, b in zip(got, want))
+
+    greedy = make_greedy_decoder(inner.model, inner.max_length)
+    start = inner.tokenizer.start_id
+
+    def decode(rows):
+        words, logits, _ = greedy(torch.from_numpy(
+            np.ascontiguousarray(rows, np.float32)).to(device), start)
+        return words, logits
+
+    ref_words, ref_logits = decode(pca_rows)
+    top2 = ref_logits.topk(2, dim=-1).values
+    margins = top2[..., 0] - top2[..., 1]
+    atol = PRE_LOGIT_RTOL * float(ref_logits.abs().max())
+    held, control = (compare_with_reference(
+        *decode(rows), ref_words, ref_logits, margins, alpha_atol=atol,
+        tie_margin=TIE_MARGIN) for rows in (replay, np.roll(pca_rows, 1, 0)))
+    print(f"PreTransformCaptioner: {len(got)} raw {raw_rows.shape[1]}-wide "
+          f"rows -> {pca_rows.shape[1]} in {wrapped_s:.2f} s; the host "
+          f"chain's rows against the card's PCA pack: {err:.2e} of max; "
+          f"{apart} rows' words apart from the pack rows' words, "
+          f"{len(set(got))} distinct; the greedy decode's logits on the "
+          f"chain's rows {held['max_abs_err']:.3e} from the pack rows' "
+          f"(limit {atol:.3e}, {PRE_LOGIT_RTOL} of the largest), near-tie "
+          f"rows {held['near_tie_rows']}; on other keys' pack rows "
+          f"{control['max_abs_err']:.3e}, {len(control['bad_rows'])} of "
+          f"{len(pca_rows)} rows fail [{card}]")
+    if err > PCA_ATOL or apart or held["bad_rows"]:
+        raise RuntimeError(f"--pre serving: rows {err:.2e} apart, "
+                           f"{apart} captions differ, logits apart on rows "
+                           f"{held['bad_rows']}")
+    if len(control["bad_rows"]) < len(pca_rows):
+        raise RuntimeError(f"--pre serving: the logits check passes "
+                           f"{len(pca_rows) - len(control['bad_rows'])} rows "
+                           f"of other keys")
+
+
+def check_pca(device, card: str) -> dict:
+    """fit_pca at ThinkAndTell's reference shape on rows made on the card
+    (components orthonormal), timed; and at a reduced shape of separated
+    spectrum, the card's fit against the port's CPU fit (one numpy test
+    matrix), components up to sign within PCA_ATOL."""
+    from masters_thesis_tpu_torch.data.preprocess.pca import fit_pca
+
+    n, v, k = PCA_REF
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(n, v, generator=gen, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = fit_pca(x, k, device=device)          # centres x in place
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del x
+    comps = torch.from_numpy(model.components).to(device)
+    ortho = float((comps @ comps.T - torch.eye(k, device=device)).abs()
+                  .max())
+    del comps
+    release()
+    print(f"PCA at the reference shape: {n} x {v} -> {k} (oversample 10, 4 "
+          f"power iterations) in {fit_s:.2f} s, peak {peak:.2f} GB; "
+          f"|C C^T - I| max {ortho:.2e} [{card}]")
+    # rank k2 with singular values 100 - 0.25 i, well apart and above the
+    # noise's ~0.25: each component is determined to fp32 rounding over
+    # its gap (on random rows the spectrum is clustered, and the components
+    # are not determined to 1e-4 on any device)
+    n2, k2 = PCA_CHECK
+    u = torch.linalg.qr(torch.randn(n2, k2, generator=gen, device=device))[0]
+    w = torch.linalg.qr(torch.randn(v, k2, generator=gen, device=device))[0]
+    spec = 100.0 - 0.25 * torch.arange(k2, device=device)
+    x2 = (u * spec) @ w.T + 1e-3 * torch.randn(n2, v, generator=gen,
+                                               device=device)
+    del u, w
+    want = fit_pca(x2.cpu(), k2, device="cpu")
+    got = fit_pca(x2, k2, device=device)
+    del x2
+    sign = np.sign((got.components * want.components).sum(axis=1))
+    err = float(np.abs(got.components * sign[:, None]
+                       - want.components).max())
+    ev = float(np.abs(got.explained_variance / want.explained_variance
+                      - 1).max())
+    print(f"PCA {n2} x {v} -> {k2}, card against CPU: components up to "
+          f"sign {err:.2e}, explained variance {ev:.2e} relative [{card}]")
+    if ortho > ORTHO_ATOL or err > PCA_ATOL or ev > PCA_ATOL:
+        raise RuntimeError(f"PCA: orthonormality {ortho:.2e}, components "
+                           f"{err:.2e}, variance {ev:.2e}")
+    return {"fit_s": fit_s, "ortho": ortho, "err": err}
+
+
+def check_features(root: Path, device, card: str) -> dict:
+    """``features`` on FEATURE_IMAGES random images per backbone at its
+    published resolution: the file's first FEATURE_CHECK rows against the
+    same model's CPU forward, images/s of the card's forward and the
+    seconds of one build of the model (its seeded initialisation on the
+    host's CPU, as the command builds it). Returns the images files by
+    backbone."""
+    import argparse as _argparse
+
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.models.backbones import extract_features
+
+    rng = np.random.default_rng(SEED)
+    files = {}
+    for name, res, head in BACKBONES:
+        images = rng.integers(0, 256, (FEATURE_IMAGES, res, res, 3),
+                              dtype=np.uint8)
+        files[name] = root / f"images_{name}.npy"
+        np.save(files[name], images)
+        out = root / f"features_{name}.npy"
+        t0 = time.perf_counter()
+        with_stdout(cli.main, ["features", "--backbone", name, "--images",
+                               str(files[name]), "--out", str(out),
+                               "--batch-size", str(FEATURE_BATCH),
+                               "--device", str(device)])
+        torch.cuda.synchronize()
+        command_s = time.perf_counter() - t0
+        feats = np.load(out)
+        args = _argparse.Namespace(backbone=name, head=head)
+        t0 = time.perf_counter()
+        model, _, prep = cli._backbone_for(
+            args, (res, res), torch.Generator().manual_seed(0))
+        build_s = time.perf_counter() - t0
+        x = prep(images)
+        with torch.no_grad():
+            want = model.eval()(torch.from_numpy(
+                np.ascontiguousarray(x[:FEATURE_CHECK])))[head].numpy()
+        err = float(np.abs(feats[:FEATURE_CHECK] - want).max()
+                    / np.abs(want).max())
+        model = model.to(device)
+        extract_features(model, x[:FEATURE_BATCH], FEATURE_BATCH, head)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract_features(model, x, FEATURE_BATCH, head)
+        torch.cuda.synchronize()
+        rate = FEATURE_IMAGES / (time.perf_counter() - t0)
+        print(f"features {name} ({head} {feats.shape[1:]}, {res}x{res}): "
+              f"{rate:.1f} images/s on the card (batch {FEATURE_BATCH}, "
+              f"host preprocessed, copy and fetch included); the command "
+              f"{command_s:.2f} s, of which a build of the model on the "
+              f"host's CPU takes {build_s:.2f} s; rows against the CPU forward "
+              f"{err:.2e} of max [{card}]")
+        if not np.isfinite(feats).all() or err > FEATURE_RTOL:
+            raise RuntimeError(f"features {name}: {err:.2e} of max apart "
+                               f"from the CPU forward")
+        del model, feats
+        release()
+    return files
+
+
+def with_stdout(main, argv) -> dict:
+    """Run a CLI ``main(argv)``, return its last-line JSON."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    if code != 0:
+        raise RuntimeError(f"{argv[0]} exited {code}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def ingest(device, card: str) -> dict:
+    """The ingest phase: NSD session files written at full width ->
+    ``preprocess`` (sessions, pack, stats, vc mask, normalize, PCA on the
+    card) -> the pack uploaded -> LcNIC (attempt_four.yaml) and
+    ThinkAndTell (think_and_tell_pca.yaml) trained and captioning, the
+    latter also through ``PreTransformCaptioner`` on raw rows; the PCA at
+    its reference shape; ``features`` with every backbone, and the
+    InceptionV3 and VGG16 conv5 packs training cnn_rnn and img_nic. K1's,
+    K2's and K3's counts are set to 0 before the runs and read after; each
+    run's checks of its kernels against their plain versions
+    (``check_ingest_kernels``) take their own launches back out."""
+    import shutil
+
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtt_ingest_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        fx = write_ingest_fixture(root, device)
+        print(f"ingest fixture: {INGEST_SESSIONS} sessions x "
+              f"{INGEST_TRIALS} trials x {2 * HEMI_VERTICES} vertices (.npy "
+              f"and .mgh), {len(fx['keys'])} keys ({fx['repeats']} shown "
+              f"twice), written in {time.perf_counter() - t0:.2f} s [{card}]")
+        pre = root / "pre"
+        yaml = root / "pre.yaml"
+        ingest_config("attempt_four.yaml", str(root / "logs"),
+                      nsd_dir=fx["nsd"]).save(yaml)
+        report = with_stdout(cli.main, [
+            "preprocess", "--config", str(yaml), "--out", str(pre),
+            "--from-sessions", str(fx["sessions"]), "--behavior",
+            str(root / "behavior.csv"), "--captions-json",
+            str(root / "captions.json"), "--n-sessions",
+            str(INGEST_SESSIONS), "--vc-parcels",
+            ",".join(str(i) for i in range(1, VISUAL_PARCELS + 1)),
+            "--normalize", "--pca", str(INGEST_PCA), "--device",
+            str(device)])
+        print("preprocess stages, s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in report["seconds"].items())
+            + f"; {report['ingest']['trials']} trials -> "
+            f"{report['pack']['n_rows']} rows, vc {report['vc']['n_vertices']}"
+            f" vertices, PCA {report['pca']['components']} fitted on "
+            f"{report['pca']['fit_on']} [{card}]")
+        if (report["vc"]["n_vertices"] != VISUAL_VERTICES
+                or report["pack"]["n_rows"] != len(fx["keys"])):
+            raise RuntimeError(f"preprocess report {report}")
+        # what training reads stays; the sessions and trial files go
+        shutil.rmtree(fx["sessions"])
+        shutil.rmtree(pre / "ingest" / "subj_1" / "betas")
+        check_upload(pre / "betas_pack", device, card)
+        captions = pre / "ingest" / "subj_1" / "captions"
+        kernels = (gather_rows, fd.fused_greedy_decode,
+                   fd.fused_greedy_decode_gru)
+        errs = {"K1": [], "K2": [], "K3": []}
+
+        def run(label, cfg):
+            out = ingest_run(label, cfg, device, card)
+            for name, err in out.pop("errors").items():
+                errs[name].append(err)
+            return out["run_path"]
+
+        for k in kernels:
+            k.launches = 0
+        run("LcNIC", ingest_config(
+            "attempt_four.yaml", str(root / "logs"),
+            betas_path=pre / "betas_pack", captions_path=captions,
+            nsd_dir=fx["nsd"]))
+        release()
+        run_path = run("ThinkAndTell", ingest_config(
+            "think_and_tell_pca.yaml", str(root / "logs"),
+            betas_path=pre / "betas_pack_pca", captions_path=captions,
+            nsd_dir=fx["nsd"]))
+        release()
+        check_pre_transform(pre, run_path, device, card)
+        counts = {k.__name__: k.launches for k in kernels}
+        release()
+        pca = check_pca(device, card)
+        release()
+        files = check_features(root, device, card)
+        fkeys = np.arange(1, FEATURE_IMAGES + 1, dtype=np.int64)
+        np.save(root / "feature_keys.npy", fkeys)
+        img_nsd = root / "img_nsd"
+        shared = fkeys[FEATURE_TRAIN:].tolist()
+        write_split(img_nsd, fkeys[:FEATURE_TRAIN].tolist(), shared,
+                    shared[:FEATURE_TEST])
+        for hemi in ("lh", "rh"):       # build_data reads the atlas always
+            shutil.copy(fx["nsd"] / f"glasser_{hemi}.npy", img_nsd)
+        for k in kernels:
+            k.launches = 0
+        for label, backbone, head, config, model in (
+                ("cnn_rnn on InceptionV3 patches", "inception_v3", "patches",
+                 "cnn_rnn.yaml", "cnn_rnn"),
+                ("img_nic on VGG16 conv5", "vgg16", "conv5",
+                 "flagship_synth.yaml", "img_nic")):
+            pack = root / f"pack_{backbone}"
+            out = with_stdout(cli.main, [
+                "features", "--backbone", backbone, "--head", head,
+                "--images", str(files[backbone]), "--keys",
+                str(root / "feature_keys.npy"), "--pack", "--out",
+                str(pack), "--batch-size", str(FEATURE_BATCH), "--device",
+                str(device)])
+            print(f"features --pack {backbone} {head}: {out['pack']}")
+            cfg = ingest_config(config, str(root / "logs"), betas_path=pack,
+                                captions_path=captions, nsd_dir=img_nsd)
+            import dataclasses
+
+            run(label, dataclasses.replace(cfg, model=model))
+            release()
+        for name, n in zip(counts, (k.launches for k in kernels)):
+            counts[name] += n
+    print(f"ingest: the phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}; the checks' largest errors "
+          f"{ {k: max(v) for k, v in errs.items()} } [{card}]")
+    return {"launches": counts, "errors": errs, "pca_fit_s": pca["fit_s"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1991,24 +2589,33 @@ def main(argv=None) -> int:
     release()
     fam = families(device, tok, card)
     release()
-    k2["max_abs_err"] = max([k2["max_abs_err"], *fam["errors"]["K2"]])
-    k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"]])
+    ingested = ingest(device, card)
+    ing = ingested["launches"]
+    release()
+    k1["max_abs_err"] = max([k1["max_abs_err"], *ingested["errors"]["K1"]])
+    k2["max_abs_err"] = max([k2["max_abs_err"], *fam["errors"]["K2"],
+                             *ingested["errors"]["K2"]])
+    k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"],
+                             *ingested["errors"]["K3"]])
     counts = fam["launches"]
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
         "launches": launches, "launches_experiment": product["K2"],
-        "launches_families": counts["fused_greedy_decode"], **k2}, {
+        "launches_families": counts["fused_greedy_decode"],
+        "launches_ingest": ing["fused_greedy_decode"], **k2}, {
         "name": "fused_greedy_decode_gru", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276",
-        "launches_families": counts["fused_greedy_decode_gru"], **k3}, {
+        "launches_families": counts["fused_greedy_decode_gru"],
+        "launches_ingest": ing["fused_greedy_decode_gru"], **k3}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
         "replaces": "masters_thesis_tpu/ops/gather.py:49",
         "launches_experiment": product["K1"],
-        "launches_families": counts["gather_rows"], **k1}, {
+        "launches_families": counts["gather_rows"],
+        "launches_ingest": ing["gather_rows"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},

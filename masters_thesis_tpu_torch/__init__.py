@@ -5,7 +5,8 @@ The JAX package beside it is the reference. This package mirrors its file
 layout and names, imports ``torch`` and never ``jax``, and imports nothing of
 the JAX package: the framework-free modules it needs (``ops.group_layout``,
 ``data.tokenizer``, ``data.pairs``, ``data.splits``, ``data.pipeline``,
-``data.synthetic``, ``data.captions``, ``evalsuite``, ``utils.logging``,
+``data.synthetic``, ``data.captions``, ``data.pack``, ``data.nsd_images``,
+``data.preprocess`` but its PCA, ``evalsuite``, ``utils.logging``,
 ``utils.tensorboard``, ``serve.padded_chunk_ids`` and ``server``) are its own
 copies, held against their originals by the tests.
 Every Pallas kernel on a ported path becomes a hand-written Hopper kernel
@@ -28,9 +29,14 @@ reader), ``experiment`` (``run_training`` with the callbacks of
 masters_thesis_tpu_torch train|eval|metrics|caption``), for every model
 family of the JAX package (``train.state.model_for``: the NIC variants,
 the other encoders, ShowTell, GuseNIC, Ms2NIC), with beam search
-(``decode.beam``) and sampling (``decode.sampling``). Entry points run
-on the card (``cuda``) unless the caller passes ``device="cpu"`` (the
-CLI: ``--device cpu``).
+(``decode.beam``) and sampling (``decode.sampling``); and the input side:
+real NSD data in ``experiment.build_data``, ``experiment.run_preprocess``
+(session files -> pack -> statistics -> vc mask, normalize and a PCA
+fitted and applied on the card), the transform chain behind
+``caption/serve --pre``, and the CNN backbones (``models.backbones``,
+``resnet``, ``inception``, ``efficientnet``) behind ``features``. Entry
+points run on the card (``cuda``) unless the caller passes
+``device="cpu"`` (the CLI: ``--device cpu``).
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,30 @@
 """Command-line interface of the port: ``python -m masters_thesis_tpu_torch``.
 
-The JAX package's ``mtt`` commands of the training product, with its flags
-and its last-line JSON:
+The JAX package's ``mtt`` commands of the training product and of the
+input side, with their flags and their last-line JSON:
 
   python -m masters_thesis_tpu_torch train   --config c.yaml   (main.py)
   python -m masters_thesis_tpu_torch eval    --config c.yaml   (eval.py)
   python -m masters_thesis_tpu_torch metrics --config c.yaml   (metric_suit.py)
   python -m masters_thesis_tpu_torch caption --run DIR --betas x.npy
-      [--decoder greedy|beam|sample] [--subject a|b]
+      [--decoder greedy|beam|sample] [--subject a|b] [--pre PREDIR]
+  python -m masters_thesis_tpu_torch serve   --run DIR [--pre PREDIR]
+      [--decoder ...] [--max-batch N] [--max-wait-ms T] [--host H --port P]
+  python -m masters_thesis_tpu_torch preprocess --config c.yaml --out DIR
+      [--from-sessions DIR --behavior B.csv --captions-json C.json]
+      [--vc-parcels 1,2 --normalize --pca K]   (nsd_get_data, SVD/svd.py)
+  python -m masters_thesis_tpu_torch transform --pre DIR --betas x.npy
+      --out y.npy
+  python -m masters_thesis_tpu_torch features --backbone vgg16 --images
+      imgs.npy --out f.npy [--keys k.npy --pack] [--weights w.npz]
+      (CNN/feature_extractor*.py)
+  python -m masters_thesis_tpu_torch stimuli --hdf5 nsd_stimuli.hdf5
+      --out-dir DIR [--format png|npy]
 
-Each runs on the card unless it is given ``--device cpu``. A flag of the
-JAX CLI that the port does not honour yet exits non-zero with a message
-that names the ROADMAP item that ports it.
+Each runs on the card unless it is given ``--device cpu`` (``transform``
+and ``stimuli`` run on the host). A flag of the JAX CLI that the port does
+not honour yet exits non-zero with a message that names the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -28,9 +41,11 @@ _REFUSED = {
                "of a multi-process mesh) is ported with parallel/ (ROADMAP "
                "M13)")),
     "caption": (("shard", 0, "--shard (a data-parallel serving mesh) is "
-                 "ported with parallel/ (ROADMAP M13)"),
-                ("pre", None, "--pre (a preprocess run's transform chain) is "
-                 "ported with data/preprocess (ROADMAP M19)")),
+                 "ported with parallel/ (ROADMAP M13)"),),
+    "serve": (("export_path", None, "--export (serving an exported "
+               "artifact) is ported with export.py (ROADMAP M14)"),
+              ("shard", 0, "--shard (a data-parallel serving mesh) is "
+               "ported with parallel/ (ROADMAP M13)")),
 }
 
 
@@ -69,9 +84,42 @@ def _parser() -> argparse.ArgumentParser:
         _add_common(e)
         e.add_argument("--decoder", choices=["greedy", "beam"],
                        default="greedy")
-        e.add_argument("--beam-width", type=int, default=5,
-                       help="not ported: beam search")
+        e.add_argument("--beam-width", type=int, default=5)
         e.add_argument("--subject", choices=["a", "b"], default="a")
+
+    pp = sub.add_parser("preprocess",
+                        help="pack betas, stats, vc/normalize/PCA views, "
+                        "tokenizer")
+    pp.add_argument("--config", required=True)
+    pp.add_argument("--out", required=True)
+    pp.add_argument("--pca", type=int, default=0,
+                    help="PCA components (fitted and applied on --device)")
+    pp.add_argument("--from-sessions", default=None, metavar="DIR",
+                    help="ingest lh/rh.betas_session{NN}.{npy,mgh} session "
+                    "files first (my_get_betas stage, nsd_get_data.py:174-281)")
+    pp.add_argument("--behavior", default=None,
+                    help="behavior CSV/TSV (or dir of behav_session{NN}.csv) "
+                    "with SUBJECT,SESSION,RUN,TRIAL,73KID columns")
+    pp.add_argument("--captions-json", default=None,
+                    help="JSON of {73KID: [caption, ...]}")
+    pp.add_argument("--n-sessions", type=int, default=40)
+    pp.add_argument("--vc-parcels", default=None,
+                    help="visual-cortex parcel labels (comma list, or the "
+                    "reference's VISUAL_MASK CSV) -> betas_pack_vc/ (needs "
+                    "dataset.nsd_dir atlases)")
+    pp.add_argument("--normalize", action="store_true",
+                    help="per-voxel (x-mean)/std over the current view -> "
+                    "betas_pack_norm/; chains after --vc-parcels and before "
+                    "--pca")
+    _add_device(pp)
+
+    tf = sub.add_parser("transform",
+                        help="replay a preprocess run's transform chain "
+                        "(vc mask -> normalize -> pca) on a betas .npy")
+    tf.add_argument("--pre", required=True,
+                    help="a `preprocess` output directory")
+    tf.add_argument("--betas", required=True, help="(N, V) .npy to transform")
+    tf.add_argument("--out", required=True, help="output .npy")
 
     cp = sub.add_parser("caption",
                         help="caption betas with a trained run directory")
@@ -91,9 +139,248 @@ def _parser() -> argparse.ArgumentParser:
                     "of stdout")
     cp.add_argument("--subject", choices=["a", "b"], default="a")
     cp.add_argument("--shard", type=int, default=0)
-    cp.add_argument("--pre", default=None)
+    cp.add_argument("--pre", default=None,
+                    help="a `preprocess` output dir: replay its transform "
+                    "chain on the raw betas before decoding")
     _add_device(cp)
+
+    sv = sub.add_parser("serve",
+                        help="HTTP captioning service with dynamic "
+                        "micro-batching: POST /caption (betas .npy or JSON) "
+                        "-> captions")
+    sv.add_argument("--run", default=None, help="training run directory")
+    sv.add_argument("--export", default=None, dest="export_path",
+                    help="not ported: serve an exported artifact")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8000,
+                    help="0 picks a free port (printed on startup)")
+    sv.add_argument("--decoder", choices=["greedy", "beam", "sample"],
+                    default="greedy", help="default decoder (per request: "
+                    "POST /caption?decoder=beam)")
+    sv.add_argument("--max-batch", type=int, default=64,
+                    help="max rows coalesced into one device call")
+    sv.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="how long to hold the first request for "
+                    "co-batchable work")
+    sv.add_argument("--subject", choices=["a", "b"], default="a",
+                    help="ms2_nic runs: which per-subject encoder serves")
+    sv.add_argument("--shard", type=int, default=0)
+    sv.add_argument("--pre", default=None,
+                    help="a `preprocess` output dir: every request's raw "
+                    "betas replay its transform chain before decoding")
+    _add_device(sv)
+
+    fe = sub.add_parser("features",
+                        help="batched CNN feature extraction (the "
+                        "reference's CNN/feature_extractor*.py)")
+    fe.add_argument("--backbone", default="vgg16",
+                    choices=["vgg16", "inception_v3", "efficientnet_b3",
+                             "resnet50"])
+    fe.add_argument("--images", required=True,
+                    help=".npy of (N, H, W, 3) RGB images, or the NSD "
+                    "stimuli .hdf5 (imgBrick read directly)")
+    fe.add_argument("--keys", default=None,
+                    help=".npy of 1-based NSD keys selecting rows")
+    fe.add_argument("--out", required=True, help="output .npy path")
+    fe.add_argument("--weights", default=None,
+                    help="npz of pretrained params ('/'-joined flax paths)")
+    fe.add_argument("--head", default=None,
+                    help="feature head (vgg16: fc2|conv5; others: "
+                    "patches|pooled); default per backbone")
+    fe.add_argument("--batch-size", type=int, default=64)
+    fe.add_argument("--pack", action="store_true",
+                    help="write --out as a key-addressed pack dir (needs "
+                    "--keys): the dataset.betas_path layout")
+    _add_device(fe)
+
+    st = sub.add_parser("stimuli",
+                        help="export NSD stimulus pictures from "
+                        "nsd_stimuli.hdf5 as KID{key} files")
+    st.add_argument("--hdf5", required=True, help="nsd_stimuli.hdf5 path")
+    st.add_argument("--keys", default=None,
+                    help=".npy of 1-based NSD keys (default: all)")
+    st.add_argument("--out-dir", required=True)
+    st.add_argument("--format", default="png", choices=["png", "npy"])
     return ap
+
+
+# ---------------------------------------------------------------- features
+
+def _backbone_for(args, image_hw, generator):
+    """(model, head, preprocess) of a features run; VGG16's fc1 is sized
+    from the images' (H, W), as flax sizes it from its input."""
+    if args.backbone == "vgg16":
+        from masters_thesis_tpu_torch.models import backbones
+
+        head = args.head or "fc2"
+        return (backbones.VGG16(include_top=head == "fc2",
+                                image_size=image_hw, generator=generator),
+                head, backbones.preprocess)
+    if args.backbone == "inception_v3":
+        from masters_thesis_tpu_torch.models import inception
+
+        return (inception.InceptionV3(generator=generator),
+                args.head or "patches", inception.preprocess)
+    if args.backbone == "resnet50":
+        from masters_thesis_tpu_torch.models import resnet
+
+        return (resnet.resnet("resnet50", generator=generator),
+                args.head or "pooled", resnet.preprocess)
+    from masters_thesis_tpu_torch.models import efficientnet
+
+    model, _ = efficientnet.efficientnet("b3", generator=generator)
+    return model, args.head or "pooled", efficientnet.preprocess
+
+
+def _image_chunks(args, chunk: int):
+    """Yield (N<=chunk, H, W, 3) image arrays from a .npy file or the NSD
+    stimuli HDF5 (imgBrick), optionally restricted to --keys (1-based NSD
+    keys; row key-1 in either source)."""
+    import numpy as np
+
+    keys = None
+    if getattr(args, "keys", None):
+        keys = np.load(args.keys).reshape(-1).astype(np.int64)
+    if args.images.endswith((".hdf5", ".h5")):
+        from masters_thesis_tpu_torch.data.nsd_images import (
+            iter_stimuli_chunks,
+        )
+
+        for _, imgs in iter_stimuli_chunks(args.images, keys, chunk=chunk):
+            yield imgs
+        return
+    images = np.load(args.images, mmap_mode="r")
+    if keys is None:
+        rows = np.arange(len(images))
+    else:
+        if keys.min() < 1 or keys.max() > len(images):
+            raise ValueError(
+                f"--keys are 1-based NSD keys in [1, {len(images)}]; "
+                f"got [{keys.min()}, {keys.max()}]")
+        rows = keys - 1
+    for i in range(0, len(rows), chunk):
+        yield np.asarray(images[rows[i:i + chunk]])
+
+
+def _features_row_count(args) -> int:
+    import numpy as np
+
+    if getattr(args, "keys", None):
+        return len(np.load(args.keys).reshape(-1))
+    if args.images.endswith((".hdf5", ".h5")):
+        import h5py
+
+        from masters_thesis_tpu_torch.data.nsd_images import DATASET
+
+        with h5py.File(args.images, "r") as f:
+            return f[DATASET].shape[0]
+    return len(np.load(args.images, mmap_mode="r"))
+
+
+def _run_features(args) -> dict:
+    """Offline image-feature dump (feature_extractor.py:67-84 semantics:
+    per-key CNN features written once, consumed by the training data), on
+    ``--device``. Chunked input AND memmap-streamed output, so neither the
+    73k-image NSD brick nor its feature matrix (~38 GB for inception
+    patches) ever materialises in memory. Without ``--weights`` the
+    backbone's weights are random, from seed 0."""
+    import numpy as np
+    import torch
+
+    from masters_thesis_tpu_torch.device import resolve_device
+    from masters_thesis_tpu_torch.models import backbones
+
+    device = resolve_device(args.device)
+    n_rows = _features_row_count(args)
+    model = head = None
+
+    def feature_chunks():
+        nonlocal model, head
+        for imgs in _image_chunks(args, chunk=max(args.batch_size, 64) * 4):
+            if model is None:
+                model, head, prep = _backbone_for(
+                    args, imgs.shape[1:3], torch.Generator().manual_seed(0))
+                if args.weights:
+                    # merges params AND BatchNorm moving stats ('stats/')
+                    backbones.load_npz_variables(model, args.weights)
+                model = model.to(device).eval()
+            x = prep(np.asarray(imgs, np.float32))
+            yield backbones.extract_features(
+                model, x, batch_size=args.batch_size, head=head)
+
+    if args.pack:
+        # a key-addressed pack dir instead of one flat npy: the layout
+        # dataset.betas_path reads, so img_nic/cnn_rnn configs train on it
+        if not args.keys:
+            raise SystemExit("--pack needs --keys (the pack's key order)")
+        keys = np.load(args.keys).reshape(-1).astype(np.int64)
+        from masters_thesis_tpu_torch.data.pack import write_pack
+
+        def keyed_rows():
+            row = 0
+            for feats in feature_chunks():
+                for r in feats:
+                    yield int(keys[row]), r
+                    row += 1
+
+        meta = write_pack(args.out, None, keyed_rows())
+        return {"out": args.out, "pack": meta,
+                "backbone": args.backbone, "head": head,
+                "pretrained": bool(args.weights)}
+
+    out = None
+    row = 0
+    for feats in feature_chunks():
+        if out is None:
+            out = np.lib.format.open_memmap(
+                args.out, mode="w+", dtype=feats.dtype,
+                shape=(n_rows,) + feats.shape[1:])
+        out[row:row + len(feats)] = feats
+        row += len(feats)
+    if out is None or row != n_rows:
+        raise RuntimeError(f"wrote {row} feature rows of {n_rows}")
+    out.flush()
+    shape = list(out.shape)
+    del out
+    return {"out": args.out, "shape": shape,
+            "backbone": args.backbone, "head": head,
+            "pretrained": bool(args.weights)}
+
+
+def _run_stimuli(args) -> dict:
+    """Export NSD stimulus pictures as KID{key}.(png|npy) files — the
+    NSDAccess.read_images path (metric_suit.py:75-80)."""
+    import numpy as np
+
+    from masters_thesis_tpu_torch.data.nsd_images import export_images
+
+    keys = None
+    if args.keys:
+        keys = np.load(args.keys).reshape(-1).astype(np.int64)
+    n = export_images(args.hdf5, keys, args.out_dir, fmt=args.format)
+    return {"out_dir": args.out_dir, "exported": n, "format": args.format}
+
+
+def make_server(args):
+    """The ``serve`` command's HTTP server, built and not started: a
+    ``Captioner`` of ``--run`` on ``--device`` (behind ``--pre``'s chain)
+    and the port's caption server."""
+    from masters_thesis_tpu_torch.serve import (
+        Captioner,
+        PreTransformCaptioner,
+    )
+    from masters_thesis_tpu_torch.server import make_caption_server
+
+    if not args.run:
+        raise SystemExit("serve needs --run")
+    cap = Captioner.from_run_dir(args.run, device=args.device,
+                                 subject=args.subject)
+    if args.pre:
+        cap = PreTransformCaptioner(cap, args.pre)
+    return make_caption_server(
+        cap, host=args.host, port=args.port,
+        default_decoder=args.decoder, max_batch=args.max_batch,
+        max_wait_s=args.max_wait_ms / 1000.0)
 
 
 def main(argv=None) -> int:
@@ -103,6 +390,33 @@ def main(argv=None) -> int:
             raise SystemExit(f"masters_thesis_tpu_torch {args.cmd}: "
                              f"{message}")
 
+    if args.cmd == "features":
+        print(json.dumps(_run_features(args)))
+        return 0
+    if args.cmd == "stimuli":
+        print(json.dumps(_run_stimuli(args)))
+        return 0
+    if args.cmd == "transform":
+        import numpy as np
+
+        from masters_thesis_tpu_torch.experiment import (
+            apply_preprocess_chain,
+        )
+
+        out_rows = apply_preprocess_chain(args.pre, np.load(args.betas))
+        np.save(args.out, out_rows)
+        print(json.dumps({"out": args.out, "shape": list(out_rows.shape)}))
+        return 0
+    if args.cmd == "serve":
+        from masters_thesis_tpu_torch.server import serve_forever
+
+        server = make_server(args)
+        host, port = server.server_address[:2]
+        print(json.dumps({"serving": f"http://{host}:{port}",
+                          "decoder": args.decoder,
+                          "max_batch": args.max_batch}), flush=True)
+        serve_forever(server)
+        return 0
     if args.cmd == "caption":
         import numpy as np
 
@@ -112,7 +426,14 @@ def main(argv=None) -> int:
             args.run, device=args.device, subject=args.subject,
             temperature=args.temperature, sample_top_k=args.sample_top_k,
             seed=args.seed)
-        texts = cap.caption(np.load(args.betas), decoder=args.decoder)
+        rows = np.load(args.betas)
+        if args.pre:
+            from masters_thesis_tpu_torch.experiment import (
+                apply_preprocess_chain,
+            )
+
+            rows = apply_preprocess_chain(args.pre, rows)
+        texts = cap.caption(rows, decoder=args.decoder)
         if args.out:
             with open(args.out, "w") as f:
                 f.write("\n".join(texts) + "\n")
@@ -126,10 +447,20 @@ def main(argv=None) -> int:
     from masters_thesis_tpu_torch.experiment import (
         run_eval,
         run_metrics,
+        run_preprocess,
         run_training,
     )
 
     cfg = Config.load(args.config)
+    if args.cmd == "preprocess":
+        report = run_preprocess(
+            cfg, args.out, pca_components=args.pca,
+            from_sessions=args.from_sessions, behavior=args.behavior,
+            captions_json=args.captions_json, n_sessions=args.n_sessions,
+            vc_parcels=args.vc_parcels, normalize=args.normalize,
+            device=args.device)
+        print(json.dumps(report))
+        return 0
     run_path, logs, bundle = run_training(
         cfg, args.epochs, args.smoke_keys, resume=args.resume,
         device=args.device)

@@ -25,9 +25,20 @@ its plain PyTorch version. ``layout.npz`` and ``run_meta.json``'s
 ``input_row_shape`` let serving (``serve.Captioner.from_run_dir``) rebuild
 a model that takes raw rows.
 
+With ``dataset.betas_path`` a directory, ``build_data`` reads real NSD
+data (ROADMAP M19): the key split of ``nsd_dir``'s conditions CSVs, the
+caption files, the Glasser groups of its atlas vectors, and the betas of a
+pack (``data.pack``) or of per-key ``.npy`` files, host-resident, which
+``run_training`` uploads to the card in row blocks (``data.store``); with
+``ms2_nic``/``ms_nic`` and ``betas_path_b`` a second subject joins, its keys
+offset by ``B_KEY_OFFSET``. ``run_preprocess`` makes such data from NSD
+session files (``data.preprocess``): per-trial files, a pack with repeats
+averaged, per-voxel statistics and the chained vc-mask -> normalize -> PCA
+views, the PCA fitted and applied on the card, and ``transform.json``,
+which ``apply_preprocess_chain`` replays on raw rows for serving.
 Without NSD data the data is ``data.synthetic`` made from the seed, at the
 sizes the JAX package uses. What waits raises ``NotImplementedError``
-naming its ROADMAP item: real data (M19) and the ``tpu:`` knobs of
+naming its ROADMAP item: the ``tpu:`` knobs of
 ``config.unsupported_knobs``.
 """
 
@@ -46,7 +57,12 @@ from masters_thesis_tpu_torch import __version__
 from masters_thesis_tpu_torch.config import Config, unsupported_knobs
 from masters_thesis_tpu_torch.data.pairs import encode_pairs
 from masters_thesis_tpu_torch.data.pipeline import BatchPipeline, EvalPipeline
-from masters_thesis_tpu_torch.data.store import ArrayStore, permute_rows
+from masters_thesis_tpu_torch.data.preprocess.glasser import select_groups
+from masters_thesis_tpu_torch.data.store import (
+    ArrayStore,
+    RowConcat,
+    permute_rows,
+)
 from masters_thesis_tpu_torch.data.synthetic import synthetic_dataset
 from masters_thesis_tpu_torch.decode.beam import make_beam_decoder
 from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
@@ -77,17 +93,26 @@ PORTED_MODELS = MODELS
 # ---------------------------------------------------------------- data
 
 def build_data(cfg: Config, smoke_keys: int = 48):
-    """Returns (split, pairs, tokenizer, store, groups), ``store`` a CPU
-    ``ArrayStore`` over the host rows (``run_training`` moves it to the
-    device). The synthetic data of the JAX ``build_data``, row for row:
-    ``smoke_keys`` keys, 2,048 voxels in 4-16 groups up to 64 keys, else the
-    configured input width (360 Glasser-like groups at full width); 512-wide
-    GUSE vectors for ``guse_nic``; (16, C) patch rows for ``img_nic`` and
-    ``cnn_rnn``."""
-    if cfg.dataset.betas_path and os.path.isdir(cfg.dataset.betas_path):
-        raise NotImplementedError(
-            f"real NSD data ({cfg.dataset.betas_path}) needs data/pack.py, "
-            "ported with data ingestion (ROADMAP M19)")
+    """Returns (split, pairs, tokenizer, store, groups), ``store`` on the
+    host (``run_training`` moves it to the device).
+
+    Real-data mode when ``cfg.dataset.betas_path`` is a directory, the
+    layout the offline preprocessing writes (``data.preprocess``,
+    ``data.pack``), read as the JAX ``build_data`` reads it:
+      betas_path/           a pack dir (meta.json) OR subj0X_KID{key}.npy files
+      captions_path/        KID{key}.txt (5 captions per key)
+      nsd_dir/subj0X_conditions.csv + test_conditions.csv  (key split)
+      nsd_dir/glasser_lh.npy + glasser_rh.npy              (atlas labels)
+    Its store is host-resident (a pack's memmap is not read here).
+
+    Otherwise the synthetic data of the JAX ``build_data``, row for row, in
+    a CPU ``ArrayStore``: ``smoke_keys`` keys, 2,048 voxels in 4-16 groups
+    up to 64 keys, else the configured input width (360 Glasser-like groups
+    at full width); 512-wide GUSE vectors for ``guse_nic``; (16, C) patch
+    rows for ``img_nic`` and ``cnn_rnn``."""
+    betas_path = cfg.dataset.betas_path
+    if betas_path and os.path.isdir(betas_path):
+        return _apply_group_selection(_build_real_data(cfg), cfg)
     n_voxels = min(cfg.input_dim(), 2048) if smoke_keys <= 64 else cfg.input_dim()
     if cfg.model.lower() == "guse_nic":
         n_voxels = 512  # GUSE sentence-embedding width (get_guse.py)
@@ -112,14 +137,141 @@ def build_data(cfg: Config, smoke_keys: int = 48):
         betas = rng.standard_normal(
             (len(keys), n_patches, channels)).astype(np.float32)
     store = ArrayStore(betas, keys, device="cpu")
-    if cfg.groups_to_remove:
-        # the flagship trains on 345 of 360 regions (main.py:115); indices
-        # past the group count are ignored, as select_groups ignores them
-        rm = set(cfg.groups_to_remove)
-        kept = [g for i, g in enumerate(groups) if i not in rm]
-        logger.info("group selection: %d -> %d groups (%d removed)",
-                    len(groups), len(kept), len(groups) - len(kept))
-        groups = kept
+    return _apply_group_selection((split, pairs, tok, store, groups), cfg)
+
+
+def _apply_group_selection(data, cfg: Config):
+    """Drop cfg.groups_to_remove from the Glasser group list before the
+    encoder is built — the flagship trains on 345 of 360 regions
+    (AttemptFour/main.py:115). Indices beyond the group count (e.g. the
+    345-region list against a 16-group smoke dataset) are ignored, as
+    ``select_groups`` filters by index."""
+    if not cfg.groups_to_remove:
+        return data
+    split, pairs, tok, store, groups = data
+    if groups is None:
+        return data
+    kept = select_groups(groups, list(cfg.groups_to_remove))
+    logger.info("group selection: %d -> %d groups (%d removed)",
+                len(groups), len(kept), len(groups) - len(kept))
+    return split, pairs, tok, store, kept
+
+
+# subject-B NSD keys are offset internally so two subjects' betas for the
+# same stimulus can coexist in one store/pair list (NSD 73KIDs are < 10^6)
+B_KEY_OFFSET = 10_000_000
+
+
+def _load_beta_store(betas_path: str, keys) -> ArrayStore:
+    """A host-resident store over a pack (its memmap) or over per-key
+    ``{prefix}_KID{key}.npy`` files of one subject."""
+    import glob
+
+    from masters_thesis_tpu_torch.data.pack import open_pack
+
+    if os.path.exists(os.path.join(betas_path, "meta.json")):
+        return open_pack(betas_path)
+    npys = glob.glob(os.path.join(betas_path, "*_KID*.npy"))
+    if not npys:
+        raise FileNotFoundError(
+            f"betas path {betas_path!r} contains neither a packed dataset "
+            "(meta.json) nor per-key *_KID*.npy beta files")
+    prefixes = sorted({os.path.basename(p).split("_KID")[0] for p in npys})
+    if len(prefixes) > 1:
+        # glob order is filesystem-dependent: silently picking one subject
+        # from a dir holding several would train on arbitrary brain data
+        raise ValueError(
+            f"betas path {betas_path!r} holds files for multiple subject "
+            f"prefixes {prefixes}; point betas_path (and betas_path_b) at "
+            "one subject's files each")
+    prefix = prefixes[0]
+    return ArrayStore.from_npy_dir(
+        betas_path, list(keys), lambda key: f"{prefix}_KID{key}.npy")
+
+
+def _build_real_data(cfg: Config):
+    """NSD loading: key split, captions, beta store, Glasser groups.
+
+    Two-subject mode (ms2_nic/ms_nic + dataset.betas_path_b, the main_ms.py
+    setup): subject A loads from the first subj0*_conditions.csv +
+    betas_path, subject B from the second CSV + betas_path_b; B's keys are
+    offset by ``B_KEY_OFFSET`` in the combined pair list and store, whose
+    rows are A's then B's, end to end on the host (``RowConcat``: no
+    combined copy). Train and val pairs carry both subjects (the [A;B] batch
+    layout comes from the pipeline's subject_split); the TEST split stays
+    subject A's — the reference evaluates one subject at a time."""
+    import glob
+
+    from masters_thesis_tpu_torch.data.captions import load_captions_dir
+    from masters_thesis_tpu_torch.data.pairs import create_pairs
+    from masters_thesis_tpu_torch.data.preprocess.glasser import (
+        groups_from_atlas,
+    )
+    from masters_thesis_tpu_torch.data.splits import get_nsd_keys
+    from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
+
+    nsd_dir = cfg.dataset.nsd_dir
+    cond_csvs = sorted(glob.glob(os.path.join(nsd_dir,
+                                              "subj0*_conditions.csv")))
+    if not cond_csvs:
+        raise FileNotFoundError(f"no subj0*_conditions.csv under {nsd_dir}")
+    split = get_nsd_keys(
+        cond_csvs[0], os.path.join(nsd_dir, "test_conditions.csv"),
+        strict=False,  # the reference's 9000/1000/515 asserts only hold for
+        #                full NSD subjects (load_avg_betas.py:221-223)
+    )
+    all_keys = np.concatenate([split.train, split.val, split.test])
+
+    caps = load_captions_dir(cfg.dataset.captions_path, keys=all_keys)
+    pairs = {
+        name: create_pairs(getattr(split, name), caps, subject="A")
+        for name in ("train", "val", "test")
+    }
+
+    # ms2_nic: two encoders, [A;B] split batches; ms_nic: ONE shared encoder
+    # on the mixed pair list (main_ms_single_enc.py)
+    two_subject = (cfg.model.lower() in ("ms2_nic", "ms_nic")
+                   and bool(cfg.dataset.betas_path_b))
+    store_b = None
+    if two_subject:
+        csv_b = cond_csvs[1] if len(cond_csvs) > 1 else cond_csvs[0]
+        split_b = get_nsd_keys(
+            csv_b, os.path.join(nsd_dir, "test_conditions.csv"), strict=False)
+        keys_b = np.concatenate([split_b.train, split_b.val, split_b.test])
+        caps_b_dir = cfg.dataset.captions_path_b or cfg.dataset.captions_path
+        caps_b = load_captions_dir(caps_b_dir, keys=keys_b)
+        for name in ("train", "val"):
+            sub_pairs = create_pairs(getattr(split_b, name), caps_b,
+                                     subject="B")
+            pairs[name] = pairs[name] + [
+                (int(k) + B_KEY_OFFSET, cap, cid, cnt, subj)
+                for k, cap, cid, cnt, subj in sub_pairs
+            ]
+        store_b = _load_beta_store(cfg.dataset.betas_path_b, keys_b)
+        logger.info(
+            "two-subject data: %d + %d train pairs (B keys offset by %d)",
+            sum(p[4] == "A" for p in pairs["train"]),
+            sum(p[4] == "B" for p in pairs["train"]), B_KEY_OFFSET)
+
+    tok_path = os.path.join(nsd_dir, "tokenizer.json")
+    if os.path.exists(tok_path):
+        tok = Tokenizer.load(tok_path)
+    else:
+        tok = Tokenizer(num_words=cfg.top_k)
+        tok.fit_on_texts([p[1] for p in pairs["train"] + pairs["val"]])
+        tok.install_pad()
+
+    store = _load_beta_store(cfg.dataset.betas_path, all_keys)
+    if store_b is not None:
+        store = ArrayStore(
+            RowConcat([store.data, store_b.data]),
+            [int(k) for k in store.keys]
+            + [int(k) + B_KEY_OFFSET for k in store_b.keys],
+            device_resident=False)
+
+    lh = np.load(os.path.join(nsd_dir, "glasser_lh.npy"))
+    rh = np.load(os.path.join(nsd_dir, "glasser_rh.npy"))
+    groups = groups_from_atlas(lh, rh)
     return split, pairs, tok, store, groups
 
 
@@ -264,9 +416,16 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
         layout = GroupLayout(groups, n_voxels)
         layout.save(os.path.join(run_path, "layout.npz"))
 
-    # the store on the device; the host rows go as soon as it is there
+    # the store on the device (a host-resident one in row blocks through a
+    # pinned buffer); the host rows go as soon as it is there
     keys = host_store.keys
-    data = host_store.data.to(device).view(len(keys), *row_shape)
+    t_up = time.perf_counter()
+    data = host_store.upload(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    logger.info("store: %d x %d %s rows on %s in %.2f s", *data.shape,
+                data.dtype, device, time.perf_counter() - t_up)
+    data = data.view(len(keys), *row_shape)
     del host_store
     if pregathered:
         data = permute_rows(data, layout)
@@ -518,3 +677,379 @@ def run_metrics(bundle, eval_out, captions_by_key=None) -> dict:
         weights_path=(bundle_path if bundle_path
                       and os.path.exists(bundle_path) else None)))
     return scores
+
+
+# ---------------------------------------------------------------- preprocess
+
+def apply_preprocess_chain(pre_dir: str, rows: np.ndarray) -> np.ndarray:
+    """Replay a preprocess run's derived-view chain (transform.json:
+    vc_mask -> normalize -> pca, whichever stages ran) on arbitrary (N, V)
+    rows, on the host in numpy as the JAX package replays it — serving
+    requests and new sessions must go through the SAME transforms the
+    training pack did (``transform``)."""
+    from masters_thesis_tpu_torch.data.preprocess.pca import PCAModel
+
+    with open(os.path.join(pre_dir, "transform.json")) as f:
+        meta = json.load(f)
+    x = np.asarray(rows, np.float32)
+    raw_shape = meta.get("input_row_shape")
+    if raw_shape and list(x.shape[1:]) != list(raw_shape):
+        # a vc-mask gather would silently accept any rows wide enough for
+        # its max index — wrong vertices, garbage captions, no error
+        raise ValueError(
+            f"chain {pre_dir!r} was recorded on rows of shape {raw_shape}; "
+            f"got {list(x.shape[1:])}")
+    for st in meta["stages"]:
+        path = os.path.join(pre_dir, st["file"])
+        if st["stage"] == "vc_mask":
+            x = x[:, np.load(path)]
+        elif st["stage"] == "normalize":
+            d = np.load(path)
+            x = (x - d["mean"]) / d["std"]
+        elif st["stage"] == "pca":
+            x = PCAModel.load(path).transform(x).astype(np.float32)
+        else:
+            raise ValueError(f"unknown transform stage {st['stage']!r}")
+    expect = meta.get("final_row_shape")
+    if expect and list(x.shape[1:]) != list(expect):
+        raise ValueError(
+            f"replayed chain produced rows of shape {x.shape[1:]}, "
+            f"expected {expect}")
+    return x
+
+
+def _train_split_indices(view, nsd_dir):
+    """Pack-row indices of the unique-train keys, or (None, 'all_rows').
+
+    Picks the conditions CSV whose train split covers the most pack keys —
+    an nsd_dir can hold several subjects' CSVs, and blindly taking the
+    alphabetically first would fit statistics on the WRONG subject's split
+    (near-zero key overlap, a degenerate fit with no error)."""
+    if not (nsd_dir and os.path.isdir(nsd_dir)):
+        return None, "all_rows"
+    import glob as _glob
+
+    from masters_thesis_tpu_torch.data.splits import get_nsd_keys
+
+    test_csv = os.path.join(nsd_dir, "test_conditions.csv")
+    conds = sorted(_glob.glob(os.path.join(nsd_dir, "subj0*_conditions.csv")))
+    if not conds or not os.path.exists(test_csv):
+        return None, "all_rows"
+    key_to_row = {int(k): i for i, k in enumerate(view.keys.tolist())}
+    best_idx, best_cond = [], None
+    for cond in conds:
+        split = get_nsd_keys(cond, test_csv, strict=False)
+        idx = [key_to_row[k] for k in split.train.tolist() if k in key_to_row]
+        if len(idx) > len(best_idx):
+            best_idx, best_cond = idx, cond
+    if not best_idx:
+        return None, "all_rows"
+    if len(conds) > 1:
+        logger.info(
+            "preprocess: train split from %s (best pack-key coverage: %d)",
+            os.path.basename(best_cond), len(best_idx))
+    return np.asarray(best_idx), f"train_split:{len(best_idx)}"
+
+
+def _parse_visual_parcels(spec: str) -> list[int]:
+    """``--vc-parcels``: a comma-separated label list, or a CSV file like
+    the reference's VISUAL_MASK table (ThinkAndTell/train.py:91-92 reads it
+    with pandas index_col=0 and flattens the values).
+
+    File parsing is structural, not guess-per-row: a first line with any
+    non-numeric NON-EMPTY field is the header (trailing commas alone never
+    make one — a '1,2,3,' value list keeps its first row). With a header,
+    the first COLUMN is dropped when it is pandas' index — either unnamed
+    (empty first header field, the reference's ',0' layout) or a named
+    serial index (the data rows' first fields count 0..N-1 or 1..N), so a
+    'idx,parcel' export can't leak row numbers (incl. parcel 0, the
+    unlabelled region) into the mask. A fully-numeric file is a plain
+    value list — every field counts."""
+    if not os.path.exists(spec):
+        return [int(p) for p in spec.split(",") if p.strip()]
+    with open(spec) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    if not lines:
+        raise ValueError(f"no parcel labels parsed from {spec!r}")
+
+    def fields(line):
+        # trailing empty fields are CSV artifacts (trailing commas), not
+        # structure — strip them before any header/index decision
+        out = [p.strip() for p in line.split(",")]
+        while out and out[-1] == "":
+            out.pop()
+        return out
+
+    def numeric(vals):
+        try:
+            return [int(float(p)) for p in vals]
+        except ValueError:
+            return None
+
+    first = fields(lines[0])
+    drop_index = False
+    if numeric([p for p in first if p]) is None or (first and first[0] == ""):
+        # header row (pandas writes an unnamed index as an empty first name)
+        data = [fields(ln) for ln in lines[1:]]
+        if first and first[0] == "":
+            drop_index = True
+        else:
+            # named index column: detect a serial 0..N-1 / 1..N first column
+            col0 = numeric([row[0] for row in data if row])
+            n = len(data)
+            drop_index = (
+                len(first) > 1 and col0 is not None
+                and (col0 == list(range(n)) or col0 == list(range(1, n + 1)))
+            )
+        lines = lines[1:]
+    parcels: list[int] = []
+    for line in lines:
+        vals = fields(line)
+        if drop_index:
+            vals = vals[1:]
+        nums = numeric([p for p in vals if p])
+        if nums is None:
+            raise ValueError(
+                f"non-numeric parcel field in {spec!r}: {line!r}")
+        parcels.extend(nums)
+    if not parcels:
+        raise ValueError(f"no parcel labels parsed from {spec!r}")
+    return parcels
+
+
+# rows a derived view streams off its source pack at a time
+VIEW_BLOCK_ROWS = 512
+
+
+def run_preprocess(
+    cfg: Config,
+    out_dir: str,
+    pca_components: int = 0,
+    from_sessions: str | None = None,
+    behavior: str | None = None,
+    captions_json: str | None = None,
+    n_sessions: int = 40,
+    vc_parcels: str | None = None,
+    normalize: bool = False,
+    device=None,
+) -> dict:
+    """Offline preprocessing driver (the reference's ian_code/nsd_get_data +
+    data_mean + SVD/svd.py stage), the JAX ``run_preprocess``'s files and
+    report: [optionally session files -> per-trial npy (my_get_betas,
+    nsd_get_data.py:174-281), then] per-key npy betas -> pack (repeats
+    averaged, nsd_get_data.py:527); per-voxel mean/std; the chained views
+    (vc mask -> normalize -> PCA) and ``transform.json``; the tokenizer from
+    the captions dir. The PCA is fitted (``fit_pca``) and applied to every
+    row on ``device`` (by default ``cuda``); everything else runs on the
+    host in numpy, as in the JAX package. The report's ``seconds`` gives
+    each stage's wall time."""
+    from masters_thesis_tpu_torch.data.captions import load_captions_dir
+    from masters_thesis_tpu_torch.data.pack import open_pack, write_pack
+    from masters_thesis_tpu_torch.data.pairs import clean_caption
+    from masters_thesis_tpu_torch.data.preprocess.pca import (
+        fit_pca,
+        projector,
+    )
+    from masters_thesis_tpu_torch.data.preprocess.sessions import (
+        averaged_rows,
+        ingest_sessions,
+    )
+    from masters_thesis_tpu_torch.data.preprocess.zscore import (
+        voxelwise_stats,
+    )
+    from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
+
+    os.makedirs(out_dir, exist_ok=True)
+    report: dict = {}
+    seconds: dict = {}
+    clock = [time.perf_counter()]
+
+    def lap(stage):
+        now = time.perf_counter()
+        seconds[stage] = now - clock[0]
+        clock[0] = now
+
+    betas_path = cfg.dataset.betas_path
+    captions_path = cfg.dataset.captions_path
+    if from_sessions:
+        if not behavior:
+            raise ValueError("--from-sessions needs --behavior (CSV/TSV or "
+                             "dir)")
+        ingest = ingest_sessions(
+            from_sessions, behavior, os.path.join(out_dir, "ingest"),
+            n_sessions=n_sessions, captions_json=captions_json,
+        )
+        report["ingest"] = {k: v for k, v in ingest.items() if k != "subjects"}
+        subjects = ingest["subjects"]
+        if len(subjects) != 1:
+            raise ValueError(
+                f"session ingest found subjects {sorted(subjects)}; run one "
+                "subject's sessions per preprocess invocation (reference "
+                "loops my_get_betas per subject)")
+        (_, paths), = subjects.items()
+        betas_path = paths["betas"]
+        if captions_json:
+            captions_path = paths["captions"]
+        lap("ingest")
+
+    pack_dir = os.path.join(out_dir, "betas_pack")
+    meta = write_pack(pack_dir, None, averaged_rows(betas_path))
+    report["pack"] = meta
+    lap("pack")
+
+    store = open_pack(pack_dir)
+    # keep the memmap: voxelwise_stats streams chunked passes over it
+    mean, std = voxelwise_stats(store.data)
+    np.savez(os.path.join(out_dir, "voxel_stats.npz"), mean=mean, std=std)
+    report["voxel_stats"] = {"n_voxels": int(mean.shape[0])}
+    lap("stats")
+
+    # ---- derived input views, CHAINED in the reference's order:
+    # raw -> vc-mask -> per-voxel normalize -> pca. Each enabled stage
+    # consumes the previous stage's pack; transform.json records the chain
+    # so `transform` / apply_preprocess_chain can replay it on raw rows
+    chain: list[dict] = []
+    view = store  # the current stage input
+
+    def _write_view(name, row_fn, row_shape_note):
+        pack_path = os.path.join(out_dir, name)
+
+        def rows():
+            data, keys = view.data, view.keys.tolist()
+            for i in range(0, len(keys), VIEW_BLOCK_ROWS):
+                block = row_fn(np.asarray(data[i:i + VIEW_BLOCK_ROWS],
+                                          np.float32))
+                for j, key in enumerate(keys[i:i + VIEW_BLOCK_ROWS]):
+                    yield key, block[j]
+
+        meta_ = write_pack(pack_path, None, rows())
+        logger.info("preprocess: wrote %s (%s rows, %s)", name,
+                    meta_["n_rows"], row_shape_note)
+        return pack_path, meta_
+
+    if vc_parcels:
+        # the visual-cortex stage (ThinkAndTell/train.py:78-113 +
+        # create_betas_dataset.py): mask the full-cortex rows down to the
+        # visual parcels — the pack input_kind: vc configs train on
+        from masters_thesis_tpu_torch.data.preprocess.glasser import (
+            load_atlas_vector,
+            visual_cortex_mask,
+        )
+
+        nsd_dir = cfg.dataset.nsd_dir
+        if not (nsd_dir and os.path.isdir(nsd_dir)):
+            raise ValueError(
+                "--vc-parcels needs dataset.nsd_dir with glasser_lh/rh "
+                "atlas label vectors to build the vertex mask"
+            )
+        lh = load_atlas_vector(os.path.join(nsd_dir, "glasser_lh.npy"))
+        rh = load_atlas_vector(os.path.join(nsd_dir, "glasser_rh.npy"))
+        parcels = _parse_visual_parcels(vc_parcels)
+        mask = visual_cortex_mask(lh, rh, parcels)
+        width = view.row_shape[0]
+        if len(lh) + len(rh) != width:
+            raise ValueError(
+                f"atlas covers {len(lh) + len(rh)} vertices but the pack "
+                f"rows are {width}-wide — wrong atlas for this data"
+            )
+        if mask.size == 0:
+            raise ValueError(
+                f"visual parcels {parcels} match no atlas vertex")
+        np.save(os.path.join(out_dir, "vc_mask.npy"), mask)
+        vc_pack, vc_meta = _write_view(
+            "betas_pack_vc", lambda b: b[:, mask],
+            f"{mask.size} visual-cortex vertices")
+        report["vc"] = {"n_vertices": int(mask.size), "pack": vc_pack,
+                        "n_rows": vc_meta["n_rows"],
+                        "parcels": sorted(set(parcels))}
+        chain.append({"stage": "vc_mask", "file": "vc_mask.npy"})
+        view = open_pack(vc_pack)
+        lap("vc")
+
+    if normalize:
+        # per-voxel (x - mean)/std over the CURRENT view, the reference's
+        # load-time normalization (load_dataset.py:8-22; stats from
+        # data_mean.py), with statistics from the TRAIN rows when the split
+        # is resolvable (no val/test leak); std floors at 1e-8 (a dead
+        # voxel would NaN the row)
+        idx, stats_from = _train_split_indices(view, cfg.dataset.nsd_dir)
+        stat_rows = view.data if idx is None else view.data[idx]
+        v_mean, v_std = voxelwise_stats(stat_rows)
+        del stat_rows
+        v_std = np.maximum(v_std, 1e-8)
+        np.savez(os.path.join(out_dir, "norm_stats.npz"),
+                 mean=v_mean, std=v_std)
+        norm_pack, norm_meta = _write_view(
+            "betas_pack_norm", lambda b: (b - v_mean) / v_std,
+            "per-voxel normalized")
+        report["normalize"] = {"pack": norm_pack,
+                               "n_rows": norm_meta["n_rows"],
+                               "n_voxels": int(v_mean.shape[0]),
+                               "stats_from": stats_from}
+        chain.append({"stage": "normalize", "file": "norm_stats.npz"})
+        view = open_pack(norm_pack)
+        lap("normalize")
+
+    if pca_components > 0:
+        # fit on the unique-train rows when the key split is resolvable
+        # (the reference fits on the 27k unique split then transforms both
+        # splits, SVD/svd.py:64-93 — fitting on val/test leaks them into
+        # the subspace); otherwise fit on every row and say so
+        idx, fit_on = _train_split_indices(view, cfg.dataset.nsd_dir)
+        fit_rows = view.data if idx is None else view.data[idx]
+        model = fit_pca(fit_rows, pca_components, device=device)
+        del fit_rows
+        model.save(os.path.join(out_dir, "pca_model.npz"))
+        lap("pca_fit")
+        # transform EVERY row, on the device, into the reduced pack the pca
+        # configs train on (input_kind: pca points dataset.betas_path here)
+        pca_pack, pca_meta = _write_view(
+            "betas_pack_pca", projector(model, device),
+            f"{model.components.shape[0]} components")
+        report["pca"] = {"components": int(model.components.shape[0]),
+                         "fit_on": fit_on, "pack": pca_pack,
+                         "n_rows": pca_meta["n_rows"]}
+        chain.append({"stage": "pca", "file": "pca_model.npz"})
+        view = open_pack(pca_pack)
+        lap("pca_transform")
+
+    with open(os.path.join(out_dir, "transform.json"), "w") as f:
+        json.dump({"stages": chain,
+                   "input_row_shape": list(store.row_shape),
+                   "final_row_shape": list(view.row_shape)}, f, indent=1)
+    report["transform"] = {"stages": [c["stage"] for c in chain]}
+
+    if captions_path and os.path.isdir(captions_path):
+        caps = load_captions_dir(captions_path)
+        texts = [clean_caption(line) for lines in caps.values()
+                 for line in lines]
+        tok = Tokenizer(num_words=cfg.top_k)
+        tok.fit_on_texts(texts)
+        tok.install_pad()
+        tok.save(os.path.join(out_dir, "tokenizer.json"))
+        report["tokenizer"] = corpus_stats(texts)
+        lap("tokenizer")
+    report["seconds"] = seconds
+    return report
+
+
+def corpus_stats(texts: list[str]) -> dict:
+    """Word/vocab counts (CNN_RNN/count_words.py) plus caption-length
+    statistics (caption_analysis.py::statistics — min/max/mean and the
+    .25/.5/.75/.9/.99 percentiles its describe() prints)."""
+    words = [w for t in texts for w in t.split()]
+    lengths = np.asarray([len(t.split()) for t in texts], np.int64)
+    stats = {
+        "n_captions": len(texts),
+        "n_words": len(words),
+        "n_unique": len(set(words)),
+    }
+    if len(lengths):
+        stats["caption_length"] = {
+            "min": int(lengths.min()),
+            "max": int(lengths.max()),
+            "mean": float(lengths.mean()),
+            **{f"p{int(q * 100)}": float(np.percentile(lengths, q * 100))
+               for q in (0.25, 0.5, 0.75, 0.9, 0.99)},
+        }
+    return stats

@@ -37,7 +37,9 @@ dimension, as in the JAX ``Captioner`` and server.
 ``glove_table.npy`` for a GloVe run, and the best or latest checkpoint under
 ``model/``), taking raw rows whether or not the run trained from a
 pregathered store; an ``ms2_nic`` run serves one subject's encoder
-(``subject="a"|"b"``).
+(``subject="a"|"b"``). ``PreTransformCaptioner`` puts a preprocess run's
+transform chain (``experiment.apply_preprocess_chain``) in front of a
+captioner, so that it takes raw rows.
 """
 
 from __future__ import annotations
@@ -91,6 +93,42 @@ def padded_chunk_ids(inputs, batch_size: int, max_length: int,
         words = np.asarray(run_chunk(chunk))
         out.append(words[: len(words) - pad] if pad else words)
     return np.concatenate(out)
+
+
+class PreTransformCaptioner:
+    """Wrap a captioner so every request replays a preprocess transform
+    chain first (``caption/serve --pre``): the service then takes the RAW
+    rows the offline pipeline started from, and the chain's recorded raw
+    shape becomes the service's input contract. The chain runs on the host
+    (``experiment.apply_preprocess_chain``), the decode on the captioner's
+    device."""
+
+    def __init__(self, captioner, pre_dir: str):
+        import json
+        import os
+
+        self.inner = captioner
+        self.pre_dir = pre_dir
+        with open(os.path.join(pre_dir, "transform.json")) as f:
+            meta = json.load(f)
+        raw = meta.get("input_row_shape")
+        self.input_row_shape = tuple(raw) if raw else None
+        self.input_width = (self.input_row_shape[-1]
+                            if self.input_row_shape else None)
+
+    def _transform(self, inputs):
+        from masters_thesis_tpu_torch.experiment import (
+            apply_preprocess_chain,
+        )
+
+        return apply_preprocess_chain(self.pre_dir, inputs)
+
+    def caption(self, inputs, decoder: str = "greedy"):
+        return self.inner.caption(self._transform(inputs), decoder=decoder)
+
+    def caption_ids(self, inputs, decoder: str = "greedy"):
+        return self.inner.caption_ids(self._transform(inputs),
+                                      decoder=decoder)
 
 
 def sample_seed(seed: int, call: int) -> int:

@@ -1,8 +1,8 @@
 """HTTP captioning service with dynamic micro-batching.
 
 The port's own copy of ``masters_thesis_tpu/server.py``
-(``make_caption_server`` and what it builds on, with the same names and
-meaning; ``tests/test_torch_copies.py`` serves one port ``Captioner``
+(``make_caption_server`` and what it builds on, and ``serve_forever``,
+with the same names and meaning; ``tests/test_torch_copies.py`` serves one port ``Captioner``
 through both). An accelerator serves well only with full batches, so the
 server coalesces concurrent requests into one device call:
 
@@ -270,3 +270,11 @@ def make_caption_server(captioner, host: str = "127.0.0.1", port: int = 0,
     server.daemon_threads = True
     server.batcher = batcher
     return server
+
+
+def serve_forever(server) -> None:  # pragma: no cover - blocking entry
+    try:
+        server.serve_forever()
+    finally:
+        server.batcher.close()
+        server.server_close()

@@ -407,8 +407,6 @@ def _use_bundle(tmp_path):
 
 
 REFUSALS = {
-    "real NSD data": (lambda t: lambda: _train(t, betas_path=str(t)),
-                      "M19"),
     "data mesh": (lambda t: lambda: _train(t, mesh_data=2), "M13"),
     "model mesh": (lambda t: lambda: _train(t, mesh_model=2), "M13"),
     "bf16 params": (lambda t: lambda: _train(t, param_dtype="bfloat16"),
@@ -443,11 +441,14 @@ def test_unported_parts_refuse_naming_their_roadmap_item(case, tmp_path):
     (["train", "--processes", "2"], "M13"),
     (["train", "--devices-per-process", "8"], "M13"),
     (["caption", "--shard", "2"], "M13"),
-    (["caption", "--pre", "pre_dir"], "M19"),
+    (["serve", "--export", "a.mttx"], "M14"),
+    (["serve", "--shard", "2"], "M13"),
 ])
 def test_cli_flags_without_a_port_exit_naming_their_item(argv, item):
     if argv[0] == "caption":
         argv = [*argv, "--run", "r", "--betas", "b.npy"]
+    elif argv[0] == "serve":
+        argv = [*argv, "--run", "r"]
     else:
         argv = [*argv, "--config", str(SMOKE)]
     with pytest.raises(SystemExit, match=f"ROADMAP {item}\\b") as err:
@@ -481,8 +482,17 @@ def _beam_eval(tmp_path):
                           bundle["model"].encoder.layout.n_groups)
 
 
-# parts a former slice refused, naming ROADMAP M9 or M11, now run
+def _real_data_run(tmp_path):
+    from test_real_data_path import _make_dataset
+
+    nsd, caps, betas = _make_dataset(tmp_path)
+    _train(tmp_path, betas_path=str(betas), captions_path=str(caps),
+           nsd_dir=str(nsd))
+
+
+# parts a former slice refused, naming ROADMAP M9, M11 or M19, now run
 FORMERLY_REFUSED = {
+    "real NSD data": _real_data_run,
     "another model family": lambda t: _train(t, model="showtell"),
     "GloVe table": _glove_run,
     "learned initial state": _learned_init_run,
@@ -510,19 +520,37 @@ def test_formerly_refused_parts_run(case, tmp_path):
     ["caption", "--decoder", "sample", "--temperature", "0.7"],
     ["caption", "--decoder", "sample", "--sample-top-k", "5"],
     ["caption", "--decoder", "sample", "--seed", "3"],
+    ["caption", "--pre", "pre"],
 ])
 def test_cli_decoder_flags_run(argv, runs, tmp_path, capsys):
     """The flags a former slice refused: eval and metrics decode with the
     beam (``--subject`` picks an ms2_nic run's encoder and is ignored by
-    any other family); caption samples, a seed fixing the words."""
+    any other family); caption samples, a seed fixing the words; caption
+    replays a preprocess chain (here one that only normalizes) on raw
+    rows."""
     if argv[0] == "caption":
         rows = runs["p"]["store"].device_array()[:5].numpy()
         np.save(tmp_path / "rows.npy", rows)
+        if "--pre" in argv:
+            pre = tmp_path / "pre"
+            pre.mkdir()
+            np.savez(pre / "norm_stats.npz", mean=np.full(rows.shape[1], 0.5,
+                                                          np.float32),
+                     std=np.full(rows.shape[1], 2.0, np.float32))
+            (pre / "transform.json").write_text(json.dumps({
+                "stages": [{"stage": "normalize", "file": "norm_stats.npz"}],
+                "input_row_shape": [rows.shape[1]],
+                "final_row_shape": [rows.shape[1]]}))
+            argv = [argv[0], "--pre", str(pre)]
+            want = Captioner.from_run_dir(runs["p_path"], device="cpu") \
+                .caption((rows - 0.5) / 2.0)
         argv = [*argv, "--run", runs["p_path"], "--betas",
                 str(tmp_path / "rows.npy"), "--device", "cpu"]
         assert cli.main(argv) == 0
         first = capsys.readouterr().out.splitlines()
         assert len(first) == 5
+        if "--pre" in argv:
+            assert first == want
         assert cli.main(argv) == 0
         assert capsys.readouterr().out.splitlines() == first
     else:

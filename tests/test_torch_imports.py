@@ -1,6 +1,8 @@
 """The port stands alone: in a fresh interpreter with jax, jaxlib, flax,
-optax, orbax, yaml and the JAX package itself blocked by a meta-path finder,
-every module of the port and ``chip_smoke.py`` import, and importing them
+optax, orbax, yaml, h5py and PIL (which the card's machine lacks; the port
+imports the last two only in the commands that read HDF5 or write PNG) and
+the JAX package itself blocked by a meta-path finder, every module of the
+port and ``chip_smoke.py`` import, and importing them
 loads no module of the JAX package, does not load triton and builds no
 kernel; under the same block the port's CLI (``python -m
 masters_thesis_tpu_torch``) reads a config, trains, decodes and scores on
@@ -20,7 +22,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "masters_thesis_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "triton",
-           "masters_thesis_tpu")
+           "h5py", "PIL", "masters_thesis_tpu")
 
 
 def _port_modules() -> list[str]:
@@ -75,7 +77,12 @@ def test_port_imports_with_jax_flax_and_yaml_blocked(imported):
                  "evalsuite.metric_suite", "evalsuite.guse_sim",
                  "utils.tensorboard", "utils.summary", "decode.beam",
                  "decode.sampling", "models.showtell", "models.multisubject",
-                 "data.captions"):
+                 "data.captions", "data.pack", "data.nsd_images",
+                 "data.preprocess.sessions", "data.preprocess.pca",
+                 "data.preprocess.mgh", "data.preprocess.glasser",
+                 "data.preprocess.hcp_regions", "data.preprocess.zscore",
+                 "models.backbones", "models.resnet", "models.inception",
+                 "models.efficientnet"):
         assert f"masters_thesis_tpu_torch.{name}" in loaded
     for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
         assert blocked not in loaded
