@@ -21,8 +21,9 @@ width of its model or at its probe's own sizes:
   on the card, holds the store row gather (K1) against its plain version and
   a 3-step dropout-off trajectory through K1 against the same steps through
   the plain gather, trains one epoch of 140 scanned steps with the scanned
-  validation pass through ``Trainer.fit``, and times K1, the plain gather
-  and the train step;
+  validation pass through ``Trainer.fit``, and times K1 and ``index_select``
+  (each's device time by ``torch.profiler``, host time a call, and CUDA
+  events in 7 alternate turns), the plain gather and the train step;
 - the fused teacher-forced sequence, on the flagship model and the same
   store: holds the whole-sequence forward kernel (K4) against its plain
   version (and both against float64) residual by residual, the loss and
@@ -79,7 +80,8 @@ width of its model or at its probe's own sizes:
   (``configs/think_and_tell_pca.yaml``) one epoch each on the packs, each
   failing unless its val loss fell from before training, K1 ran on every
   train and val batch of the epoch and K2 on every greedy test batch of the
-  LcNIC; holds K1 against its plain version on each run's uploaded store and
+  LcNIC; holds K1 against its plain version on each run's uploaded store
+  (and times it beside ``index_select`` there, as in training) and
   each NIC's K2 or K3 against its plain version on 64 of the run's rows,
   on a copy of the trained model spread by ``spread_for_check`` (launches
   of these checks are not counted); holds ``PreTransformCaptioner`` on raw
@@ -121,7 +123,9 @@ version, both times, the least time the card could take for the same work
 where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
 K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
-and P3's holds its and ``index_select``'s times in turns under ``turns``. Any
+and P3's holds its and ``index_select``'s times in turns under ``turns``;
+K1's holds, for the training store and each ingest run's store, its and
+``index_select``'s device, host and event times under ``stores``. Any
 failed phase raises, and the script then exits non-zero without those
 lines. It needs CUDA and the rest of the repository beside it; it imports
 nothing of the JAX package.
@@ -169,6 +173,7 @@ FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 # 140 steps of 64, and 1,925 val pairs, 30 batches
 TRAIN_KEYS = 2571
 SCAN_STEPS = 140
+GATHER_TURNS = 7            # K1 and index_select timed in turns, as P3
 EDGE_STEPS = 20             # the loss must fall from the first to the last
 TRAJ_STEPS, TRAJ_RTOL = 3, 1e-6
 STEP_WINDOW, STEP_REPS = 10, 5  # ms a step: calls of scanned steps, timed
@@ -733,13 +738,18 @@ def train_config(**kw):
 
 
 def check_gather(store, card: str) -> dict:
-    """K1 against its plain version on 64 rows of the real store, with
-    repeated ids and ids out of range, then both timed, and one
-    ``index_select`` on the same ids as the library's yardstick."""
+    """K1 against its plain version on 64 rows of the store, with repeated
+    ids and ids out of range, then K1 and ``index_select`` (the library's
+    yardstick) on 64 ids in range, each split into its device time
+    (``torch.profiler``) and its host time a call, and timed by CUDA events
+    in turns (``scripts.gather_timing.compare``), and the plain version
+    timed. Returns K1's entry of the kernels line, with the split under
+    ``stores``."""
     from masters_thesis_tpu_torch.ops.gather import (
         gather_rows,
         gather_rows_reference,
     )
+    from masters_thesis_tpu_torch.scripts import gather_timing
 
     data = store.device_array()
     n = data.shape[0]
@@ -758,25 +768,25 @@ def check_gather(store, card: str) -> dict:
                            f"{tuple(want.shape)}")
     ids = torch.randint(0, n, (BATCH,), generator=gen, device=data.device,
                         dtype=torch.int32)
-    ms = cuda_ms(lambda: gather_rows(data, ids), reps=50, warmup=5)
+    split = gather_timing.compare(data, ids, turns=GATHER_TURNS)
     plain_ms = cuda_ms(lambda: gather_rows_reference(data, ids), reps=50,
                        warmup=5)
-    ids_long = ids.long()
-    library_ms = cuda_ms(lambda: data.index_select(0, ids_long), reps=50,
-                         warmup=5)
     moved = 2 * BATCH * data.shape[1] * data.element_size()
     work = bound(moved + ids.numel() * ids.element_size(), 0)
+    ms = split["K1"]["median_us"] / 1e3
     print(f"K1 vs plain on {BATCH} rows of the {n} x {data.shape[1]} "
           f"{str(data.dtype)[6:]} store (repeated ids, ids -3, {n}, "
           f"{n + 1000}): identical [{card}]")
+    print(gather_timing.line(
+        f"K1 and index_select on {BATCH} rows of the {n} x {data.shape[1]} "
+        f"store ({moved / 2e6:.1f} MB), events in {GATHER_TURNS} turns",
+        split, card))
     print(f"K1 {ms * 1e3:.2f} us ({moved / ms / 1e6:.1f} GB/s read+write), "
-          f"plain clamp + index_select {plain_ms * 1e3:.2f} us "
-          f"({moved / plain_ms / 1e6:.1f} GB/s), index_select alone "
-          f"{library_ms * 1e3:.2f} us, bound {work['bound_ms'] * 1e3:.2f} us "
-          f"(by {work['bound_by']}), batch of {BATCH} rows, "
-          f"{moved / 2e6:.1f} MB [{card}]")
+          f"plain clamp + index_select {plain_ms * 1e3:.2f} us, bound "
+          f"{work['bound_ms'] * 1e3:.2f} us (by {work['bound_by']}) [{card}]")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
-            "library_ms": library_ms}
+            "library_ms": split["index_select"]["median_us"] / 1e3,
+            "stores": [{"store": list(data.shape), **split}]}
 
 
 def check_trajectory(layout, store, pipe, device, card: str) -> None:
@@ -1992,22 +2002,24 @@ def uncounted():
             k.launches = n
 
 
-def check_ingest_kernels(label: str, bundle, device, card: str) -> dict:
+def check_ingest_kernels(label: str, bundle, device, card: str) -> tuple:
     """K1 against its plain version on the run's uploaded store; for a NIC,
     its decode kernel (K2 or K3) against its plain version (and float64) on
     BATCH of the store's rows, the run's test keys first (patch rows with
     each column standardised over them), on a copy of the trained model whose weights
     ``spread_for_check`` spreads, so that the greedy words vary. Returns
-    the errors by kernel."""
+    the errors by kernel and K1's timing on the store (``check_gather``'s
+    ``stores``)."""
     import copy
 
     from masters_thesis_tpu_torch.models.nic import NIC
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
     store, model = bundle["store"], bundle["model"]
-    errs = {"K1": check_gather(store, card)["max_abs_err"]}
+    k1 = check_gather(store, card)
+    errs = {"K1": k1["max_abs_err"]}
     if not isinstance(model, NIC):
-        return errs
+        return errs, k1["stores"]
     test = list(dict.fromkeys(int(p[0]) for p in bundle["pairs"]["test"]))
     seen = set(test)
     keys = (test + [int(k) for k in store.keys if int(k) not in seen])[:BATCH]
@@ -2029,7 +2041,7 @@ def check_ingest_kernels(label: str, bundle, device, card: str) -> dict:
         f"store rows ({len(test)} test keys first), weights spread",
         timed=False)["max_abs_err"]
     del spread, rows
-    return errs
+    return errs, k1["stores"]
 
 
 def write_split(nsd: Path, unique, shared, test) -> None:
@@ -2111,8 +2123,8 @@ def ingest_run(label: str, cfg, device, card: str) -> dict:
     unless K1 ran on every train and val batch of the epoch, the greedy
     decode kernel (or ShowTell's step loop) on every test batch, and the val
     loss fell from before training; then ``check_ingest_kernels``, its
-    launches not counted. Returns the bundle, run path, eval output and the
-    checks' errors."""
+    launches not counted. Returns the bundle, run path, eval output, the
+    checks' errors and K1's timing on the run's store."""
     from masters_thesis_tpu_torch import experiment
     from masters_thesis_tpu_torch.models.nic import NIC
     from masters_thesis_tpu_torch.ops import fused_decode as fd
@@ -2158,9 +2170,9 @@ def ingest_run(label: str, cfg, device, card: str) -> dict:
         raise RuntimeError(f"ingest {label}: {kernel.__name__} launched "
                            f"{k23} times for {test_batches} test batches")
     with uncounted():
-        errs = check_ingest_kernels(label, bundle, device, card)
+        errs, k1_stores = check_ingest_kernels(label, bundle, device, card)
     return {"bundle": bundle, "run_path": run_path, "out": out,
-            "errors": errs}
+            "errors": errs, "k1_stores": k1_stores}
 
 
 def check_upload(pack_dir: Path, device, card: str) -> None:
@@ -2440,11 +2452,13 @@ def ingest(device, card: str) -> dict:
         kernels = (gather_rows, fd.fused_greedy_decode,
                    fd.fused_greedy_decode_gru)
         errs = {"K1": [], "K2": [], "K3": []}
+        k1_stores = []
 
         def run(label, cfg):
             out = ingest_run(label, cfg, device, card)
             for name, err in out.pop("errors").items():
                 errs[name].append(err)
+            k1_stores.extend(out["k1_stores"])
             return out["run_path"]
 
         for k in kernels:
@@ -2499,7 +2513,8 @@ def ingest(device, card: str) -> dict:
     print(f"ingest: the phase in {time.perf_counter() - t_phase:.1f} s; "
           f"launches {counts}; the checks' largest errors "
           f"{ {k: max(v) for k, v in errs.items()} } [{card}]")
-    return {"launches": counts, "errors": errs, "pca_fit_s": pca["fit_s"]}
+    return {"launches": counts, "errors": errs, "pca_fit_s": pca["fit_s"],
+            "k1_stores": k1_stores}
 
 
 def main(argv=None) -> int:
@@ -2593,6 +2608,7 @@ def main(argv=None) -> int:
     ing = ingested["launches"]
     release()
     k1["max_abs_err"] = max([k1["max_abs_err"], *ingested["errors"]["K1"]])
+    k1["stores"] += ingested["k1_stores"]
     k2["max_abs_err"] = max([k2["max_abs_err"], *fam["errors"]["K2"],
                              *ingested["errors"]["K2"]])
     k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"],

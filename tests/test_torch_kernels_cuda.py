@@ -483,6 +483,32 @@ GATHER_SHAPES = {
     "small-cut": (37, 333, 201),
     "flagship-raw": (40, 327_684, 327_684),
     "flagship-pregathered": (40, 472_576, 472_576),
+    # the narrow stores' widths: ThinkAndTell's PCA pack, cnn_rnn's
+    # (64, 2048) patches, img_nic's (196, 512) conv5 and LcNIC's
+    # attempt_four.yaml row, pregathered
+    "pca": (40, 512, 512),
+    "cnn_rnn": (20, 131_072, 131_072),
+    "img_nic": (20, 100_352, 100_352),
+    "lc_nic": (20, 409_600, 409_600),
+    # gather_plan's edges, in fp32 columns: 1 and 3 columns (one 4-byte or
+    # 12-byte row), a warp of 16-byte vectors and one vector past it, a
+    # block of them (a vector a thread) and one past it, the last row a
+    # block copies whole (1,023 vectors), one block's sweep (the first cut
+    # into pieces), one vector past it (two pieces), the last row that
+    # streams its loads and the first in half sweeps (1 MiB), and the cut
+    # of a store whose pitch is not its width
+    "one": (9, 1, 1),
+    "three": (9, 3, 3),
+    "warp": (21, 128, 128),
+    "warp+1": (21, 132, 132),
+    "block": (21, 1_024, 1_024),
+    "block+1": (21, 1_028, 1_028),
+    "block-whole": (21, 4_092, 4_092),
+    "block-sweep": (21, 4_096, 4_096),
+    "block-sweep+1": (21, 4_100, 4_100),
+    "streamed": (9, 262_140, 262_140),
+    "wide-row": (9, 262_144, 262_144),
+    "odd-pitch-cut": (21, 4_099, 4_092),
 }
 
 
@@ -508,6 +534,69 @@ def test_gather_kernel_matches_plain_version(cuda, shape, dtype, id_dtype):
     assert gather_rows.launches == before + 1
     assert got.shape == (len(ids), width) and got.is_contiguous()
     assert torch.equal(got, gather_rows_reference(store, ids, width))
+
+
+@pytest.mark.parametrize("batch", [1, 9, 64, 257, 2_000])
+@pytest.mark.parametrize("width", [512, 3, 100_352])
+def test_gather_kernel_at_other_batch_sizes(cuda, batch, width):
+    """B other than 64: rows that share a block (a warp each), rows of
+    several pieces, and more rows than ids in range (clamped)."""
+    from masters_thesis_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_reference,
+    )
+
+    n = 300
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    store = torch.randn(n, width, generator=gen, device=cuda)
+    ids = torch.randint(-5, n + 5, (batch,), generator=gen, device=cuda)
+    got = gather_rows(store, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_reference(store, ids))
+
+
+@pytest.mark.parametrize("row_cols", [3, 512, 4_100, 100_352])
+def test_gather_kernel_under_forced_plans(cuda, row_cols):
+    """Every plan the C side takes gives the same rows: other blocks, other
+    cuts into pieces, both row loads; plans it cannot run are refused and
+    not counted."""
+    from masters_thesis_tpu_torch.ops import gather
+    from masters_thesis_tpu_torch.ops.gather import GatherPlan
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    store = torch.randn(50, row_cols, generator=gen, device=cuda)
+    ids = torch.tensor([4, 4, -1, 49, 60, 7, 0, 33, 12, 12, 5],
+                       device=cuda)
+    want = gather.gather_rows_reference(store, ids)
+    row = row_cols * 4
+    vec = gather.vector_bytes(row)
+    vecs = row // vec
+    plans = [gather.gather_plan(row, vec)]
+    for threads in (32, 96, 128, 256):
+        for pieces in sorted({1, 2, min(vecs, 7), vecs}):
+            piece = -(-vecs // pieces)
+            if (pieces - 1) * piece < vecs and piece <= threads * 4:
+                plans += [GatherPlan(vec, threads, pieces, piece, stream)
+                          for stream in (0, 1)]
+    for plan in plans:
+        assert torch.equal(gather._gather(store, ids, None, plan), want), \
+            plan
+    torch.cuda.synchronize()
+    good = plans[0]
+    bad = [good._replace(vec_bytes=3), good._replace(threads=16),
+           good._replace(threads=48), good._replace(threads=512),
+           good._replace(pieces=0), good._replace(stream=2),
+           good._replace(pieces=1, piece_vecs=vecs - 1),
+           good._replace(pieces=2, piece_vecs=vecs)]
+    if vec > 1:
+        bad.append(good._replace(vec_bytes=2 * vec))
+    if vecs > 128:
+        bad.append(GatherPlan(vec, 32, 1, vecs, 1))  # over 4 vectors a thread
+    before = gather.gather_rows.launches
+    for plan in bad:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            gather._gather(store, ids, None, plan)
+    assert gather.gather_rows.launches == before
 
 
 def test_gather_kernel_reads_a_strided_store_and_refuses_bad_input(cuda):
