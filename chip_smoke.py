@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives eight paths, each at the full
+``nvcc`` a source, in parallel), then drives nine paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -92,7 +92,26 @@ width of its model or at its probe's own sizes:
   ``features`` on 256 images per backbone at its published resolution
   (each file against the CPU forward within 1e-4 of its largest value,
   images/s), and trains ``cnn_rnn`` on the InceptionV3 pack and
-  ``img_nic`` on the VGG16 conv5 pack, K1, K2 and K3 counted as above.
+  ``img_nic`` on the VGG16 conv5 pack, K1, K2 and K3 counted as above;
+- the sweep phase: the USE-DAN sentence encoder at the class's full width
+  (embed 512, hidden 512 x 3, out 512) over a random 200,000-token bundle
+  with 256 OOV buckets, its goldens from a CPU forward of 64 sentences,
+  loaded on the card through ``from_npz`` (golden check), a copy with two
+  embedding rows swapped refused, and the card's vectors within 1e-5 of
+  the CPU's on 4,096 sentences; ``guse`` through the CLI on synthetic
+  captions for NSD's 73,000 keys x 5 (365,000 sentences, about a tenth of
+  their words outside the bundle's vocabulary), with sentences/s, the host
+  tokenization and device seconds and the peak device memory; guse_nic one
+  epoch on 1,200 keys of the per-key vectors it wrote (K1 on every train
+  and val batch); ``score`` through the CLI on the training product's
+  captions with the bundle, its ``GUSE_*`` equal to ``run_metrics``'; and
+  ``tune`` through the CLI on ``configs/flagship_synth.yaml`` at 384 keys,
+  4 trials of 2 epochs in 2 spawned processes, then a ``--queue`` with
+  this process as its coordinator and one ``--worker`` process over 2
+  trials, each trial's wall s and launches, the sweep's wall s and trials
+  an hour and each process's peak device memory; K1 and K2 are counted in
+  the processes that ran the trials, every trial must be recorded, none
+  in error, and each must have launched K1.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -115,8 +134,9 @@ K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
 loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run; K1
 and K2 also under ``launches_experiment``, their launches in the training
 product's phase, K1, K2 and K3 under ``launches_families``, theirs in
-the families' runs, and under ``launches_ingest``, theirs in the ingest
-phase's runs), its
+the families' runs, under ``launches_ingest``, theirs in the ingest
+phase's runs, and K1 and K2 under ``launches_sweep``, theirs in the sweep
+phase's runs, summed over its processes), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -124,9 +144,9 @@ where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
 K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
 and P3's holds its and ``index_select``'s times in turns under ``turns``;
-K1's holds, for the training store and each ingest run's store, its and
-``index_select``'s device, host and event times under ``stores``. Any
-failed phase raises, and the script then exits non-zero without those
+K1's holds, for the training store and each ingest and sweep run's store,
+its and ``index_select``'s device, host and event times under ``stores``.
+Any failed phase raises, and the script then exits non-zero without those
 lines. It needs CUDA and the rest of the repository beside it; it imports
 nothing of the JAX package.
 """
@@ -1665,11 +1685,17 @@ def experiment_phase(device, card: str) -> dict:
         files = sorted(str(p.relative_to(run_path))
                        for p in Path(run_path).rglob("*") if p.is_file())
         print(f"run directory: {', '.join(files)}")
+        # what the sweep phase's ``score`` reads: the run's captions file,
+        # and run_metrics' inputs (no tensor of the run)
+        scored = {"captions": (Path(run_path) / f"captions_{out['epoch']}"
+                               ".txt").read_text(),
+                  "texts": out["texts"], "keys": out["keys"],
+                  "pairs": bundle["pairs"], "scores": scores}
         del bundle
     print(f"K1 launches in run_training: {k1} (train and val batches "
           f"{train_batches}); K2 launches in run_training {k2_train}, in "
           f"run_eval {k2}")
-    return {"K1": k1, "K2": k2_train + k2}
+    return {"K1": k1, "K2": k2_train + k2, "scored": scored}
 
 
 # ---- the other model families ----
@@ -2517,6 +2543,517 @@ def ingest(device, card: str) -> dict:
             "k1_stores": k1_stores}
 
 
+# ---- the sweep phase: the USE encoder, guse, score and tune ----
+
+USE_VOCAB = 200_000                 # tokens of the random bundle
+USE_OOV_BUCKETS = 256
+USE_PROBES = 64                     # the bundle's golden sentences
+USE_CHECK_ROWS = 4_096              # card against CPU
+USE_ATOL = 1e-5
+GUSE_KEYS = 73_000                  # NSD's stimuli, 5 captions each
+GUSE_CAPTIONS = 5
+CAPTION_WORDS = 30_000              # the captions' word list, Zipf-drawn
+GUSE_PEAK_BYTES = 8e9               # the chunked embed stays far below 80 GB
+GUSE_SPLIT = (1_000, 200, 100)      # guse_nic: unique, shared, test keys
+GUSE_RTOL = 1e-6                    # score's GUSE against run_metrics'
+TUNE_CONFIG = "flagship_synth.yaml"
+TUNE_KEYS = 384                     # of flagship_synth.yaml's 2,571
+TUNE_SAMPLES, TUNE_PROCESSES, TUNE_EPOCHS = 4, 2, 2
+QUEUE_TRIALS = 2
+SWEEP_COUNTS_ENV = "MTT_SWEEP_COUNTS"
+
+
+def counted_trial(*args, **kwargs):
+    """``cli._tune_trial`` with its kernels counted, in whatever process runs
+    the trial (the sweep's spawned children import this module and unpickle
+    this function): K1's and K2's counts set to 0 before the trial and read
+    after it, with the trial's wall s and peak device memory, written as
+    one JSON file into the directory ``MTT_SWEEP_COUNTS`` names. The trial's
+    return value is ``_tune_trial``'s."""
+    import os
+    import uuid
+
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    trial = getattr(counted_trial, "real", cli._tune_trial)
+    cuda = torch.cuda.is_available()
+    gather_rows.launches = 0
+    fd.fused_greedy_decode.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        return trial(*args, **kwargs)
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        record = {"pid": os.getpid(), "config": args[3],
+                  "wall_s": time.perf_counter() - t0,
+                  "gather_rows": gather_rows.launches,
+                  "fused_greedy_decode": fd.fused_greedy_decode.launches,
+                  "peak_bytes": (torch.cuda.max_memory_allocated() if cuda
+                                 else 0)}
+        path = Path(os.environ[SWEEP_COUNTS_ENV]) / f"{uuid.uuid4().hex}.json"
+        path.write_text(json.dumps(record))
+
+
+@contextlib.contextmanager
+def counting_trials(counts: Path):
+    """The tune command's trials through ``counted_trial``, their records
+    in ``counts`` (also for the spawned processes, through the
+    environment)."""
+    import os
+
+    from masters_thesis_tpu_torch import cli
+
+    os.environ[SWEEP_COUNTS_ENV] = str(counts)
+    counted_trial.real = cli._tune_trial
+    cli._tune_trial = counted_trial
+    try:
+        yield
+    finally:
+        cli._tune_trial = counted_trial.real
+        del counted_trial.real
+        os.environ.pop(SWEEP_COUNTS_ENV)
+
+
+def tune_worker(argv, ready) -> None:
+    """A ``tune --queue DIR --worker`` process: the command in this
+    process, its trials counted; ``ready`` is set once the port is imported
+    and the card initialised."""
+    from masters_thesis_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        torch.cuda.init()
+    counted_trial.real = cli._tune_trial
+    cli._tune_trial = counted_trial
+    ready.set()
+    with_stdout(cli.main, argv)
+
+
+def caption_corpus():
+    """Synthetic captions for GUSE_KEYS keys: 7 to 14 words each, drawn by
+    a Zipf law (p ~ 1/rank) over a CAPTION_WORDS word list; the bundle's
+    vocabulary leaves out every word whose rank ends in 3 (a tenth of the
+    words written), which then go through FarmHash to an OOV bucket.
+    Returns (keys, captions by key, the bundle's vocabulary, the share of
+    words written outside it)."""
+    rng = np.random.default_rng(SEED)
+    words = np.array([f"w{i:05d}" for i in range(CAPTION_WORDS)],
+                     dtype=object)
+    lengths = rng.integers(7, 15, GUSE_KEYS * GUSE_CAPTIONS)
+    zipf = 1.0 / np.arange(1, CAPTION_WORDS + 1)
+    ranks = rng.choice(CAPTION_WORDS, int(lengths.sum()),
+                       p=zipf / zipf.sum())
+    drawn = words[ranks]
+    ends = np.cumsum(lengths)
+    caps = [" ".join(drawn[e - n:e]) + "." for e, n in zip(ends, lengths)]
+    keys = np.arange(1, GUSE_KEYS + 1)
+    by_key = {int(k): caps[i * GUSE_CAPTIONS:(i + 1) * GUSE_CAPTIONS]
+              for i, k in enumerate(keys)}
+    kept = [w for i, w in enumerate(words) if i % 10 != 3]
+    vocab = kept + [f"v{i:06d}" for i in range(USE_VOCAB - len(kept))]
+    return keys, by_key, vocab, float(np.mean(ranks % 10 == 3))
+
+
+def check_use_encoder(root: Path, vocab, sentences, device, card: str):
+    """The encoder at the class's full width over a USE_VOCAB-token random
+    bundle: goldens from a CPU forward of USE_PROBES sentences, the bundle
+    loaded on the card through ``from_npz`` (golden check), a copy with two
+    of the probes' embedding rows swapped refused, and the card's vectors
+    within USE_ATOL of the CPU's on USE_CHECK_ROWS sentences. Returns the
+    bundle's path."""
+    from masters_thesis_tpu_torch.models.use_encoder import (
+        USEEncoder,
+        init_use_params,
+        save_use_bundle,
+    )
+
+    t0 = time.perf_counter()
+    params = init_use_params(USE_VOCAB, oov_buckets=USE_OOV_BUCKETS,
+                             embed_dim=512, hidden=(512, 512, 512),
+                             out_dim=512, seed=SEED)
+    cpu = USEEncoder(vocab, params, USE_OOV_BUCKETS, (512, 512, 512), 512,
+                     512, device="cpu")
+    probes = sentences[:USE_PROBES]
+    goldens = cpu.embed(probes)
+    path = root / "use_dan.npz"
+    save_use_bundle(str(path), vocab, params, USE_OOV_BUCKETS,
+                    goldens=(probes, goldens))
+    table_mb = params["embedding"].nbytes / 1e6
+    print(f"USE bundle: {USE_VOCAB} tokens + {USE_OOV_BUCKETS} OOV buckets, "
+          f"embed 512, hidden 512 x 3, out 512 ({table_mb:.1f} MB of table), "
+          f"{USE_PROBES} goldens from the CPU forward, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    enc = USEEncoder.from_npz(str(path), device=device)
+    load_s = time.perf_counter() - t0
+    golden_err = float(np.abs(enc.embed(probes) - goldens).max())
+    print(f"USE from_npz on the card: golden check passed ({golden_err:.2e} "
+          f"of {1e-3:.0e} max-abs), loaded in {load_s:.2f} s [{card}]")
+
+    a, b = sorted({i for s in probes for i in cpu.token_ids(s)
+                   if i < len(vocab)})[:2]
+    table = params["embedding"]
+    table[[a, b]] = table[[b, a]]
+    bad = root / "use_dan_swapped.npz"
+    save_use_bundle(str(bad), vocab, params, USE_OOV_BUCKETS,
+                    goldens=(probes, goldens))
+    table[[a, b]] = table[[b, a]]
+    try:
+        USEEncoder.from_npz(str(bad), device=device)
+    except ValueError as exc:
+        if "self-verification" not in str(exc):
+            raise
+        print(f"USE bundle with rows {a} and {b} ({vocab[a]!r}, "
+              f"{vocab[b]!r}) swapped: refused ({str(exc)[:90]}...)")
+    else:
+        raise RuntimeError("a USE bundle with two rows swapped loaded")
+    bad.unlink()
+
+    check = sentences[:USE_CHECK_ROWS]
+    t0 = time.perf_counter()
+    got = enc.embed(check)
+    card_s = time.perf_counter() - t0
+    err = float(np.abs(got - cpu.embed(check)).max())
+    print(f"USE card vs CPU on {len(check)} sentences: {err:.2e} max-abs "
+          f"(tolerance {USE_ATOL:.0e}); the card's embed {card_s:.3f} s "
+          f"[{card}]")
+    if err > USE_ATOL:
+        raise RuntimeError(f"the card's USE vectors are {err:.2e} from the "
+                           f"CPU's")
+    del enc, cpu, params
+    return path
+
+
+def guse_nsd(root: Path, bundle: Path, by_key, device, card: str) -> dict:
+    """``guse`` through the CLI on GUSE_KEYS x GUSE_CAPTIONS captions with
+    the bundle, then guse_nic (``configs/guse_nic.yaml``) one epoch on the
+    per-key vectors it wrote, for the GUSE_SPLIT keys (``ingest_run``: the
+    val loss falls, K1 on every train and val batch, K1 against its plain
+    version on the run's store). Returns K1's launches in the run, the
+    check's error and K1's timing on the store."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.evalsuite import guse_sim
+    from masters_thesis_tpu_torch.models.use_encoder import EMBED_CHUNK
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    t0 = time.perf_counter()
+    captions = root / "captions"
+    captions.mkdir()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda kv: (captions / f"KID{kv[0]}.txt").write_text(
+            "\n".join(kv[1]) + "\n"), by_key.items(), chunksize=512))
+    write_s = time.perf_counter() - t0
+    unique, shared, test = GUSE_SPLIT
+    keys = sorted(by_key)[:unique + shared]
+    nsd = root / "nsd"
+    write_split(nsd, keys[:unique], keys[unique:], keys[unique:][:test])
+    for hemi in ("lh", "rh"):           # build_data reads an atlas always
+        np.save(nsd / f"glasser_{hemi}.npy", np.zeros(4, np.int64))
+    cfg = ingest_config("guse_nic.yaml", str(root / "logs"),
+                        captions_path=captions, guse_path=bundle.parent,
+                        nsd_dir=nsd)
+    yaml = root / "guse_nic.yaml"
+    cfg.save(yaml)
+
+    # the command's parts by host clock: the encoder it makes (its
+    # ``seconds``), the caption files' read and the files' writes
+    from masters_thesis_tpu_torch.data import captions as captions_mod
+
+    made, spent = [], {"read": 0.0, "write": 0.0}
+    patched = {(guse_sim, "default_embedder"): guse_sim.default_embedder,
+               (captions_mod, "load_captions_dir"):
+                   captions_mod.load_captions_dir,
+               (np, "save"): np.save}
+
+    def timed(what, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[what] += time.perf_counter() - t
+        return run
+
+    def recording(*args, **kwargs):
+        made.append(patched[guse_sim, "default_embedder"](*args, **kwargs))
+        return made[-1]
+
+    guse_sim.default_embedder = recording
+    captions_mod.load_captions_dir = timed(
+        "read", patched[captions_mod, "load_captions_dir"])
+    np.save = timed("write", patched[np, "save"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        report = with_stdout(cli.main, ["guse", "--config", str(yaml),
+                                        "--out", str(root / "guse"),
+                                        "--device", str(device)])
+    finally:
+        for (module, name), fn in patched.items():
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = GUSE_KEYS * GUSE_CAPTIONS
+    sec = made[0].seconds
+    print(f"guse: {n} sentences ({GUSE_KEYS} keys x {GUSE_CAPTIONS}; "
+          f"{write_s:.2f} s to write their KID files, 8 threads) in "
+          f"{wall:.2f} s: read the caption files {spent['read']:.2f} s, "
+          f"embed {sec['tokenize'] + sec['device']:.2f} s "
+          f"({n / (sec['tokenize'] + sec['device']):.0f} sentences/s: host "
+          f"tokenization {sec['tokenize']:.2f} s, device {sec['device']:.2f}"
+          f" s, the upload, forward and copy back of chunks of "
+          f"{EMBED_CHUNK}), write the table and "
+          f"{report['per_key_files']} per-key files {spent['write']:.2f} s; "
+          f"peak device memory {peak / 1e9:.2f} GB [{card}]")
+    if (report["embedder"] != "use_dan" or report["n_keys"] != GUSE_KEYS
+            or report["captions_per_key"] != GUSE_CAPTIONS
+            or report["per_key_files"] != GUSE_KEYS):
+        raise RuntimeError(f"guse report {report}")
+    if peak > GUSE_PEAK_BYTES:
+        raise RuntimeError(f"guse peaked at {peak / 1e9:.2f} GB")
+    table = np.load(root / "guse" / "guse_pre_processed.npy", mmap_mode="r")
+    if table.shape != (GUSE_KEYS, GUSE_CAPTIONS, 512) or not np.isfinite(
+            table[-100:]).all():
+        raise RuntimeError(f"guse table {table.shape}")
+    del made, table
+
+    cfg.dataset.betas_path = str(root / "guse" / "guse_averaged")
+    gather_rows.launches = 0
+    out = ingest_run("guse_nic", cfg, device, card)
+    k1 = gather_rows.launches
+    del out["bundle"]
+    release()
+    return {"K1": k1, "errors": out["errors"],
+            "k1_stores": out["k1_stores"]}
+
+
+def score_phase(root: Path, bundle: Path, scored: dict, device,
+                card: str) -> None:
+    """``score`` through the CLI, with the bundle, against the references
+    as a JSON dict, on two captions files of the training product's test
+    keys: the run's own ``captions_E.txt`` and, since its model emits one
+    caption for every row after 2 epochs (which makes every GUSE score 0),
+    a control whose caption of each key is its first reference. Each must
+    score GUSE_* (not GUSE_hash_*), within GUSE_RTOL of ``run_metrics`` on
+    the same captions, and every text metric equal."""
+    import os
+
+    from masters_thesis_tpu_torch import cli, experiment
+    from masters_thesis_tpu_torch.config import Config
+
+    refs = {}
+    for split_pairs in scored["pairs"].values():
+        for key, cap, *_ in split_pairs:
+            refs.setdefault(int(key), []).append(" ".join(cap.split()[1:-1]))
+    (root / "refs.json").write_text(json.dumps(refs))
+    control = [refs[int(k)][0] for k in scored["keys"]]
+    runs = (("the run's captions", scored["captions"], scored["texts"]),
+            ("each key's first reference", "".join(
+                f"{k}\t{t}\n" for k, t in zip(scored["keys"], control)),
+             control))
+    os.environ["MTT_GUSE_WEIGHTS"] = str(bundle)
+    try:
+        for label, text, texts in runs:
+            (root / "captions.txt").write_text(text)
+            t0 = time.perf_counter()
+            report = with_stdout(cli.main, [
+                "score", "--captions", str(root / "captions.txt"),
+                "--references", str(root / "refs.json"), "--device",
+                str(device)])
+            score_s = time.perf_counter() - t0
+            want = experiment.run_metrics(
+                {"cfg": Config(), "pairs": scored["pairs"]},
+                {"texts": texts, "keys": scored["keys"]}, device=device)
+            got = report["scores"]
+            print(f"score on {label}: {report['n_scored']} of "
+                  f"{report['n_candidates']} captions in {score_s:.2f} s: "
+                  + ", ".join(f"{k} {got.get(k)} (run_metrics {want[k]})"
+                              for k in ("GUSE_pearson_r", "GUSE_mean_corr",
+                                        "Bleu_4"))
+                  + f" [{card}]")
+            if "GUSE_pearson_r" not in got or any(k.startswith("GUSE_hash")
+                                                  for k in got):
+                raise RuntimeError(f"score labelled {sorted(got)}")
+            for key, value in want.items():
+                if key.startswith("GUSE"):
+                    if abs(got[key] - value) > GUSE_RTOL * max(1.0,
+                                                               abs(value)):
+                        raise RuntimeError(f"score's {key} {got[key]} "
+                                           f"against run_metrics' {value}")
+                elif got.get(key) != value:
+                    raise RuntimeError(f"score's {key} {got.get(key)} "
+                                       f"against run_metrics' {value}")
+    finally:
+        del os.environ["MTT_GUSE_WEIGHTS"]
+    if not want["GUSE_mean_corr"]:
+        raise RuntimeError("the control's GUSE scores are 0")
+
+
+def trial_records(counts: Path) -> list[dict]:
+    return [json.loads(p.read_text()) for p in sorted(counts.glob("*.json"))]
+
+
+def print_trials(label: str, records, wall: float, card: str) -> dict:
+    """Each trial's wall s and launches, the sweep's wall s and trials an
+    hour, each process's peak device memory; the launches summed."""
+    for r in records:
+        print(f"  {label} trial {r['config']}: {r['wall_s']:.2f} s, K1 "
+              f"{r['gather_rows']}, K2 {r['fused_greedy_decode']} (process "
+              f"{r['pid']})")
+    peaks = {}
+    for r in records:
+        peaks[r["pid"]] = max(peaks.get(r["pid"], 0), r["peak_bytes"])
+    sums = {k: sum(r[k] for r in records)
+            for k in ("gather_rows", "fused_greedy_decode")}
+    print(f"{label}: {len(records)} trials in {wall:.2f} s, "
+          f"{len(records) / wall * 3600:.1f} trials/hour; peak device "
+          f"memory by process (allocator) "
+          + ", ".join(f"{pid}: {b / 1e9:.2f} GB" for pid, b in peaks.items())
+          + f"; launches summed over them K1 {sums['gather_rows']}, K2 "
+          f"{sums['fused_greedy_decode']} [{card}]")
+    if not sums["gather_rows"] or any(not r["gather_rows"]
+                                      for r in records):
+        raise RuntimeError(f"{label}: a trial launched no K1: {records}")
+    return sums
+
+
+def tune_phase(root: Path, device, card: str) -> dict:
+    """``tune`` through the CLI on ``configs/flagship_synth.yaml`` at
+    TUNE_KEYS keys: TUNE_SAMPLES trials in TUNE_PROCESSES spawned processes
+    over TUNE_EPOCHS epochs, then ``--queue`` with this process as the
+    coordinator and one ``--worker`` process, QUEUE_TRIALS trials. Every
+    trial must finish (ASHA may stop it), none in error, every one
+    recorded; K1 and K2 are counted in the processes that ran the trials
+    (``counted_trial``). Returns the launches summed."""
+    import multiprocessing as mp
+
+    from masters_thesis_tpu_torch import cli
+
+    cfg = ingest_config(TUNE_CONFIG, str(root / "tune_logs"))
+    yaml = root / "tune.yaml"
+    cfg.save(yaml)
+    base = ["tune", "--config", str(yaml), "--epochs", str(TUNE_EPOCHS),
+            "--smoke-keys", str(TUNE_KEYS), "--device", str(device)]
+    sums = {"gather_rows": 0, "fused_greedy_decode": 0}
+
+    counts = root / "counts_processes"
+    counts.mkdir()
+    t0 = time.perf_counter()
+    with counting_trials(counts):
+        out = with_stdout(cli.main, [*base, "--num-samples",
+                                     str(TUNE_SAMPLES), "--processes",
+                                     str(TUNE_PROCESSES)])
+    wall = time.perf_counter() - t0
+    results = json.loads((root / "tune_logs" / "tune_results.json")
+                         .read_text())["trials"]
+    print(f"tune --processes {TUNE_PROCESSES}: {out}")
+    for t in results:
+        print(f"  trial {t['trial_id']}: final val_loss {t['final_metric']}, "
+              f"{len(t['history'])} epochs, stopped by ASHA "
+              f"{t['stopped_early']}, {t['wall_s']:.2f} s, error "
+              f"{t['error']}")
+    if (len(results) != TUNE_SAMPLES or out["n_trials"] != TUNE_SAMPLES
+            or any(t["error"] or t["final_metric"] is None
+                   or not np.isfinite(t["final_metric"]) for t in results)):
+        raise RuntimeError(f"tune results {results}")
+    records = trial_records(counts)
+    if len(records) != TUNE_SAMPLES or len({r["pid"] for r in records}) < 2:
+        raise RuntimeError(f"trial records {records}")
+    for k, v in print_trials(f"tune --processes {TUNE_PROCESSES}", records,
+                             wall, card).items():
+        sums[k] += v
+    release()
+
+    counts = root / "counts_queue"
+    counts.mkdir()
+    queue = root / "queue"
+    argv = [*base, "--num-samples", str(QUEUE_TRIALS), "--queue", str(queue)]
+    ctx = mp.get_context("spawn")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting_trials(counts):
+        ready = ctx.Event()
+        worker = ctx.Process(target=tune_worker,
+                             args=([*argv, "--worker"], ready))
+        worker.start()
+        try:
+            if not ready.wait(300):
+                raise RuntimeError("the --worker process did not start")
+            out = with_stdout(cli.main, argv)
+        finally:
+            worker.join(timeout=600)
+            if worker.is_alive():
+                worker.kill()
+                worker.join()
+    wall = time.perf_counter() - t0
+    print(f"tune --queue (this process and one --worker): {out}; the "
+          f"worker exited {worker.exitcode}")
+    done = [json.loads(p.read_text())
+            for p in sorted((queue / "done").glob("*.json"))]
+    for r in done:
+        print(f"  trial {r['trial_id']} by {r['worker']}: final val_loss "
+              f"{r['final_metric']}, {len(r['history'])} epochs, "
+              f"{r['wall_s']:.2f} s, error {r.get('error')}")
+    if (worker.exitcode != 0 or len(done) != QUEUE_TRIALS
+            or out["n_trials"] != QUEUE_TRIALS
+            or any(r.get("error") or r["final_metric"] is None
+                   for r in done)):
+        raise RuntimeError(f"tune --queue records {done}")
+    records = trial_records(counts)
+    if len(records) != QUEUE_TRIALS or len({r["pid"] for r in records}) < 2:
+        raise RuntimeError(f"trial records {records}: the coordinator and "
+                           f"the worker must each run a trial")
+    for k, v in print_trials("tune --queue", records, wall, card).items():
+        sums[k] += v
+    return sums
+
+
+def sweep(device, card: str, scored: dict) -> dict:
+    """The sweep phase: the USE encoder at full width (``check_use_encoder``),
+    ``guse`` at NSD scale and guse_nic on its output (``guse_nsd``),
+    ``score`` with the encoder (``score_phase``) and ``tune`` in processes
+    and through a queue (``tune_phase``). Returns K1's and K2's launches
+    in the phase's runs (K1's in guse_nic's epoch and the trials, K2's in
+    the trials), the K1 check's error and K1's timing on guse_nic's
+    store."""
+    from masters_thesis_tpu_torch.models.use_encoder import clean_sentence
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtt_sweep_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        keys, by_key, vocab, oov_share = caption_corpus()
+        sentences = [clean_sentence(c) for k in keys[:USE_CHECK_ROWS]
+                     for c in by_key[int(k)]][:USE_CHECK_ROWS]
+        print(f"sweep corpus: {GUSE_KEYS} keys x {GUSE_CAPTIONS} captions, "
+              f"{oov_share:.1%} of the words written outside the bundle's "
+              f"vocabulary, made in {time.perf_counter() - t0:.2f} s")
+        (root / "use").mkdir()
+        bundle = check_use_encoder(root / "use", vocab, sentences, device,
+                                   card)
+        release()
+        guse = guse_nsd(root, bundle, by_key, device, card)
+        del by_key
+        score_phase(root, bundle, scored, device, card)
+        release()
+        tuned = tune_phase(root, device, card)
+        release()
+    launches = {"gather_rows": guse["K1"] + tuned["gather_rows"],
+                "fused_greedy_decode": tuned["fused_greedy_decode"]}
+    print(f"sweep: the phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches} (K1 {guse['K1']} of them in guse_nic's "
+          f"epoch) [{card}]")
+    return {"launches": launches, "errors": guse["errors"],
+            "k1_stores": guse["k1_stores"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2607,8 +3144,12 @@ def main(argv=None) -> int:
     ingested = ingest(device, card)
     ing = ingested["launches"]
     release()
-    k1["max_abs_err"] = max([k1["max_abs_err"], *ingested["errors"]["K1"]])
-    k1["stores"] += ingested["k1_stores"]
+    swept = sweep(device, card, product.pop("scored"))
+    swp = swept["launches"]
+    release()
+    k1["max_abs_err"] = max([k1["max_abs_err"], *ingested["errors"]["K1"],
+                             swept["errors"]["K1"]])
+    k1["stores"] += ingested["k1_stores"] + swept["k1_stores"]
     k2["max_abs_err"] = max([k2["max_abs_err"], *fam["errors"]["K2"],
                              *ingested["errors"]["K2"]])
     k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"],
@@ -2620,7 +3161,8 @@ def main(argv=None) -> int:
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
         "launches": launches, "launches_experiment": product["K2"],
         "launches_families": counts["fused_greedy_decode"],
-        "launches_ingest": ing["fused_greedy_decode"], **k2}, {
+        "launches_ingest": ing["fused_greedy_decode"],
+        "launches_sweep": swp["fused_greedy_decode"], **k2}, {
         "name": "fused_greedy_decode_gru", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276",
@@ -2631,7 +3173,8 @@ def main(argv=None) -> int:
         "replaces": "masters_thesis_tpu/ops/gather.py:49",
         "launches_experiment": product["K1"],
         "launches_families": counts["gather_rows"],
-        "launches_ingest": ing["gather_rows"], **k1}, {
+        "launches_ingest": ing["gather_rows"],
+        "launches_sweep": swp["gather_rows"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},

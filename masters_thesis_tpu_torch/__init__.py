@@ -7,7 +7,8 @@ the JAX package: the framework-free modules it needs (``ops.group_layout``,
 ``data.tokenizer``, ``data.pairs``, ``data.splits``, ``data.pipeline``,
 ``data.synthetic``, ``data.captions``, ``data.pack``, ``data.nsd_images``,
 ``data.preprocess`` but its PCA, ``evalsuite``, ``utils.logging``,
-``utils.tensorboard``, ``serve.padded_chunk_ids`` and ``server``) are its own
+``utils.tensorboard``, ``utils.farmhash``, ``utils.keras_import``,
+``tune``, ``serve.padded_chunk_ids`` and ``server``) are its own
 copies, held against their originals by the tests.
 Every Pallas kernel on a ported path becomes a hand-written Hopper kernel
 under ``csrc/``, with a plain PyTorch version beside it.
@@ -34,8 +35,13 @@ real NSD data in ``experiment.build_data``, ``experiment.run_preprocess``
 (session files -> pack -> statistics -> vc mask, normalize and a PCA
 fitted and applied on the card), the transform chain behind
 ``caption/serve --pre``, and the CNN backbones (``models.backbones``,
-``resnet``, ``inception``, ``efficientnet``) behind ``features``. Entry
-points run on the card (``cuda``) unless the caller passes
+``resnet``, ``inception``, ``efficientnet``) behind ``features``; and the
+sweep's side: the USE-DAN sentence encoder (``models.use_encoder``, with
+its own copy of ``utils.farmhash``) behind ``guse`` and ``score`` and
+``run_metrics``' ``GUSE_*`` scores, the hyper-parameter sweep (``tune``:
+search, ASHA, trial processes and the shared-filesystem queue, copied)
+behind ``tune``, and the Keras weight import (``utils.keras_import``,
+copied). Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"`` (the CLI: ``--device cpu``).
 """
 

@@ -20,11 +20,20 @@ input side, with their flags and their last-line JSON:
       (CNN/feature_extractor*.py)
   python -m masters_thesis_tpu_torch stimuli --hdf5 nsd_stimuli.hdf5
       --out-dir DIR [--format png|npy]
+  python -m masters_thesis_tpu_torch guse --config c.yaml --out DIR
+      [--no-per-key]   (get_guse.py)
+  python -m masters_thesis_tpu_torch score --captions captions_{e}.txt
+      --references DIR|refs.json [--tokenizer t.json --keys k.txt]
+      [--bleu-table]   (Eval/one_shot.py + evaluate.py)
+  python -m masters_thesis_tpu_torch tune --config c.yaml [--num-samples N
+      | --grid] [--smoke-test] [--processes N] [--queue DIR [--worker]
+      [--stale-claim S] [--resume-queue]]   (tune.py, gridsearch_train.py)
 
 Each runs on the card unless it is given ``--device cpu`` (``transform``
-and ``stimuli`` run on the host). A flag of the JAX CLI that the port does
-not honour yet exits non-zero with a message that names the ROADMAP item
-that ports it.
+and ``stimuli`` run on the host; ``guse`` and ``score`` run the USE
+encoder on the device when a weight bundle is found, and otherwise embed
+on the host). A flag of the JAX CLI that the port does not honour yet
+exits non-zero with a message that names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -201,6 +210,62 @@ def _parser() -> argparse.ArgumentParser:
                     help=".npy of 1-based NSD keys (default: all)")
     st.add_argument("--out-dir", required=True)
     st.add_argument("--format", default="png", choices=["png", "npy"])
+
+    tu = sub.add_parser("tune", help="random-search + ASHA over L2 regs")
+    _add_common(tu)
+    tu.add_argument("--num-samples", type=int, default=8)
+    tu.add_argument("--smoke-test", action="store_true")
+    tu.add_argument("--grid", action="store_true",
+                    help="grid search over the L2 space instead of random "
+                    "(gridsearch_train.py / kerastuner equivalent)")
+    tu.add_argument("--processes", type=int, default=1,
+                    help="parallel trial processes (spawned; on one card "
+                    "they share it)")
+    tu.add_argument("--queue", default=None, metavar="DIR",
+                    help="shared-filesystem trial queue for multi-host "
+                    "dispatch (the ray.init(address=...) analogue, "
+                    "tune.py:215-228); coordinator enqueues + works inline")
+    tu.add_argument("--worker", action="store_true",
+                    help="with --queue: join as a worker host instead of "
+                    "coordinating")
+    tu.add_argument("--stale-claim", type=float, default=60.0,
+                    help="with --queue: seconds without a heartbeat before "
+                    "a dead worker's running trial is re-queued")
+    tu.add_argument("--resume-queue", action="store_true",
+                    help="with --queue: continue an interrupted "
+                    "experiment's queue dir — keep done/ results, enqueue "
+                    "only missing trials (search space must reproduce "
+                    "exactly: same config seed and search flags)")
+
+    so = sub.add_parser("score",
+                        help="score a saved captions file against references "
+                        "— no run/config needed (Eval/one_shot.py + "
+                        "evaluate.py)")
+    so.add_argument("--captions", required=True,
+                    help="captions_{e}.txt (key\\ttext lines) or "
+                    "output_captions_{e}.npy token ids")
+    so.add_argument("--tokenizer", default=None,
+                    help="tokenizer.json — required for .npy ids")
+    so.add_argument("--keys", default=None,
+                    help="text file of NSD keys, one per .npy row — "
+                    "required for .npy")
+    so.add_argument("--references", required=True,
+                    help="KID{key}.txt captions dir, or a JSON "
+                    "{key: [caption, ...]} annotations dict")
+    so.add_argument("--bleu-table", action="store_true",
+                    help="also emit the 8-weight NLTK BLEU table "
+                    "(evaluate.py:178-226)")
+    _add_device(so)
+
+    gu = sub.add_parser("guse",
+                        help="precompute sentence embeddings for every "
+                        "caption (get_guse.py): flat (N, C, 512) brick + "
+                        "per-key averaged vectors for guse_nic training")
+    gu.add_argument("--config", required=True)
+    gu.add_argument("--out", required=True, help="output directory")
+    gu.add_argument("--no-per-key", action="store_true",
+                    help="skip the guse_averaged/ per-key files")
+    _add_device(gu)
     return ap
 
 
@@ -361,6 +426,195 @@ def _run_stimuli(args) -> dict:
     return {"out_dir": args.out_dir, "exported": n, "format": args.format}
 
 
+def _run_score(args) -> dict:
+    """Standalone caption scoring (Eval/one_shot.py + evaluate.py): a saved
+    captions file vs references, without rebuilding a run. Accepts the
+    run artifacts directly — ``captions_{e}.txt`` (key\\ttext) or the
+    reference-format ``output_captions_{e}.npy`` token-id matrix (with its
+    ``tokenizer.json`` and a key list). GUSE scores come from the USE
+    encoder on ``--device`` when ``MTT_GUSE_WEIGHTS`` names a bundle."""
+    import os
+
+    import numpy as np
+
+    from masters_thesis_tpu_torch.evalsuite.guse_sim import (
+        labelled_guse_scores,
+    )
+    from masters_thesis_tpu_torch.evalsuite.metric_suite import (
+        bleu_table,
+        clean_references,
+        evaluate_captions,
+    )
+
+    # --- candidates ---
+    keys: list[int] = []
+    texts: list[str] = []
+    if args.captions.endswith(".npy"):
+        if not (args.tokenizer and args.keys):
+            raise SystemExit(
+                "scoring an .npy id matrix needs --tokenizer tokenizer.json "
+                "and --keys <file> (one NSD key per row)")
+        from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
+        from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption
+
+        ids = np.load(args.captions)
+        if ids.ndim == 3 and ids.shape[-1] == 1:
+            ids = ids[..., 0]  # the reference saves (N, T, 1) (one_shot.py)
+        tok = Tokenizer.load(args.tokenizer)
+        with open(args.keys) as f:
+            keys = [int(ln.split()[0]) for ln in f if ln.strip()]
+        if len(keys) != len(ids):
+            raise SystemExit(
+                f"--keys has {len(keys)} rows but the id matrix has "
+                f"{len(ids)}")
+        texts = [ids_to_caption(row, tok) for row in ids]
+    else:
+        with open(args.captions) as f:
+            for ln in f:
+                if "\t" in ln:
+                    k, t = ln.rstrip("\n").split("\t", 1)
+                    keys.append(int(k))
+                    texts.append(t)
+        if not keys:
+            raise SystemExit(
+                f"{args.captions} has no key\\ttext lines")
+
+    # --- references ---
+    if os.path.isdir(args.references):
+        from masters_thesis_tpu_torch.data.captions import load_captions_dir
+
+        refs_by_key = load_captions_dir(args.references, keys=keys)
+    else:
+        with open(args.references) as f:
+            payload = json.load(f)
+        refs_by_key = {int(k): list(v) for k, v in payload.items()}
+
+    scored_keys, cands, refs = [], [], []
+    for k, t in zip(keys, texts):
+        r = refs_by_key.get(int(k))
+        if r:
+            scored_keys.append(int(k))
+            cands.append(t)
+            # raw COCO reference text never matches tokenizer output — the
+            # same normalisation every in-run scoring path applies
+            refs.append(clean_references(r))
+    if not cands:
+        raise SystemExit("no candidate key has references")
+
+    report = {
+        "n_candidates": len(keys),
+        "n_scored": len(cands),
+        "n_missing_refs": len(keys) - len(cands),
+        "scores": evaluate_captions(cands, refs),
+    }
+    report["scores"].update(labelled_guse_scores(cands, refs,
+                                                 device=args.device))
+    if args.bleu_table:
+        report["bleu_table"] = bleu_table(cands, refs)
+    return report
+
+
+def _tune_trial(cfg, epochs, smoke_keys, tc, report, device=None):
+    """Module-level trial body so --processes > 1 can pickle it
+    (ProcessPoolExecutor ships the partial to spawned worker processes).
+
+    Trains the trial's config with the port's ``run_training`` on
+    ``device`` (default ``cuda``). Reports val_loss to the scheduler EVERY
+    epoch via a Trainer callback and stops training when the scheduler says
+    'stop' — the TuneReportCallback flow (AttemptFour/tune.py:146-153) that
+    lets ASHA actually prune."""
+    import dataclasses
+    import hashlib
+
+    from masters_thesis_tpu_torch.experiment import run_training
+    from masters_thesis_tpu_torch.train.callbacks import Callback
+
+    # unique, deterministic run dir per trial config — parallel workers
+    # (and sequential trials' artifacts) must not collide
+    tag = hashlib.sha1(repr(sorted(tc.items())).encode()).hexdigest()[:8]
+    tcfg = dataclasses.replace(
+        cfg,
+        run=f"{cfg.run}_trial_{tag}",
+        input_reg=tc["input_reg"],
+        attn_reg=tc["attn_reg"],
+        lstm_reg=tc["lstm_reg"],
+        output_reg=tc["output_reg"],
+    )
+
+    class TuneReport(Callback):
+        def on_epoch_end(self, trainer, epoch, logs):
+            val = logs.get("val_loss", logs.get("loss", 0.0))
+            decision = report(epoch + 1, {"val_loss": float(val)})
+            if decision == "stop":
+                trainer.stop_training = True
+
+    _, logs, _ = run_training(
+        tcfg, epochs, smoke_keys, extra_callbacks=[TuneReport()],
+        device=device)
+    return logs.get("val_loss", logs.get("loss", 0.0))
+
+
+def _run_tune(args, cfg) -> dict:
+    """Random or grid search over the L2 regularisers with ASHA, as the JAX
+    CLI's ``tune``: trials in this process, in ``--processes`` spawned
+    processes, or through a ``--queue`` directory (coordinator, or a
+    ``--worker`` that joins one). Returns the last-line JSON."""
+    import functools
+
+    from masters_thesis_tpu_torch.tune.asha import ASHAScheduler
+    from masters_thesis_tpu_torch.tune.runner import run_experiment
+    from masters_thesis_tpu_torch.tune.search import (
+        GridSearch,
+        LogUniform,
+        RandomSearch,
+    )
+
+    num = 2 if args.smoke_test else args.num_samples
+    epochs = args.epochs or (2 if args.smoke_test else cfg.epochs)
+    trial = functools.partial(_tune_trial, cfg, epochs, args.smoke_keys,
+                              device=args.device)
+    if args.grid:
+        # kerastuner-style grid (ThinkAndTell gridsearch_train.py:318)
+        search = GridSearch({
+            "input_reg": [1e-4, 1e-2],
+            "attn_reg": [1e-4, 1e-2],
+            "lstm_reg": [1e-6, 1e-4],
+            "output_reg": [1e-6],
+        })
+    else:
+        # the reference's loguniform L2 search space (tune.py:194-197)
+        space = {
+            "input_reg": LogUniform(1e-5, 1e-1),
+            "attn_reg": LogUniform(1e-5, 1e-1),
+            "lstm_reg": LogUniform(1e-7, 1e-3),
+            "output_reg": LogUniform(1e-7, 1e-3),
+        }
+        search = RandomSearch(space, num, seed=cfg.seed)
+    sched = ASHAScheduler(max_t=epochs, grace_period=max(1, epochs // 4))
+    if args.queue and args.worker:
+        # join an existing multi-host queue (ray.init(address=...) flow,
+        # tune.py:215-228): work trials until the coordinator writes STOP
+        from masters_thesis_tpu_torch.tune.dispatch import run_worker
+
+        n_done = run_worker(args.queue, trial, sched,
+                            stale_claim_s=args.stale_claim)
+        return {"worker_trials": n_done, "queue": args.queue}
+    if args.queue:
+        from masters_thesis_tpu_torch.tune.dispatch import (
+            run_distributed_experiment,
+        )
+
+        res = run_distributed_experiment(
+            trial, search, sched, queue_dir=args.queue,
+            stale_claim_s=args.stale_claim, resume=args.resume_queue)
+    else:
+        res = run_experiment(trial, search, sched, log_dir=cfg.log,
+                             processes=args.processes)
+    return {"best": res.best()["config"],
+            "best_metric": res.best()["final_metric"],
+            "n_trials": len(res.trials)}
+
+
 def make_server(args):
     """The ``serve`` command's HTTP server, built and not started: a
     ``Captioner`` of ``--run`` on ``--device`` (behind ``--pre``'s chain)
@@ -395,6 +649,9 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "stimuli":
         print(json.dumps(_run_stimuli(args)))
+        return 0
+    if args.cmd == "score":
+        print(json.dumps(_run_score(args)))
         return 0
     if args.cmd == "transform":
         import numpy as np
@@ -446,12 +703,22 @@ def main(argv=None) -> int:
     from masters_thesis_tpu_torch.config import Config
     from masters_thesis_tpu_torch.experiment import (
         run_eval,
+        run_guse_precompute,
         run_metrics,
         run_preprocess,
         run_training,
     )
 
     cfg = Config.load(args.config)
+    if args.cmd == "guse":
+        report = run_guse_precompute(cfg, args.out,
+                                     per_key=not args.no_per_key,
+                                     device=args.device)
+        print(json.dumps(report))
+        return 0
+    if args.cmd == "tune":
+        print(json.dumps(_run_tune(args, cfg)))
+        return 0
     if args.cmd == "preprocess":
         report = run_preprocess(
             cfg, args.out, pca_components=args.pca,

@@ -17,10 +17,11 @@ guse dir); otherwise the deterministic ``HashEmbedder`` keeps the pipeline
 runnable end-to-end — and its scores are labelled ``GUSE_hash_*`` so a
 bag-of-words proxy is never mistaken for the reference metric.
 
-The port's own copy of ``masters_thesis_tpu/evalsuite/guse_sim.py``. The
-USE-DAN encoder is not ported yet (ROADMAP M12): given a weight bundle,
-``default_embedder`` raises; without one it returns the hash embedder, as
-the JAX package does.
+The port's own copy of ``masters_thesis_tpu/evalsuite/guse_sim.py``.
+Given a weight bundle, ``default_embedder`` returns the port's USE-DAN
+encoder (``models/use_encoder.py``) on ``device``, the card unless the
+caller asks for the CPU; without one it returns the hash embedder, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -38,15 +39,16 @@ class SentenceEmbedder(Protocol):
     def embed(self, sentences: list[str]) -> np.ndarray: ...
 
 
-def default_embedder(weights_path: str | None = None) -> SentenceEmbedder:
-    """USE-DAN from a weight bundle when one is available, else the hash
-    fallback. Resolution order: explicit path arg -> MTT_GUSE_WEIGHTS env."""
+def default_embedder(weights_path: str | None = None,
+                     device=None) -> SentenceEmbedder:
+    """USE-DAN from a weight bundle when one is available, on ``device``
+    (default ``cuda``), else the hash fallback. Resolution order: explicit
+    path arg -> MTT_GUSE_WEIGHTS env."""
     path = weights_path or os.environ.get("MTT_GUSE_WEIGHTS", "")
     if path and os.path.exists(path):
-        raise NotImplementedError(
-            f"the USE-DAN sentence encoder ({path}) is ported with the "
-            "backbones (ROADMAP M12); without a weight bundle the hash "
-            "embedder scores as GUSE_hash_*")
+        from masters_thesis_tpu_torch.models.use_encoder import USEEncoder
+
+        return USEEncoder.from_npz(path, device=device)
     return HashEmbedder()
 
 
@@ -86,13 +88,15 @@ class HashEmbedder:
 
 
 def labelled_guse_scores(candidates, references_list,
-                         weights_path: str | None = None) -> dict:
+                         weights_path: str | None = None,
+                         device=None) -> dict:
     """GUSE consistency scores with the honest-labeling rule applied in ONE
     place: ``GUSE_*`` keys only when the real USE-DAN encoder produced them,
     ``GUSE_hash_*`` for the bag-of-words fallback (so a word-overlap proxy
-    can never be mistaken for the reference metric, get_guse.py:49-63)."""
+    can never be mistaken for the reference metric, get_guse.py:49-63).
+    The encoder runs on ``device`` (default ``cuda``)."""
     guse = guse_similarity(candidates, references_list,
-                           embedder=default_embedder(weights_path))
+                           embedder=default_embedder(weights_path, device))
     prefix = "GUSE" if guse["embedder"] == "use_dan" else "GUSE_hash"
     return {
         f"{prefix}_pearson_r": guse["pearson_r"],

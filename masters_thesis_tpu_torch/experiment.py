@@ -5,7 +5,10 @@ AttemptFour/main.py, main_ms.py, main_images.py, eval.py, metric_suit.py)
 for every model family of its ``build_model``: ``build_data``,
 ``build_model``, ``run_training`` (a ``Trainer`` with the standard
 callbacks and async checkpoints), ``run_eval`` (greedy or beam decoding of
-the test split) and ``run_metrics`` (the metric suite). ``run_training``
+the test split), ``run_metrics`` (the metric suite; ``GUSE_*`` from the
+USE encoder on the device when a weight bundle is found) and
+``run_guse_precompute`` (get_guse.py: every caption's USE vector and the
+per-key averages that ``guse_nic`` trains on). ``run_training``
 writes the JAX package's run directory: ``config.yaml``, ``log.log``,
 ``tokenizer.json``, ``layout.npz`` (for the families whose encoder reads a
 group layout), ``glove_table.npy`` (for a GloVe run), ``modelsummary.txt``,
@@ -649,11 +652,73 @@ def run_eval(bundle, run_path: str, epoch: int | None = None,
     return {"words": words, "keys": keys, "texts": texts, "epoch": e}
 
 
-def run_metrics(bundle, eval_out, captions_by_key=None) -> dict:
+def run_guse_precompute(cfg: Config, out_dir: str, per_key: bool = True,
+                        device=None) -> dict:
+    """The reference's GUSE precompute (AttemptFour/get_guse.py
+    __main__): embed every caption of every key, save the flat
+    (N, C, 512) brick plus the per-key averaged vectors that the guse_NIC
+    data path trains on (get_guse.py:104-140: guse_pre_processed.npy and
+    guse_averaged/guse_embedding_KID{key}.npy, the ``*_KID*.npy`` files
+    ``build_data`` reads as ``dataset.betas_path``).
+
+    The embedder resolves exactly like run_metrics: the real USE-DAN on
+    ``device`` (default ``cuda``) when a weight bundle is present, otherwise
+    the hash fallback on the host — and meta.json records which one
+    produced the files so hash output can never be mistaken for GUSE."""
+    from masters_thesis_tpu_torch.data.captions import load_captions_dir
+    from masters_thesis_tpu_torch.evalsuite.guse_sim import (
+        default_embedder,
+        embed_caption_table,
+    )
+
+    caps = load_captions_dir(cfg.dataset.captions_path)
+    if not caps:
+        raise FileNotFoundError(
+            f"no KID*.txt caption files under {cfg.dataset.captions_path!r}")
+    guse_dir = cfg.dataset.guse_path
+    bundle_path = os.path.join(guse_dir, "use_dan.npz") if guse_dir else None
+    embedder = default_embedder(
+        bundle_path if bundle_path and os.path.exists(bundle_path) else None,
+        device)
+    keys, table = embed_caption_table(caps, embedder=embedder)
+
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "guse_pre_processed.npy"), table)
+    np.save(os.path.join(out_dir, "keys.npy"), keys)
+    n_per_key = 0
+    if per_key and len(keys):
+        avg_dir = os.path.join(out_dir, "guse_averaged")
+        os.makedirs(avg_dir, exist_ok=True)
+        averaged = table.mean(axis=1)  # (N, 512), get_guse.py:94
+        for key, vec in zip(keys, averaged):
+            np.save(os.path.join(
+                avg_dir, f"guse_embedding_KID{int(key)}.npy"), vec)
+        n_per_key = len(keys)
+    name = getattr(embedder, "name", type(embedder).__name__)
+    meta = {
+        "embedder": name,
+        "is_real_guse": name == "use_dan",
+        "n_keys": int(len(keys)),
+        "captions_per_key": int(table.shape[1]) if table.ndim == 3 else 0,
+        "dim": int(table.shape[-1]) if table.size else embedder.dim,
+    }
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    logger.info("GUSE precompute: %d keys x %d captions -> %s (embedder=%s)",
+                meta["n_keys"], meta["captions_per_key"], out_dir, name)
+    return {**meta, "out": out_dir, "per_key_files": n_per_key}
+
+
+def run_metrics(bundle, eval_out, captions_by_key=None, device=None) -> dict:
     """The metric suite (reference metric_suit.py + guse_sim.py) on the
-    eval output. GUSE scores carry ``GUSE_hash_*``: the USE encoder waits
-    (ROADMAP M12), and a USE weight bundle in the config's guse dir
-    raises."""
+    eval output.
+
+    GUSE scores are labelled ``GUSE_*`` only when produced by the real
+    USE-DAN encoder (models/use_encoder.py, weights resolved via
+    MTT_GUSE_WEIGHTS or <guse_path>/use_dan.npz), which runs on ``device``,
+    by default the device of the bundle's store (``cuda`` without one); the
+    offline hash fallback reports as ``GUSE_hash_*`` so a word-overlap proxy
+    can never be mistaken for the reference metric (get_guse.py:49-63)."""
     from masters_thesis_tpu_torch.evalsuite.guse_sim import (
         labelled_guse_scores,
     )
@@ -672,10 +737,13 @@ def run_metrics(bundle, eval_out, captions_by_key=None) -> dict:
 
     guse_dir = bundle["cfg"].dataset.guse_path
     bundle_path = os.path.join(guse_dir, "use_dan.npz") if guse_dir else None
+    if device is None and bundle.get("store") is not None:
+        device = bundle["store"].device
     scores.update(labelled_guse_scores(
         eval_out["texts"], refs,
         weights_path=(bundle_path if bundle_path
-                      and os.path.exists(bundle_path) else None)))
+                      and os.path.exists(bundle_path) else None),
+        device=device))
     return scores
 
 

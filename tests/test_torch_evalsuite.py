@@ -198,11 +198,31 @@ def test_guse_hash_scores_match_original(name):
 
 
 def test_use_encoder_bundle_waits_for_its_port(tmp_path, monkeypatch):
-    """With a USE weight bundle the JAX package runs the real encoder; the
-    port refuses, naming the ROADMAP item, and without one both hash."""
+    """The port of the USE encoder has come: with a USE weight bundle both
+    packages run the real encoder (the port's on the device it is given),
+    a file that is no bundle fails both alike, and without one both
+    hash."""
+    from masters_thesis_tpu.models.use_encoder import (
+        USEEncoder as JUSEEncoder,
+    )
+    from masters_thesis_tpu.models.use_encoder import (
+        init_use_params,
+        save_use_bundle,
+    )
+    from masters_thesis_tpu_torch.models.use_encoder import USEEncoder
+
     bundle = tmp_path / "use_dan.npz"
-    np.savez(bundle, x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="M12"):
-        guse_sim.default_embedder(str(bundle))
+    save_use_bundle(str(bundle), ["a", "dog"],
+                    init_use_params(2, oov_buckets=4, embed_dim=8,
+                                    hidden=(8,), out_dim=8), 4)
+    assert isinstance(guse_sim.default_embedder(str(bundle), "cpu"),
+                      USEEncoder)
+    assert isinstance(jguse.default_embedder(str(bundle)), JUSEEncoder)
+    broken = tmp_path / "broken.npz"
+    np.savez(broken, x=np.zeros(1))
+    with pytest.raises(KeyError):
+        guse_sim.default_embedder(str(broken), "cpu")
+    with pytest.raises(KeyError):
+        jguse.default_embedder(str(broken))
     monkeypatch.delenv("MTT_GUSE_WEIGHTS", raising=False)
     assert isinstance(guse_sim.default_embedder(), guse_sim.HashEmbedder)

@@ -399,13 +399,6 @@ def _make(cls_name, module="masters_thesis_tpu_torch.train.callbacks"):
     return run
 
 
-def _use_bundle(tmp_path):
-    from masters_thesis_tpu_torch.evalsuite.guse_sim import default_embedder
-
-    np.savez(tmp_path / "use_dan.npz", x=np.zeros(1))
-    return lambda: default_embedder(str(tmp_path / "use_dan.npz"))
-
-
 REFUSALS = {
     "data mesh": (lambda t: lambda: _train(t, mesh_data=2), "M13"),
     "model mesh": (lambda t: lambda: _train(t, mesh_model=2), "M13"),
@@ -425,7 +418,6 @@ REFUSALS = {
         fromlist=["x"]).render_caption_image(None, "a"), "M14"),
     "StepProfiling": (lambda t: _make("StepProfiling"), "M14"),
     "TraceCapture": (lambda t: _make("TraceCapture"), "M14"),
-    "USE encoder": (_use_bundle, "M12"),
 }
 
 
@@ -490,8 +482,30 @@ def _real_data_run(tmp_path):
            nsd_dir=str(nsd))
 
 
-# parts a former slice refused, naming ROADMAP M9, M11 or M19, now run
+def _use_metrics_run(tmp_path):
+    """A USE weight bundle in the config's guse dir: run_metrics scores
+    with the port's encoder and labels GUSE_* (it refused, naming M12)."""
+    from masters_thesis_tpu_torch.models.use_encoder import (
+        init_use_params,
+        save_use_bundle,
+    )
+
+    vocab = ["a", "the", "dog", "runs"]
+    save_use_bundle(str(tmp_path / "use_dan.npz"), vocab,
+                    init_use_params(len(vocab), oov_buckets=8, embed_dim=16,
+                                    hidden=(16,), out_dim=16), 8)
+    cfg = dataclasses.replace(_cfg(guse_path=str(tmp_path)),
+                              log=str(tmp_path))
+    run_path, _, bundle = experiment.run_training(cfg, epochs=1,
+                                                  smoke_keys=12, device="cpu")
+    scores = experiment.run_metrics(bundle,
+                                    experiment.run_eval(bundle, run_path))
+    assert "GUSE_pearson_r" in scores and "GUSE_hash_pearson_r" not in scores
+
+
+# parts a former slice refused, naming ROADMAP M9, M11, M12 or M19, now run
 FORMERLY_REFUSED = {
+    "USE encoder": _use_metrics_run,
     "real NSD data": _real_data_run,
     "another model family": lambda t: _train(t, model="showtell"),
     "GloVe table": _glove_run,

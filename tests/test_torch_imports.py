@@ -82,7 +82,10 @@ def test_port_imports_with_jax_flax_and_yaml_blocked(imported):
                  "data.preprocess.mgh", "data.preprocess.glasser",
                  "data.preprocess.hcp_regions", "data.preprocess.zscore",
                  "models.backbones", "models.resnet", "models.inception",
-                 "models.efficientnet"):
+                 "models.efficientnet", "models.use_encoder",
+                 "utils.farmhash", "utils.keras_import", "tune",
+                 "tune.search", "tune.asha", "tune.runner",
+                 "tune.dispatch"):
         assert f"masters_thesis_tpu_torch.{name}" in loaded
     for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
         assert blocked not in loaded
@@ -156,3 +159,63 @@ def test_cli_runs_with_jax_flax_and_yaml_blocked(tmp_path):
     assert "masters_thesis_tpu_torch.cli" in loaded
     for blocked in BLOCKED:
         assert not any(m.split(".")[0] == blocked for m in loaded), blocked
+
+
+def test_guse_score_and_tune_run_with_jax_flax_yaml_and_h5py_blocked(
+        tmp_path):
+    """``guse`` with a USE bundle, ``score`` on its captions and ``tune``
+    (one trial), on the CPU, with the same modules blocked: the encoder,
+    FarmHash, the metric suite and ``tune/`` load none of them (h5py is
+    imported only when a Keras file is read)."""
+    import numpy as np
+
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.models.use_encoder import (
+        init_use_params,
+        save_use_bundle,
+    )
+
+    caps = tmp_path / "captions"
+    caps.mkdir()
+    for k in (3, 5):
+        (caps / f"KID{k}.txt").write_text("a dog runs.\nthe zebra sits\n")
+    vocab = ["a", "dog", "runs", "the", "sits"]
+    (tmp_path / "guse").mkdir()
+    save_use_bundle(str(tmp_path / "guse" / "use_dan.npz"), vocab,
+                    init_use_params(len(vocab), oov_buckets=4, embed_dim=8,
+                                    hidden=(8,), out_dim=8), 4)
+    cfg = Config.load(ROOT / "configs" / "smoke.yaml")
+    cfg.log = str(tmp_path / "logs")
+    cfg.dataset.captions_path = str(caps)
+    cfg.dataset.guse_path = str(tmp_path / "guse")
+    cfg.save(tmp_path / "c.yaml")
+    (tmp_path / "captions_0.txt").write_text("3\ta dog runs\n5\tthe zebra\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        MTT_GUSE_WEIGHTS=str(tmp_path / "guse" / "use_dan.npz"))
+    for argv, key in (
+            (["guse", "--config", str(tmp_path / "c.yaml"), "--out",
+              str(tmp_path / "out"), "--device", "cpu"], "embedder"),
+            (["score", "--captions", str(tmp_path / "captions_0.txt"),
+              "--references", str(caps), "--device", "cpu"], "scores"),
+            (["tune", "--config", str(tmp_path / "c.yaml"), "--num-samples",
+              "1", "--epochs", "1", "--smoke-keys", "12", "--device", "cpu"],
+             "best")):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"ARGV = {argv!r}\nBLOCKED = {BLOCKED!r}\n{CLI_SCRIPT}"],
+            capture_output=True, text=True, env=env, cwd=tmp_path,
+            timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        *_, result, loaded = proc.stdout.strip().splitlines()
+        result = json.loads(result)
+        assert key in result
+        if argv[0] == "guse":
+            assert result["embedder"] == "use_dan"
+        if argv[0] == "score":
+            assert "GUSE_pearson_r" in result["scores"]
+        loaded = set(json.loads(loaded))
+        for blocked in BLOCKED:
+            assert not any(m.split(".")[0] == blocked for m in loaded), (
+                argv[0], blocked)
+    assert np.load(tmp_path / "out" / "keys.npy").tolist() == [3, 5]
