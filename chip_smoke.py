@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives nine paths, each at the full
+``nvcc`` a source, in parallel), then drives ten paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -53,6 +53,27 @@ width of its model or at its probe's own sizes:
   captions/s through ``run_eval``, BLEU-4, CIDEr and METEOR_lite, and the
   run directory's files, and fails unless K1 and K2 ran on every batch of
   the path and the loss fell;
+- the deploy phase, on that run directory: ``export`` greedy through the
+  CLI on the card (``torch.export``; export wall s, artifact bytes, load
+  s), its words on 256 raw test rows equal to the live unfused
+  ``Captioner``'s bit for bit and to K2's but at near-ties (counted); the
+  same on a copy of the run whose weights ``spread_for_check`` spreads (two
+  epochs on random captions leave one caption for every row), and there
+  exported beam-5 equal to the live beam-5; captions/s
+  through ``ExportedCaptioner`` beside the live unfused ``Captioner`` and
+  K2's; three HTTP requests through ``serve --export``; then, with the
+  counts set to 0, ``run_training`` of ``configs/flagship_synth.yaml`` (1
+  epoch at 256 keys) with ``tpu.profile_steps`` 5 and ``tpu.profile_trace``
+  on, whose ``torch.profiler`` trace must name K1's and K2's kernels, whose
+  ``profile.json`` must have the JAX keys and whose ``tb/events.captions``
+  must hold the preview images (trace bytes, and the traced epoch's steps/s
+  beside an untraced run's); ``device_memory_stats`` beside
+  ``mem_get_info``; and the analysis functions that draw nothing on the run
+  directory and on 1,200 x 327,684 rows, timed (``analyze`` itself draws
+  with matplotlib, which the card's machine lacks, and is held to the JAX
+  command on the CPU only). The ingest phase adds ``export --pre`` of its
+  ThinkAndTell run: the artifact takes raw rows and gives the words of the
+  host chain's replay and the live decode;
 - the other model families: K2 on the flagship LcNIC with a learned initial
   carry, a frozen seeded (5001, 512) GloVe table, and that table over a
   padded vocab of 5,120, and K3 on a learned-init CnnRnn (both zero-state
@@ -135,8 +156,9 @@ loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run; K1
 and K2 also under ``launches_experiment``, their launches in the training
 product's phase, K1, K2 and K3 under ``launches_families``, theirs in
 the families' runs, under ``launches_ingest``, theirs in the ingest
-phase's runs, and K1 and K2 under ``launches_sweep``, theirs in the sweep
-phase's runs, summed over its processes), its
+phase's runs, K1 and K2 under ``launches_sweep``, theirs in the sweep
+phase's runs, summed over its processes, and under ``launches_deploy``,
+theirs in the deploy phase's profiled run), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -460,13 +482,15 @@ def _npy(rows: np.ndarray) -> bytes:
 
 
 def serve(captioner, rows: np.ndarray, card: str,
-          request_rows=REQUEST_ROWS) -> list[str]:
+          request_rows=REQUEST_ROWS, server=None) -> list[str]:
     """POST /caption requests of ``request_rows`` rows each (the second as
-    JSON, the others as .npy) through the port's HTTP server; returns the
+    JSON, the others as .npy) through the port's HTTP server over
+    ``captioner``, or through ``server`` (built, not started); returns the
     captions, one per row, in row order."""
     from masters_thesis_tpu_torch.server import make_caption_server
 
-    server = make_caption_server(captioner, port=0)
+    if server is None:
+        server = make_caption_server(captioner, port=0)
     host, port = server.server_address[:2]
     base = f"http://{host}:{port}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -507,22 +531,24 @@ def serve(captioner, rows: np.ndarray, card: str,
 
 
 def throughput(captioner, rows: np.ndarray, card: str,
-               label: str = "", decoder: str = "greedy") -> float:
-    """Captions/s of ``decoder`` over ``WINDOWS`` windows of at least
-    ``WINDOW_S`` s of ``caption`` calls; prints the median and the spread
+               label: str = "", decoder: str = "greedy",
+               windows: int = WINDOWS, window_s: float = WINDOW_S) -> float:
+    """Captions/s of ``decoder`` over ``windows`` windows of at least
+    ``window_s`` s of ``caption`` calls; prints the median and the spread
     across windows."""
     captioner.caption(rows[:BATCH], decoder)             # warm
     rates = []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         n, t0 = 0, time.perf_counter()
-        while (seconds := time.perf_counter() - t0) < WINDOW_S:
+        while (seconds := time.perf_counter() - t0) < window_s:
             captioner.caption(rows, decoder)
             n += len(rows)
         rates.append(n / seconds)
     median = float(np.median(rates))
-    print(f"{label}{decoder} captions/s through Captioner (batch {BATCH}, "
+    print(f"{label}{decoder} captions/s through "
+          f"{type(captioner).__name__} (batch {BATCH}, "
           f"{len(rows)} host rows a call, fp32): median {median:.1f} over "
-          f"{WINDOWS} windows of >= {WINDOW_S} s, min {min(rates):.1f}, max "
+          f"{windows} windows of >= {window_s} s, min {min(rates):.1f}, max "
           f"{max(rates):.1f}, spread {(max(rates) - min(rates)) / median:.1%}"
           f" [{card}]")
     return median
@@ -1691,11 +1717,346 @@ def experiment_phase(device, card: str) -> dict:
                                ".txt").read_text(),
                   "texts": out["texts"], "keys": out["keys"],
                   "pairs": bundle["pairs"], "scores": scores}
+        rows = deploy_rows(bundle, out)
         del bundle
-    print(f"K1 launches in run_training: {k1} (train and val batches "
-          f"{train_batches}); K2 launches in run_training {k2_train}, in "
-          f"run_eval {k2}")
-    return {"K1": k1, "K2": k2_train + k2, "scored": scored}
+        print(f"K1 launches in run_training: {k1} (train and val batches "
+              f"{train_batches}); K2 launches in run_training {k2_train}, "
+              f"in run_eval {k2}")
+        release()
+        deployed = deploy(run_path, out, rows, scored["pairs"], device, card)
+    return {"K1": k1, "K2": k2_train + k2, "scored": scored,
+            "deploy": deployed}
+
+
+# ---- the deploy phase: export, serve --export, profiling, monitor, analysis
+
+DEPLOY_ROWS = 256                   # test rows through the exported programs
+DEPLOY_BEAM = 5
+DEPLOY_WINDOWS, DEPLOY_WINDOW_S = 3, 1.0
+PROFILE_KEYS = 256                  # 13 train steps: the window 10..15 sees 3
+PROFILE_STEPS = 5
+ANALYSIS_ROWS = 1_200               # streamed statistics at full width
+K1_KERNEL, K2_KERNEL = "gather_rows_kernel", "argmax_embed_kernel"
+
+
+def deploy_rows(bundle, out) -> np.ndarray:
+    """Raw host rows of the first DEPLOY_ROWS distinct test keys of
+    ``run_eval``'s output ``out`` (a key's pairs share its row)."""
+    store, layout = bundle["store"], bundle["model"].encoder.layout
+    _, first = np.unique(out["keys"], return_index=True)
+    keys = out["keys"][np.sort(first)[:DEPLOY_ROWS]]
+    idx = torch.as_tensor(store.indices_for(keys), device=store.device)
+    rows = store.device_array().index_select(0, idx.long()).float()
+    if bundle["model"].encoder.pregathered:
+        rows = raw_rows(rows, layout)
+    return rows.cpu().numpy()
+
+
+def near_tie_rows(model, rows: np.ndarray, words, want, start_id: int,
+                  max_length: int, what: str, card: str) -> int:
+    """Rows whose ``words`` differ from ``want``; each must differ first at a
+    near-tie of the plain greedy decode (top-2 logit margin < TIE_MARGIN)."""
+    from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
+
+    differs = np.nonzero((words != want).any(axis=1))[0]
+    if len(differs):
+        sub = torch.from_numpy(rows[differs]).to(
+            next(model.parameters()).device)
+        _, logits, _ = make_greedy_decoder(model, max_length)(sub, start_id)
+        top2 = logits.topk(2, dim=-1).values.cpu().numpy()
+        first = np.argmax(words[differs] != want[differs], axis=1)
+        at = np.arange(len(differs))
+        m = top2[at, first, 0] - top2[at, first, 1]
+        if not (m < TIE_MARGIN).all():
+            raise RuntimeError(f"{what}: rows {differs[m >= TIE_MARGIN]} "
+                               f"differ at margins {m[m >= TIE_MARGIN]}")
+    print(f"{what}: {len(rows) - len(differs)} of {len(rows)} rows equal, "
+          f"{len(differs)} apart at near-ties (margin < {TIE_MARGIN:g}) "
+          f"[{card}]")
+    return len(differs)
+
+
+def export_artifact(run_path: str, out: Path, device, card: str,
+                    *extra) -> dict:
+    """``export`` through the CLI on ``device``, then ``load_exported``;
+    prints the export's wall s, the artifact's bytes and the load's s, and
+    returns the loaded ``ExportedCaptioner``."""
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.export import load_exported
+
+    t0 = time.perf_counter()
+    meta = with_stdout(cli.main, ["export", "--run", run_path, "--out",
+                                  str(out), "--device", str(device), *extra])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp = load_exported(str(out), device=device)
+    load_s = time.perf_counter() - t0
+    what = meta["decoder"] + (f"-{meta['beam_width']}"
+                              if meta["beam_width"] else "")
+    if meta["pre_stages"]:
+        what += " --pre " + "/".join(meta["pre_stages"])
+    print(f"export {what}: {export_s:.2f} s, {out.stat().st_size} bytes "
+          f"({meta['platforms']}, batch {meta['batch_size']}, rows "
+          f"{meta['input_row_shape']}), load_exported {load_s:.2f} s [{card}]")
+    if meta["platforms"] != [torch.device(device).type]:
+        raise RuntimeError(f"export's platforms {meta['platforms']}")
+    return exp
+
+
+def trace_kernels(trace: Path) -> dict:
+    """Events of the card's kernels in a Chrome trace, by K1's and K2's
+    kernel name."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"kernels": len(kernels),
+            "K1": sum(K1_KERNEL in n for n in kernels),
+            "K2": sum(K2_KERNEL in n for n in kernels)}
+
+
+def profiled_runs(root: Path, device, card: str) -> dict:
+    """``run_training`` of flagship_synth.yaml (1 epoch at PROFILE_KEYS keys)
+    with ``tpu.profile_steps`` and ``tpu.profile_trace`` on, K1 and K2
+    counted from 0, then the same run untraced: the trace names K1's and
+    K2's kernels, ``profile.json`` has the JAX keys, ``tb/events.captions``
+    holds the preview images."""
+    import dataclasses
+
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    base = Config.load(EXPERIMENT_CONFIG)
+    rates, launches = {}, {}
+    for label, steps, trace in (("traced", PROFILE_STEPS, True),
+                                ("untraced", 0, False)):
+        cfg = dataclasses.replace(
+            base, run=f"profile_{label}", log=str(root), epochs=1,
+            tpu=dataclasses.replace(base.tpu, profile_steps=steps,
+                                    profile_trace=trace))
+        if trace:
+            gather_rows.launches = fd.fused_greedy_decode.launches = 0
+        t0 = time.perf_counter()
+        run_path, _, bundle = experiment.run_training(
+            cfg, smoke_keys=PROFILE_KEYS, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if trace:
+            launches = {"K1": gather_rows.launches,
+                        "K2": fd.fused_greedy_decode.launches}
+            traced_path = Path(run_path)
+        del bundle
+        (epoch,) = [json.loads(line) for line in
+                    open(Path(run_path) / "metrics.jsonl")
+                    if json.loads(line)["kind"] == "epoch"]
+        rates[label] = epoch["steps_per_sec"]
+        print(f"run_training {label}: 1 epoch at {PROFILE_KEYS} keys in "
+              f"{wall:.2f} s, {epoch['steps_per_sec']} steps/s, epoch "
+              f"{epoch['epoch_time']} s [{card}]")
+        release()
+    (trace_file,) = (traced_path / "trace").glob("*.pt.trace.json")
+    found = trace_kernels(trace_file)
+    stats = json.loads((traced_path / "profile.json").read_text())
+    (captions,) = (traced_path / "tb").glob("events.out.tfevents.*.captions")
+    blob = captions.read_bytes()
+    images = blob.count(b"\x89PNG\r\n\x1a\n")
+    print(f"trace {trace_file.name}: {trace_file.stat().st_size} bytes, "
+          f"{found['kernels']} kernel events, {found['K1']} of K1 "
+          f"({K1_KERNEL}), {found['K2']} of K2 ({K2_KERNEL}); profile.json "
+          f"{stats}; tb/events.captions {len(blob)} bytes, {images} preview "
+          f"images; launches in the traced run {launches}; steps/s traced "
+          f"{rates['traced']} against untraced {rates['untraced']} [{card}]")
+    if not (found["K1"] and found["K2"]):
+        raise RuntimeError(f"the trace lacks K1's or K2's kernels: {found}")
+    if set(stats) != {"steps", "mean_s", "p50_s", "p99_s"}:
+        raise RuntimeError(f"profile.json keys {sorted(stats)}")
+    if images < 4 or b"captions/sample_3" not in blob:
+        raise RuntimeError(f"tb/events.captions holds {images} images")
+    if not (launches["K1"] and launches["K2"]):
+        raise RuntimeError(f"the traced run's launches {launches}")
+    return {"launches": launches, "trace_bytes": trace_file.stat().st_size,
+            "steps_per_sec": rates, "profile": stats}
+
+
+def analysis_functions(run_path: str, out: dict, pairs, card: str) -> dict:
+    """The analysis functions that draw nothing, on the experiment's run
+    directory and on ANALYSIS_ROWS full-width rows; their seconds. (The
+    ``analyze`` command draws with matplotlib, which the card's machine
+    lacks: it is held to the JAX one on the CPU only.)"""
+    from masters_thesis_tpu_torch.evalsuite import analysis
+
+    attn = np.load(Path(run_path) / f"attention_scores_{out['epoch']}.npy")
+    refs: dict = {}
+    for key, cap, *_ in pairs["test"]:
+        refs.setdefault(int(key), []).append(" ".join(cap.split()[1:-1]))
+    captions = dict(zip(map(int, out["keys"]), out["texts"]))
+    half = {k: v for i, (k, v) in enumerate(captions.items()) if i % 2}
+    betas = np.random.default_rng(SEED).standard_normal(
+        (ANALYSIS_ROWS, N_VOXELS), dtype=np.float32)
+    seconds = {}
+    for name, fn in (
+            ("caption_table", lambda: analysis.caption_table(
+                out["texts"], [refs[int(k)] for k in out["keys"]],
+                keys=out["keys"])),
+            ("attention_by_region", lambda: analysis.attention_by_region(
+                attn)),
+            ("attention_over_time", lambda: analysis.attention_over_time(
+                attn)),
+            ("hit_rate", lambda: analysis.hit_rate(captions, half)),
+            ("most_active_vertices", lambda: analysis.most_active_vertices(
+                betas)),
+            ("streamed_betas_stats", lambda: analysis.streamed_betas_stats(
+                betas))):
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t0
+        if name == "streamed_betas_stats" and not np.allclose(
+                result["mean"], betas.mean(axis=0), atol=1e-5):
+            raise RuntimeError("streamed_betas_stats' mean differs")
+        if name == "most_active_vertices" and not (np.diff(
+                result["mean_abs"][result["indices"]]) <= 0).all():
+            raise RuntimeError("most_active_vertices is not in descending "
+                               "order")
+    print(f"analysis on {len(out['texts'])} test captions, attention "
+          f"{attn.shape} and {ANALYSIS_ROWS} x {N_VOXELS} rows, s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + " (host)")
+    return seconds
+
+
+def spread_copy(run_path: str, dest: Path, device) -> str:
+    """A copy of the run directory whose one checkpoint holds the run's
+    weights spread by ``spread_for_check``: two epochs on random captions
+    leave the flagship emitting one caption for every row, and a check of
+    words needs words that vary by row."""
+    import shutil
+
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.ops.fused_decode import spread_for_check
+    from masters_thesis_tpu_torch.serve import Captioner
+    from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
+    from masters_thesis_tpu_torch.train.state import new_state
+
+    dest.mkdir()
+    for name in ("config.yaml", "tokenizer.json", "run_meta.json",
+                 "layout.npz"):
+        shutil.copy(Path(run_path) / name, dest / name)
+    model = Captioner.from_run_dir(run_path, device=device).model
+    spread_for_check(model, torch.Generator().manual_seed(SEED))
+    mgr = CheckpointManager(str(dest / "model"))
+    mgr.save(new_state(model, Config.load(dest / "config.yaml"), device), 0)
+    mgr.close()
+    return str(dest)
+
+
+def check_exported(label: str, run_path: str, exp, rows: np.ndarray, device,
+                   card: str, beam: bool = False) -> dict:
+    """The exported program's words on ``rows`` against the live unfused
+    ``Captioner``'s of the same run, bit for bit; greedy also against K2's
+    ``Captioner``, apart only at near-ties. Returns the captioners."""
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    live = Captioner.from_run_dir(run_path, device=device, use_fused=False,
+                                  beam_width=DEPLOY_BEAM)
+    words = exp.caption_ids(rows)
+    decoder = "beam" if beam else "greedy"
+    if not np.array_equal(words, live.caption_ids(rows, decoder)):
+        raise RuntimeError(f"{label}: the exported {decoder} words differ "
+                           f"from the live unfused Captioner's")
+    print(f"{label}: exported {decoder} words equal the live unfused "
+          f"Captioner's on {len(rows)} test rows bit for bit "
+          f"({len(set(map(bytes, words)))} distinct captions) [{card}]")
+    if beam:
+        return {"live": live}
+    k2 = Captioner.from_run_dir(run_path, device=device)
+    ties = near_tie_rows(k2.model, rows, words, k2.caption_ids(rows),
+                         exp.tokenizer.start_id, exp.meta["max_length"],
+                         f"{label}: exported greedy against K2's Captioner",
+                         card)
+    return {"live": live, "k2": k2, "near_ties": ties}
+
+
+def deploy(run_path: str, out: dict, rows: np.ndarray, pairs, device,
+           card: str) -> dict:
+    """The deploy phase on the training product's run directory: ``export``
+    greedy on the card, its words against the live unfused ``Captioner``'s
+    bit for bit and against K2's (near-ties counted); the same for greedy
+    on a copy of the run with spread weights, whose words vary by row, and
+    exported beam-5 there against live beam-5 bit for bit; captions/s of
+    the exported program, the live unfused decoder and K2; three HTTP
+    requests through ``serve --export``; a profiled ``run_training`` (its
+    K1 and K2 launches are the phase's); ``device_memory_stats``; the
+    analysis functions."""
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.utils.monitor import device_memory_stats
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtt_deploy_") as tmp:
+        root = Path(tmp)
+        exp = export_artifact(run_path, root / "greedy.mttx", device, card)
+        check_exported("trained run", run_path, exp, rows, device, card)
+        spread = spread_copy(run_path, root / "spread", device)
+        exp = export_artifact(spread, root / "spread.mttx", device, card)
+        held = check_exported("spread copy", spread, exp, rows, device, card)
+        beam = export_artifact(spread, root / "beam.mttx", device, card,
+                               "--decoder", "beam", "--beam-width",
+                               str(DEPLOY_BEAM))
+        check_exported("spread copy", spread, beam, rows, device, card,
+                       beam=True)
+        rates = {name: throughput(cap, rows, card, label=f"{name}: ",
+                                  windows=DEPLOY_WINDOWS,
+                                  window_s=DEPLOY_WINDOW_S)
+                 for name, cap in (("exported", exp),
+                                   ("live unfused", held["live"]),
+                                   ("K2", held["k2"]))}
+        del beam
+        args = cli._parser().parse_args([
+            "serve", "--export", str(root / "spread.mttx"), "--port", "0",
+            "--device", str(device)])
+        served = serve(exp, rows, card, server=cli.make_server(args))
+        if served != exp.caption(rows[:len(served)]):
+            raise RuntimeError("serve --export answered other captions than "
+                               "the artifact")
+        print(f"serve --export: {len(served)} captions over "
+              f"{len(REQUEST_ROWS)} requests equal the artifact's [{card}]")
+        ties = held["near_ties"]
+        del exp, held
+        release()
+        profiled = profiled_runs(root, device, card)
+        stats = device_memory_stats(device)
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"device_memory_stats {stats}; mem_get_info free {free}, total "
+              f"{total} [{card}]")
+        if stats["bytes_limit"] != total:
+            raise RuntimeError("bytes_limit is not the card's total")
+        seconds = analysis_functions(run_path, out, pairs, card)
+    print(f"deploy: the phase in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return {"launches": profiled["launches"], "near_ties": ties,
+            "captions_per_s": rates, "analysis_s": seconds,
+            "profile": profiled}
+
+
+def deploy_pre(pre: Path, run_path: str, device, card: str) -> None:
+    """``export --pre`` of the ingest phase's ThinkAndTell run: the artifact
+    takes raw rows, and its words are those of the host chain's replay and
+    the live decode (a row apart only at a near-tie of that decode)."""
+    from masters_thesis_tpu_torch.data.pack import open_pack
+    from masters_thesis_tpu_torch.experiment import apply_preprocess_chain
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    with tempfile.TemporaryDirectory(prefix="mtt_pre_") as tmp:
+        exp = export_artifact(run_path, Path(tmp) / "pre.mttx", device,
+                              card, "--pre", str(pre))
+    raw = open_pack(str(pre / "betas_pack"))
+    rows = raw.gather_host(raw.indices_for(raw.keys[-PRE_TRANSFORM_ROWS:]))
+    replay = apply_preprocess_chain(str(pre), rows)
+    live = Captioner.from_run_dir(run_path, device=device)
+    near_tie_rows(live.model, replay, exp.caption_ids(rows),
+                  live.caption_ids(replay), live.tokenizer.start_id,
+                  live.max_length, f"export --pre: {len(rows)} raw "
+                  f"{rows.shape[1]}-wide rows through the artifact against "
+                  f"the chain's replay and the live decode", card)
 
 
 # ---- the other model families ----
@@ -2501,6 +2862,7 @@ def ingest(device, card: str) -> dict:
         release()
         check_pre_transform(pre, run_path, device, card)
         counts = {k.__name__: k.launches for k in kernels}
+        deploy_pre(pre, run_path, device, card)
         release()
         pca = check_pca(device, card)
         release()
@@ -3155,11 +3517,13 @@ def main(argv=None) -> int:
     k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"],
                              *ingested["errors"]["K3"]])
     counts = fam["launches"]
+    dep = product["deploy"]["launches"]
     print(json.dumps({"kernels": [{
         "name": "fused_greedy_decode", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211",
         "launches": launches, "launches_experiment": product["K2"],
+        "launches_deploy": dep["K2"],
         "launches_families": counts["fused_greedy_decode"],
         "launches_ingest": ing["fused_greedy_decode"],
         "launches_sweep": swp["fused_greedy_decode"], **k2}, {
@@ -3172,6 +3536,7 @@ def main(argv=None) -> int:
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
         "replaces": "masters_thesis_tpu/ops/gather.py:49",
         "launches_experiment": product["K1"],
+        "launches_deploy": dep["K1"],
         "launches_families": counts["gather_rows"],
         "launches_ingest": ing["gather_rows"],
         "launches_sweep": swp["gather_rows"], **k1}, {

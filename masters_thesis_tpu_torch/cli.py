@@ -8,8 +8,16 @@ input side, with their flags and their last-line JSON:
   python -m masters_thesis_tpu_torch metrics --config c.yaml   (metric_suit.py)
   python -m masters_thesis_tpu_torch caption --run DIR --betas x.npy
       [--decoder greedy|beam|sample] [--subject a|b] [--pre PREDIR]
-  python -m masters_thesis_tpu_torch serve   --run DIR [--pre PREDIR]
-      [--decoder ...] [--max-batch N] [--max-wait-ms T] [--host H --port P]
+  python -m masters_thesis_tpu_torch serve   --run DIR | --export A.mttx
+      [--pre PREDIR] [--decoder ...] [--max-batch N] [--max-wait-ms T]
+      [--host H --port P]
+  python -m masters_thesis_tpu_torch export  --run DIR --out A.mttx
+      [--decoder greedy|beam] [--batch-size N] [--beam-width W]
+      [--platforms cpu,cuda] [--subject a|b] [--pre PREDIR]
+  python -m masters_thesis_tpu_torch analyze --run DIR [--out DIR]
+      [--atlas-lh L --atlas-rh R] [--betas X.npy [--top-verts N]
+      [--guse G.npy]] [--responses R.tsv] [--nearest-guse DIR] ...
+      (Eval/; needs matplotlib)
   python -m masters_thesis_tpu_torch preprocess --config c.yaml --out DIR
       [--from-sessions DIR --behavior B.csv --captions-json C.json]
       [--vc-parcels 1,2 --normalize --pca K]   (nsd_get_data, SVD/svd.py)
@@ -32,8 +40,11 @@ input side, with their flags and their last-line JSON:
 Each runs on the card unless it is given ``--device cpu`` (``transform``
 and ``stimuli`` run on the host; ``guse`` and ``score`` run the USE
 encoder on the device when a weight bundle is found, and otherwise embed
-on the host). A flag of the JAX CLI that the port does not honour yet
-exits non-zero with a message that names the ROADMAP item that ports it.
+on the host; ``analyze`` draws on the host and uses the device only for
+its PCA front end and the USE encoder; ``export`` traces one program for
+each of ``--platforms``, by default the platform of ``--device``). A flag
+of the JAX CLI that the port does not honour yet exits non-zero with a
+message that names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -51,10 +62,8 @@ _REFUSED = {
                "M13)")),
     "caption": (("shard", 0, "--shard (a data-parallel serving mesh) is "
                  "ported with parallel/ (ROADMAP M13)"),),
-    "serve": (("export_path", None, "--export (serving an exported "
-               "artifact) is ported with export.py (ROADMAP M14)"),
-              ("shard", 0, "--shard (a data-parallel serving mesh) is "
-               "ported with parallel/ (ROADMAP M13)")),
+    "serve": (("shard", 0, "--shard (a data-parallel serving mesh) is "
+               "ported with parallel/ (ROADMAP M13)"),),
 }
 
 
@@ -159,13 +168,16 @@ def _parser() -> argparse.ArgumentParser:
                         "-> captions")
     sv.add_argument("--run", default=None, help="training run directory")
     sv.add_argument("--export", default=None, dest="export_path",
-                    help="not ported: serve an exported artifact")
+                    help="serve from an `export` artifact instead of a run "
+                    "dir (no model code or checkpoint needed; the "
+                    "artifact's frozen decoder is the only one served)")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000,
                     help="0 picks a free port (printed on startup)")
     sv.add_argument("--decoder", choices=["greedy", "beam", "sample"],
-                    default="greedy", help="default decoder (per request: "
-                    "POST /caption?decoder=beam)")
+                    default=None, help="default decoder (greedy unless "
+                    "--export, whose frozen decoder is the default; per "
+                    "request: POST /caption?decoder=beam)")
     sv.add_argument("--max-batch", type=int, default=64,
                     help="max rows coalesced into one device call")
     sv.add_argument("--max-wait-ms", type=float, default=5.0,
@@ -210,6 +222,78 @@ def _parser() -> argparse.ArgumentParser:
                     help=".npy of 1-based NSD keys (default: all)")
     st.add_argument("--out-dir", required=True)
     st.add_argument("--format", default="png", choices=["png", "npy"])
+
+    ex = sub.add_parser("export",
+                        help="freeze a trained run's decode program and "
+                        "weights into one artifact (torch.export) that "
+                        "serves without model code; load with "
+                        "export.load_exported")
+    ex.add_argument("--run", required=True, help="training run directory")
+    ex.add_argument("--out", required=True, help="artifact path (zip)")
+    ex.add_argument("--decoder", choices=["greedy", "beam"],
+                    default="greedy")
+    ex.add_argument("--batch-size", type=int, default=64,
+                    help="the artifact's static batch shape")
+    ex.add_argument("--beam-width", type=int, default=5)
+    ex.add_argument("--platforms", default="",
+                    help="comma-separated targets of cpu and cuda, e.g. "
+                    "cpu,cuda (default: the platform of --device)")
+    ex.add_argument("--subject", choices=["a", "b"], default="a",
+                    help="ms2_nic runs: which per-subject encoder the "
+                    "artifact freezes (one artifact per subject)")
+    ex.add_argument("--pre", default=None,
+                    help="a `preprocess` output dir: bake its transform "
+                    "chain (vc mask/normalize/pca) into the program, so the "
+                    "artifact takes the raw betas the pipeline started from")
+    _add_device(ex)
+
+    an = sub.add_parser("analyze",
+                        help="post-hoc run analysis: loss plot, caption POS "
+                        "stats, region-attention figures (the reference's "
+                        "Eval/ suite); needs matplotlib")
+    an.add_argument("--run", required=True, help="run directory")
+    an.add_argument("--out", default=None,
+                    help="output dir (default: <run>/analysis)")
+    an.add_argument("--atlas-lh", default=None,
+                    help="lh.HCP_MMP1 label vector (.npy/.mgz): vertex-space "
+                    "attention maps")
+    an.add_argument("--atlas-rh", default=None)
+    an.add_argument("--flat-coords", default=None,
+                    help="npz of lh/rh (V, 2) flat-surface vertex coords "
+                    "for a true flatmap scatter")
+    an.add_argument("--compare-run", default=None, metavar="DIR",
+                    help="another run dir: cross-run caption n-gram hit "
+                    "rate + Jaccard on shared keys per epoch")
+    an.add_argument("--word-map", type=int, default=None, metavar="IDX",
+                    help="render trial IDX's (word x region) attention map")
+    an.add_argument("--betas", default=None, metavar="NPY",
+                    help="(N, V) betas: trial-average + L1-norm vertex maps "
+                    "and a t-SNE scatter")
+    an.add_argument("--betas-b", default=None, metavar="NPY",
+                    help="second (N, V) betas split for --top-verts overlap")
+    an.add_argument("--top-verts", type=int, default=None, metavar="N",
+                    help="rank the N most active vertices by mean |beta| of "
+                    "--betas -> most_active_vert.txt")
+    an.add_argument("--guse", default=None, metavar="NPY",
+                    help="(N, 512) or (N, C, 512) caption embeddings "
+                    "row-aligned with --betas: semantic-vs-neural "
+                    "similarity -> betas_guse_similarity.png")
+    an.add_argument("--sim-targets", default=None, metavar="I,J,...",
+                    help="target trial rows for --guse (default: the "
+                    "reference's row 100)")
+    an.add_argument("--region-names", default=None, metavar="CSV",
+                    help="override the built-in HCP-MMP1.0 parcel names")
+    an.add_argument("--responses", default=None, metavar="TSV",
+                    help="NSD behav/responses.tsv: BLEU vs behavioral hit "
+                    "rate boxplots -> bleu_hit_rate_{e}.png")
+    an.add_argument("--nearest-guse", default=None, metavar="DIR",
+                    help="`guse` output dir: rank training captions by "
+                    "embedding distance to each eval caption -> "
+                    "nearest_guse_{e}.tsv")
+    an.add_argument("--images", default=None,
+                    help="KID{key} stimulus-picture dir (`stimuli` output) "
+                    "for the caption sample grids")
+    _add_device(an)
 
     tu = sub.add_parser("tune", help="random-search + ASHA over L2 regs")
     _add_common(tu)
@@ -514,6 +598,453 @@ def _run_score(args) -> dict:
     return report
 
 
+def _run_analyze(args) -> dict:
+    """Post-hoc analysis over a finished run dir (the Eval/ scripts'
+    artifacts: loss curves, caption word-class stats, attention figures),
+    the JAX ``analyze``'s report and files. It draws with matplotlib: where
+    that is missing (the card's machine has none) it exits non-zero before
+    it writes anything. ``--device`` runs the PCA front end of the t-SNE
+    and the USE encoder of ``--nearest-guse``."""
+    import glob
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    if importlib.util.find_spec("matplotlib") is None:
+        raise SystemExit(
+            "masters_thesis_tpu_torch analyze: the figures need matplotlib, "
+            "which is not installed here; run analyze where it is")
+
+    from masters_thesis_tpu_torch.evalsuite.analysis import (
+        attention_to_vertices,
+        caption_pos_stats,
+        plot_loss,
+        plot_region_attention,
+        plot_vertex_attention,
+    )
+
+    run = args.run
+    out_dir = args.out or os.path.join(run, "analysis")
+    os.makedirs(out_dir, exist_ok=True)
+    report: dict = {"run": run, "out": out_dir, "artifacts": []}
+
+    # the run's config, loaded once: groups_to_remove (region-index maps)
+    # and dataset.captions_path (reference captions) both come from it
+    run_cfg = None
+    cfg_path = os.path.join(run, "config.yaml")
+    if os.path.exists(cfg_path):
+        from masters_thesis_tpu_torch.config import Config
+
+        run_cfg = Config.load(cfg_path)
+
+    lh = os.path.join(run, "loss_history.csv")
+    if os.path.exists(lh):
+        png = os.path.join(out_dir, "loss.png")
+        plot_loss(lh, png)
+        report["artifacts"].append(png)
+
+    prev = os.path.join(run, "caption_previews.txt")
+    if os.path.exists(prev):
+        caps = [ln.strip() for ln in open(prev)
+                if ln.strip() and not ln.startswith("===")]
+        report["pos_stats"] = caption_pos_stats(caps)
+
+    # original group indices per attention column (LH first): identity
+    # unless the run removed regions, in which case the kept ids preserve
+    # hemisphere positions for the heat grid
+    region_ids = n_total = None
+    if run_cfg is not None and run_cfg.groups_to_remove:
+        removed = set(run_cfg.groups_to_remove)
+        n_total = 360
+        region_ids = np.asarray(
+            [i for i in range(n_total) if i not in removed], np.int64)
+
+    atlas_groups = n_vertices = n_lh = None
+    if args.atlas_lh and args.atlas_rh:
+        from masters_thesis_tpu_torch.data.preprocess.glasser import (
+            groups_from_atlas,
+            load_atlas_vector,
+            select_groups,
+        )
+
+        lh_labels = load_atlas_vector(args.atlas_lh)
+        rh_labels = load_atlas_vector(args.atlas_rh)
+        n_lh = len(lh_labels)
+        n_vertices = n_lh + len(rh_labels)
+        atlas_groups = groups_from_atlas(lh_labels, rh_labels)
+        if run_cfg is not None and run_cfg.groups_to_remove:
+            atlas_groups = select_groups(
+                atlas_groups, list(run_cfg.groups_to_remove))
+    coords = None
+    if args.flat_coords:
+        flat = np.load(args.flat_coords)
+        coords = {"lh": flat["lh"], "rh": flat["rh"]}
+
+    # human-readable parcel names (Eval/list_regions.py's tables): the
+    # canonical HCP-MMP1.0 order, or a user CSV via --region-names
+    from masters_thesis_tpu_torch.data.preprocess.hcp_regions import region_names
+
+    full_names = region_names(names_csv=args.region_names)  # 360, LH first
+    if region_ids is not None and len(full_names) < (n_total or 0):
+        # a short --region-names CSV can't cover the original 0..n_total-1
+        # ids of a removed-region run — drop to index labels, don't crash
+        report["region_names_warning"] = (
+            f"--region-names covers {len(full_names)} regions but the run's "
+            f"group space is {n_total}; using index labels")
+        full_names = [f"region_{i}" for i in range(n_total)]
+
+    for attn_path in sorted(glob.glob(os.path.join(run, "attention_scores_*.npy"))):
+        e = os.path.basename(attn_path).split("_")[-1].split(".")[0]
+        attn = np.load(attn_path)
+        if attn.shape[-1] <= 1:
+            # attention-free families (ShowTell/ThinkAndTell/guse) write a
+            # (B, T, 1) placeholder — region figures would be meaningless
+            # region_0/0.0 noise, so say so instead of emitting them
+            report.setdefault(
+                "attention_note",
+                "attention-free model: no region-attention artifacts")
+            continue
+        mean_attn = np.asarray(attn).mean(axis=tuple(range(attn.ndim - 1)))
+        png = os.path.join(out_dir, f"region_attention_{e}.png")
+        col_names = None  # names aligned with the attention columns
+        if region_ids is not None and len(region_ids) == len(mean_attn):
+            # plot expands values to the full 360 grid -> full names apply
+            plot_region_attention(mean_attn, png, region_ids=region_ids,
+                                  n_total=n_total, region_names=full_names)
+            col_names = [full_names[i] for i in region_ids]
+        elif len(mean_attn) == len(full_names):
+            plot_region_attention(mean_attn, png, region_names=full_names)
+            col_names = full_names
+        else:
+            plot_region_attention(mean_attn, png)
+        report["artifacts"].append(png)
+        if col_names is not None:
+            order = np.argsort(mean_attn)[::-1][:20]
+            report[f"region_ranking_{e}"] = [
+                {"region": col_names[i], "index": int(i),
+                 "mean_attention": float(mean_attn[i])}
+                for i in order
+            ]
+
+        # temporal-attention analyses (eval_output.py): per-step mean maps,
+        # word-class deviation maps, optional per-trial word map
+        if attn.ndim == 3:
+            from masters_thesis_tpu_torch.evalsuite.analysis import (
+                attention_by_tag,
+                attention_over_time,
+                plot_attention_by_tag,
+                plot_attention_over_time,
+                plot_attention_word_map,
+            )
+
+            ot = attention_over_time(attn)
+            opng = os.path.join(out_dir, f"attention_over_time_{e}.png")
+            plot_attention_over_time(ot["per_step"], opng,
+                                     region_names=col_names)
+            report["artifacts"].append(opng)
+            report[f"top_region_per_step_{e}"] = [
+                {"step": t,
+                 "region": (col_names[top[0]["index"]] if col_names
+                            else f"region_{top[0]['index']}"),
+                 **top[0]}
+                for t, top in enumerate(ot["top_regions"])
+            ]
+
+            cap_file = os.path.join(run, f"captions_{e}.txt")
+            etexts = []
+            if os.path.exists(cap_file):
+                etexts = [ln.rstrip("\n").split("\t", 1)[1]
+                          for ln in open(cap_file) if "\t" in ln]
+            if etexts:
+                bt = attention_by_tag(etexts, attn)
+                tpng = os.path.join(out_dir, f"attention_by_tag_{e}.png")
+                plot_attention_by_tag(bt, tpng)
+                if any(v["n_words"] for v in bt["tags"].values()):
+                    report["artifacts"].append(tpng)
+                if (args.word_map is not None
+                        and args.word_map < min(len(attn), len(etexts))):
+                    wpng = os.path.join(
+                        out_dir, f"attention_word_map_{e}_{args.word_map}.png")
+                    plot_attention_word_map(
+                        etexts[args.word_map], attn[args.word_map], wpng)
+                    report["artifacts"].append(wpng)
+        if atlas_groups is not None and len(mean_attn) == len(atlas_groups):
+            vertex_vals = attention_to_vertices(
+                mean_attn, atlas_groups, n_vertices)
+            vpng = os.path.join(out_dir, f"vertex_attention_{e}.png")
+            plot_vertex_attention(vertex_vals, vpng, n_lh, coords=coords)
+            report["artifacts"].append(vpng)
+
+    # caption/image sample grids (Eval/sample_captions.py): BLEU-sorted
+    # best+worst panels over the eval captions, stimulus pictures from
+    # --images (a KID{key} dir, e.g. exported by `stimuli`)
+    from masters_thesis_tpu_torch.evalsuite.analysis import (
+        caption_grid_entries,
+        plot_caption_grid,
+    )
+
+    references = None
+    if (run_cfg is not None and run_cfg.dataset.captions_path
+            and os.path.isdir(run_cfg.dataset.captions_path)):
+        from masters_thesis_tpu_torch.data.captions import load_captions_dir
+
+        references = load_captions_dir(run_cfg.dataset.captions_path)
+
+    # raw-betas inspection (visualize_betas.py / tsne.py): trial-average and
+    # per-vertex L1-norm maps, plus a t-SNE scatter of the trial vectors
+    if args.betas:
+        from masters_thesis_tpu_torch.evalsuite.analysis import (
+            attention_tsne,
+            plot_tsne,
+            plot_vertex_attention,
+        )
+
+        from masters_thesis_tpu_torch.evalsuite.analysis import (
+            streamed_betas_stats,
+        )
+
+        # keep the memmap: every consumer below streams or row-indexes, so
+        # a reference-scale (10k, 327k) store never materialises in RAM
+        betas = np.load(args.betas, mmap_mode="r")
+        if betas.ndim == 1:
+            betas = np.asarray(betas, np.float32)[None]
+        n_lh_b = betas.shape[1] // 2
+        stats = streamed_betas_stats(betas)
+        for tag in ("mean", "l1norm"):
+            bpng = os.path.join(out_dir, f"betas_{tag}.png")
+            plot_vertex_attention(stats[tag], bpng, n_lh_b, coords=coords)
+            report["artifacts"].append(bpng)
+        if len(betas) > 2:
+            x = betas
+            if x.shape[1] > 50:  # PCA front end keeps t-SNE tractable at
+                #                  full-cortex width (tsne.py pairs the two)
+                from masters_thesis_tpu_torch.data.preprocess.pca import fit_pca
+
+                x = fit_pca(x, n_components=50,
+                            device=args.device).transform(x)
+            tcoords = attention_tsne(x)
+            tpng = os.path.join(out_dir, "betas_tsne.png")
+            plot_tsne(tcoords, tpng, title="betas t-SNE")
+            report["artifacts"].append(tpng)
+
+        # top-N most-active-vertex ranking (+ split-stability overlap)
+        if args.top_verts:
+            from masters_thesis_tpu_torch.evalsuite.analysis import (
+                most_active_vertices,
+            )
+
+            betas_b = (np.load(args.betas_b, mmap_mode="r")
+                       if args.betas_b else None)
+            mav = most_active_vertices(betas, betas_b, top_n=args.top_verts)
+            txt = os.path.join(out_dir, "most_active_vert.txt")
+            with open(txt, "w") as f:  # reference file shape: one index/line
+                for i in mav["indices"]:
+                    f.write(f"{i}\n")
+            report["artifacts"].append(txt)
+            report["most_active_vertices"] = {
+                k: mav[k] for k in ("top_n", "overlap", "overlap_fraction")
+                if k in mav}
+
+        # semantic-vs-neural similarity (betas_sim.py): needs row-aligned
+        # caption embeddings for the same trials
+        if args.guse:
+            from masters_thesis_tpu_torch.evalsuite.analysis import (
+                betas_semantic_similarity,
+                plot_betas_similarity,
+            )
+
+            guse = np.load(args.guse)
+            targets = None
+            if args.sim_targets:
+                targets = [int(s) for s in args.sim_targets.split(",") if s]
+            sim = betas_semantic_similarity(betas, guse, targets=targets)
+            spng = os.path.join(out_dir, "betas_guse_similarity.png")
+            plot_betas_similarity(sim, spng)
+            report["artifacts"].append(spng)
+            report["betas_guse_similarity"] = {
+                "mse_similar_mean": sim["mse_similar_mean"],
+                "mse_random_mean": sim["mse_random_mean"],
+                "mse_ratio": sim["mse_ratio"],
+                "spearman_sem_vs_negmse": sim["spearman_sem_vs_negmse"],
+                "targets": [{k: p[k] for k in
+                             ("target", "most_similar", "max_cosine",
+                              "mse_similar_mean", "mse_random_mean")}
+                            for p in sim["targets"]],
+            }
+
+    if (args.top_verts or args.guse) and not args.betas:
+        report["betas_analysis_error"] = (
+            "--top-verts/--guse need --betas (the (N, V) trial array)")
+
+    if args.responses and not references:
+        report["bleu_hit_rate_error"] = (
+            "--responses needs reference captions: the run config's "
+            "dataset.captions_path is unset or not a directory")
+
+    # loop-invariant inputs for the per-epoch caption analyses, loaded once:
+    # the ~30k-row behavior TSV, and the GUSE table + embedder (the table is
+    # (N, C, 512) — hundreds of MB at reference scale)
+    behavior_hits = None
+    if args.responses and references:
+        from masters_thesis_tpu_torch.evalsuite.analysis import load_behavior_hits
+
+        behavior_hits = load_behavior_hits(args.responses)
+    nearest_ctx = None
+    if args.nearest_guse:
+        nearest_ctx = _load_nearest_guse(
+            args.nearest_guse, references, run_cfg, report, args.device)
+
+    def _image_loader(key: int):
+        if not args.images:
+            return None
+        from masters_thesis_tpu_torch.train.callbacks import load_stimulus_images
+
+        got = load_stimulus_images(args.images, [key], max_images=1)
+        return None if got is None else got[0]
+
+    for cap_path in sorted(glob.glob(os.path.join(run, "captions_*.txt"))):
+        e = os.path.basename(cap_path).split("_")[-1].split(".")[0]
+        if not e.isdigit():
+            continue
+        keys, texts = [], []
+        for ln in open(cap_path):
+            if "\t" in ln:
+                k, t = ln.rstrip("\n").split("\t", 1)
+                keys.append(int(k))
+                texts.append(t)
+        if not keys:
+            continue
+        entries = caption_grid_entries(
+            keys, texts, image_loader=_image_loader, references=references)
+        gpng = os.path.join(out_dir, f"caption_grid_{e}.png")
+        plot_caption_grid(entries, gpng)
+        report["artifacts"].append(gpng)
+
+        # behavioral hit rate vs BLEU (Eval/hit_rate.py main()): group each
+        # eval caption's BLEU-1/BLEU-4 by how often the subject recognised
+        # the image (ISCORRECT summed per 73KID, 0..3) -> boxplot panels
+        if behavior_hits is not None:
+            from masters_thesis_tpu_torch.evalsuite.analysis import (
+                bleu_by_hit_rate,
+                plot_bleu_hit_rate,
+            )
+
+            groups = bleu_by_hit_rate(
+                dict(zip(keys, texts)), references, behavior_hits)
+            hpng = os.path.join(out_dir, f"bleu_hit_rate_{e}.png")
+            plot_bleu_hit_rate(groups, hpng)
+            report["artifacts"].append(hpng)
+            report[f"bleu_hit_rate_{e}"] = {
+                "n_scored": groups["n_scored"],
+                **{label: {str(h): (float(np.mean(v)) if v else None)
+                           for h, v in by_hit.items()}
+                   for label, by_hit in groups.items()
+                   if label.startswith("BLEU-")},
+            }
+
+        # cross-run caption agreement: n-gram hit rate + Jaccard between this
+        # run's captions and another run's for the shared keys (the
+        # cross-subject comparison Eval/hit_rate.py circles around)
+        if args.compare_run:
+            other = os.path.join(args.compare_run, f"captions_{e}.txt")
+            if os.path.exists(other):
+                from masters_thesis_tpu_torch.evalsuite.analysis import hit_rate
+
+                caps_b = {}
+                for ln in open(other):
+                    if "\t" in ln:
+                        k, t = ln.rstrip("\n").split("\t", 1)
+                        caps_b[int(k)] = t
+                report[f"cross_run_hit_rate_{e}"] = hit_rate(
+                    dict(zip(keys, texts)), caps_b)
+
+        # nearest-training-caption retrieval (guse_comparison.py): rank every
+        # (trial, cid) training caption by cosine distance to each eval
+        # caption's sentence embedding, dump top-3 + farthest per candidate
+        if nearest_ctx is not None:
+            tsv = _write_nearest_guse_tsv(
+                nearest_ctx, texts, keys,
+                os.path.join(out_dir, f"nearest_guse_{e}.tsv"))
+            report["artifacts"].append(tsv)
+    return report
+
+
+def _load_nearest_guse(guse_dir, references, run_cfg, report, device):
+    """Load the `guse` table/keys + resolve the embedder ONCE for the
+    per-epoch nearest-caption reports (guse_comparison.py). Returns None
+    (with a report error) when the dir lacks the precompute artifacts."""
+    import json as _json
+    import os
+
+    import numpy as np
+
+    from masters_thesis_tpu_torch.evalsuite.guse_sim import default_embedder
+
+    table_path = os.path.join(guse_dir, "guse_pre_processed.npy")
+    keys_path = os.path.join(guse_dir, "keys.npy")
+    if not (os.path.exists(table_path) and os.path.exists(keys_path)):
+        report["nearest_guse_error"] = (
+            f"{guse_dir!r} lacks guse_pre_processed.npy/keys.npy "
+            "(run `guse` first)")
+        return None
+    table = np.load(table_path)
+    train_keys = np.load(keys_path)
+    train_caps = None
+    if references:
+        train_caps = [references.get(int(k)) for k in train_keys]
+        # every table key must be covered AND carry exactly the table's C
+        # captions — a mismatched dir would mis-attribute (or IndexError on)
+        # the caption text behind each (trial, cid)
+        if any(c is None or len(c) != table.shape[1] for c in train_caps):
+            train_caps = None
+    # resolve the candidate embedder exactly like run_metrics /
+    # run_guse_precompute: the run config's guse_path bundle, then the
+    # MTT_GUSE_WEIGHTS env, then the hash fallback — so candidates and the
+    # table come from the same encoder in the config-driven flow
+    bundle = None
+    if run_cfg is not None and run_cfg.dataset.guse_path:
+        cand = os.path.join(run_cfg.dataset.guse_path, "use_dan.npz")
+        if os.path.exists(cand):
+            bundle = cand
+    embedder = default_embedder(bundle, device)
+    # distances are only meaningful when candidates are embedded by the same
+    # model that built the table — surface a mismatch instead of hiding it
+    meta_path = os.path.join(guse_dir, "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            built_with = _json.load(f).get("embedder")
+        using = getattr(embedder, "name", type(embedder).__name__)
+        if built_with and built_with != using:
+            report["nearest_guse_warning"] = (
+                f"table built with {built_with!r} but candidates embedded "
+                f"with {using!r}")
+    return {"table": table, "train_keys": train_keys,
+            "train_caps": train_caps, "embedder": embedder}
+
+
+def _write_nearest_guse_tsv(ctx, texts, keys, out_tsv) -> str:
+    """Rank training captions by embedding distance for each eval caption
+    (guse_comparison.py:44-64 prints top-3 nearest + the farthest)."""
+    from masters_thesis_tpu_torch.evalsuite.guse_sim import nearest_training_captions
+
+    train_keys = ctx["train_keys"]
+    results = nearest_training_captions(
+        texts, ctx["table"], train_captions=ctx["train_caps"],
+        embedder=ctx["embedder"])
+    with open(out_tsv, "w") as f:
+        f.write("key\tcandidate\trank\tdistance\ttrain_key\tcid\tcaption\n")
+        for key, text, res in zip(keys, texts, results):
+            rows = [(i + 1, n) for i, n in enumerate(res["nearest"])]
+            if res["farthest"] is not None:
+                rows.append((-1, res["farthest"]))  # rank -1 = farthest
+            for rank, n in rows:
+                cap = n.get("caption", "")
+                f.write(f"{key}\t{text}\t{rank}\t{n['distance']:.4f}\t"
+                        f"{int(train_keys[n['trial']])}\t{n['cid']}\t{cap}\n")
+    return out_tsv
+
+
 def _tune_trial(cfg, epochs, smoke_keys, tc, report, device=None):
     """Module-level trial body so --processes > 1 can pickle it
     (ProcessPoolExecutor ships the partial to spawned worker processes).
@@ -617,18 +1148,39 @@ def _run_tune(args, cfg) -> dict:
 
 def make_server(args):
     """The ``serve`` command's HTTP server, built and not started: a
-    ``Captioner`` of ``--run`` on ``--device`` (behind ``--pre``'s chain)
-    and the port's caption server."""
+    ``Captioner`` of ``--run`` on ``--device``, or the program of an
+    ``--export`` artifact there (behind ``--pre``'s chain either way), and
+    the port's caption server. Sets ``args.decoder`` to the decoder it
+    serves by default."""
     from masters_thesis_tpu_torch.serve import (
         Captioner,
         PreTransformCaptioner,
     )
     from masters_thesis_tpu_torch.server import make_caption_server
 
-    if not args.run:
-        raise SystemExit("serve needs --run")
-    cap = Captioner.from_run_dir(args.run, device=args.device,
-                                 subject=args.subject)
+    if bool(args.run) == bool(args.export_path):
+        raise SystemExit("serve needs exactly one of --run / --export")
+    if args.export_path:
+        from masters_thesis_tpu_torch.export import load_exported
+
+        if args.subject != "a":
+            raise SystemExit(
+                "--subject does not apply to --export serving: the "
+                "artifact's subject was frozen at export time (export "
+                "--subject)")
+        cap = load_exported(args.export_path, device=args.device)
+        # the artifact freezes ONE decoder, served by default; a
+        # contradictory --decoder is the user's error, not overridden
+        frozen = cap.meta["decoder"]
+        if args.decoder is not None and args.decoder != frozen:
+            raise SystemExit(
+                f"this artifact freezes the {frozen!r} decoder; "
+                f"--decoder {args.decoder} cannot be served from it")
+        args.decoder = frozen
+    else:
+        args.decoder = args.decoder or "greedy"
+        cap = Captioner.from_run_dir(args.run, device=args.device,
+                                     subject=args.subject)
     if args.pre:
         cap = PreTransformCaptioner(cap, args.pre)
     return make_caption_server(
@@ -663,6 +1215,22 @@ def main(argv=None) -> int:
         out_rows = apply_preprocess_chain(args.pre, np.load(args.betas))
         np.save(args.out, out_rows)
         print(json.dumps({"out": args.out, "shape": list(out_rows.shape)}))
+        return 0
+    if args.cmd == "analyze":
+        print(json.dumps(_run_analyze(args)))
+        return 0
+    if args.cmd == "export":
+        import torch
+
+        from masters_thesis_tpu_torch.export import export_run
+
+        platforms = ([p.strip() for p in args.platforms.split(",")
+                      if p.strip()] or [torch.device(args.device).type])
+        meta = export_run(args.run, args.out, decoder=args.decoder,
+                          batch_size=args.batch_size,
+                          beam_width=args.beam_width, platforms=platforms,
+                          subject=args.subject, pre=args.pre)
+        print(json.dumps({"out": args.out, **meta}))
         return 0
     if args.cmd == "serve":
         from masters_thesis_tpu_torch.server import serve_forever

@@ -226,8 +226,6 @@ _UNSUPPORTED = (
     ("remat", False, "M15, remat"),
     ("vocab_pad_multiple", (0, 1), "M13, the padded vocab of a sharded "
                                    "model axis"),
-    ("profile_steps", 0, "M14, StepProfiling"),
-    ("profile_trace", False, "M14, TraceCapture"),
 )
 
 

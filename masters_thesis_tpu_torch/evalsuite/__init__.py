@@ -1,7 +1,7 @@
 """Caption metrics: the port's own copy of ``masters_thesis_tpu/evalsuite``
 (BLEU, METEOR, ROUGE-L, CIDEr, SPICE-lite, the metric suite and GUSE
-similarity), framework-free. ``coco_adapter`` and ``analysis`` are not
-copied yet."""
+similarity), framework-free, with ``coco_adapter`` (COCO-format results and
+annotations) and ``analysis`` (the post-hoc analyses behind ``analyze``)."""
 
 from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption, postprocess_text
 from masters_thesis_tpu_torch.evalsuite.bleu import corpus_bleu, sentence_bleu

@@ -13,8 +13,11 @@ writes the JAX package's run directory: ``config.yaml``, ``log.log``,
 ``tokenizer.json``, ``layout.npz`` (for the families whose encoder reads a
 group layout), ``glove_table.npy`` (for a GloVe run), ``modelsummary.txt``,
 ``run_meta.json``, ``metrics.jsonl``, the CSV logs, ``caption_previews.txt``,
-``df_grads.csv``, ``tb/`` and ``model/``, whose checkpoint files are
-torch's (``train/checkpoint.py``).
+``df_grads.csv``, ``tb/`` (scalars, and the caption images of
+``CaptionImagePreview`` in ``events.*.captions``), ``profile.json`` and
+``trace/`` where ``tpu.profile_steps`` and ``tpu.profile_trace`` ask for them
+(``utils/profiling.py``, on ``torch.profiler``), and ``model/``, whose
+checkpoint files are torch's (``train/checkpoint.py``).
 
 Every entry point runs on the card (``cuda``) unless it is given
 ``device="cpu"``. There, every train and val batch gathers its rows from
@@ -366,13 +369,17 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     from masters_thesis_tpu_torch.train import steps
     from masters_thesis_tpu_torch.train.callbacks import (
         BatchLoss,
+        CaptionImagePreview,
         CaptionMetrics,
         Checkpointing,
         ErrorLog,
         GradStats,
         LossHistory,
         PredictPreview,
+        StepProfiling,
         TensorBoardScalars,
+        TraceCapture,
+        load_stimulus_images,
     )
     from masters_thesis_tpu_torch.train.checkpoint import (
         CheckpointManager,
@@ -525,6 +532,8 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     eval_step = steps.make_eval_step(cfg, l2_rules, masked=masked)
     preview_batch = (next(iter(val_pipe.epoch())) if len(val_enc) >= bs
                      else next(iter(train_pipe.epoch())))
+    # one decoder, shared by both preview callbacks
+    preview_decoder = _greedy_decoder(model, cfg)
     callbacks = [
         ErrorLog(run_path),
         LossHistory(run_path),
@@ -534,11 +543,21 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
         # to the epoch's logs
         *([caption_metrics_cb] if caption_metrics_cb else []),
         TensorBoardScalars(os.path.join(run_path, "tb")),
-        PredictPreview(run_path, _greedy_decoder(model, cfg), preview_batch,
-                       tok, every=5),
+        PredictPreview(run_path, preview_decoder, preview_batch, tok,
+                       every=5),
+        CaptionImagePreview(
+            os.path.join(run_path, "tb"), preview_decoder, preview_batch, tok,
+            # the caption drawn over the stimulus picture when the run has
+            # one on disk (soloist TensorBoardCaption semantics)
+            images=load_stimulus_images(cfg.dataset.images_path,
+                                        preview_batch.get("keys", [])),
+            every=5),
         GradStats(run_path,
                   steps.make_grad_stats_fn(cfg, l2_rules, masked=masked),
                   batch, every=5),
+        *([StepProfiling(run_path, cfg.tpu.profile_steps)]
+          if cfg.tpu.profile_steps > 0 else []),
+        *([TraceCapture(run_path)] if cfg.tpu.profile_trace else []),
         *extra_callbacks,
     ]
     trainer = Trainer(

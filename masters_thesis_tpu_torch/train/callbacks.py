@@ -13,13 +13,15 @@ decode and puts back the mode it had (``_decode_words``). Per-step rows
 reach ``on_batch_end`` from the Trainer's one fetch at the epoch's end, so
 no callback reads the device per step.
 
-``CaptionImagePreview`` (matplotlib), ``StepProfiling`` and
-``TraceCapture`` wait for ROADMAP M14 and raise.
+``CaptionImagePreview`` draws with the port's own bitmap font
+(``utils.tensorboard.render_caption_image``); ``StepProfiling`` and
+``TraceCapture`` run on ``torch.profiler`` (``utils.profiling``).
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import logging
 import os
 import traceback
@@ -31,7 +33,11 @@ from masters_thesis_tpu_torch.evalsuite.cider import CiderScorer
 from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption
 from masters_thesis_tpu_torch.train.loop import Callback
 from masters_thesis_tpu_torch.utils.logging import CSVLogger
-from masters_thesis_tpu_torch.utils.tensorboard import EventWriter
+from masters_thesis_tpu_torch.utils.profiling import StepProfiler, start_trace
+from masters_thesis_tpu_torch.utils.tensorboard import (
+    EventWriter,
+    render_caption_image,
+)
 
 logger = logging.getLogger("masters_thesis_tpu_torch")
 
@@ -193,33 +199,119 @@ class CaptionMetrics(Callback):
             epoch, row["val_bleu4"], row["val_cider"], len(texts))
 
 
-class CaptionImagePreview(Callback):
-    """Captions drawn onto their stimulus images as TensorBoard image
-    summaries (soloist TensorBoardCaption.py:49-99). The JAX package draws
-    them with matplotlib, which the port does not use."""
+def load_stimulus_images(images_path: str, keys, max_images: int = 4):
+    """Best-effort load of stimulus pictures ``KID{key}.(png|jpg|jpeg|npy)``
+    for a preview batch (soloist TensorBoardCaption.py:38 loads a pics dir).
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "CaptionImagePreview draws with matplotlib, which the port does "
-            "not use; it waits for a renderer of its own (ROADMAP M14)")
+    Returns a list aligned with ``keys[:max_images]`` — ``None`` where no
+    file exists — or ``None`` when the dir is unset/missing or nothing was
+    found (the preview then renders text-only banners). A file that cannot
+    be read counts as no picture; PNG and JPEG files need PIL."""
+    if not images_path or not os.path.isdir(images_path):
+        return None
+    out, found = [], False
+    for key in list(keys)[:max_images]:
+        img = None
+        for ext in ("png", "jpg", "jpeg", "npy"):
+            p = os.path.join(images_path, f"KID{int(key)}.{ext}")
+            if not os.path.exists(p):
+                continue
+            try:
+                if ext == "npy":
+                    img = np.load(p)
+                else:
+                    from PIL import Image
+
+                    img = np.asarray(Image.open(p).convert("RGB"))
+                found = True
+                break
+            except Exception:
+                # unreadable file -> try the key's next format (a corrupt
+                # .png used to mask a perfectly loadable .npy)
+                img = None
+        out.append(img)
+    return out if found else None
+
+
+class CaptionImagePreview(Callback):
+    """Epoch-end captions rendered onto their stimulus images as TensorBoard
+    image summaries (soloist TensorBoardCaption.py:49-99) in
+    ``<logdir>/events.out.tfevents.*.captions``. ``images`` aligns with the
+    preview batch rows; None entries render a text-only banner (betas
+    models have no stimulus pixels at train time)."""
+
+    def __init__(self, logdir: str, decoder, batch, tokenizer,
+                 images=None, every: int = 1, max_images: int = 4):
+        self.writer = EventWriter(logdir, filename_suffix=".captions")
+        self.decoder = decoder
+        self.batch = batch
+        self.tokenizer = tokenizer
+        self.images = images
+        self.every = every
+        self.max_images = max_images
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        if epoch % self.every:
+            return
+        words = _decode_words(trainer, self.decoder,
+                              _preview_betas(trainer, self.batch),
+                              self.tokenizer.start_id)
+        texts = self.tokenizer.sequences_to_texts(list(words))
+        for i, text in enumerate(texts[: self.max_images]):
+            img = None if self.images is None else self.images[i]
+            png, h, w = render_caption_image(img, text)
+            self.writer.image(f"captions/sample_{i}", png, h, w, epoch)
+
+    def on_train_end(self, trainer):
+        self.writer.close()
 
 
 class StepProfiling(Callback):
-    """Wall-time stats over a step window -> <run>/profile.json."""
+    """Wall-time stats over a step window -> <run>/profile.json
+    (profile_batch semantics, main.py:210), written only when the window
+    saw steps. The time is the host's between two ``on_batch_end`` calls,
+    with no synchronise (one would slow the steps it measures): in scanned
+    mode the batch callbacks arrive at the epoch's end, so the window
+    measures the host's stepping through them, as in the JAX package."""
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "StepProfiling (tpu.profile_steps) is ported with "
-            "utils/profiling.py on torch.profiler (ROADMAP M14)")
+    def __init__(self, run_path: str, n_steps: int, start_step: int = 10):
+        self.path = os.path.join(run_path, "profile.json")
+        self.profiler = StepProfiler(start_step, start_step + n_steps)
+
+    def on_batch_end(self, trainer, step, logs):
+        self.profiler.maybe_tick(step)
+
+    def on_train_end(self, trainer):
+        stats = self.profiler.summary()
+        if stats:
+            with open(self.path, "w") as f:
+                json.dump(stats, f, indent=1)
 
 
 class TraceCapture(Callback):
-    """A profiler trace of the first epoch -> <run>/trace/."""
+    """A ``torch.profiler`` trace of the first epoch -> <run>/trace/
+    (``*.pt.trace.json``, which TensorBoard's profile tab and Perfetto
+    read; ``tpu.profile_trace``): CPU activity, and the card's kernels when
+    the trainer runs on CUDA. It stops at the first epoch's end (traces
+    grow fast) or at the train end, whichever comes first."""
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "TraceCapture (tpu.profile_trace) is ported with "
-            "utils/profiling.py on torch.profiler (ROADMAP M14)")
+    def __init__(self, run_path: str):
+        self.logdir = os.path.join(run_path, "trace")
+        self._prof = None
+
+    def on_train_begin(self, trainer):
+        self._prof = start_trace(self.logdir, trainer.device)
+
+    def _stop(self):
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        self._stop()  # first epoch only
+
+    def on_train_end(self, trainer):
+        self._stop()  # safety net for 0-epoch/interrupted runs
 
 
 class Checkpointing(Callback):

@@ -211,13 +211,6 @@ def test_decoding_callbacks_put_the_models_mode_back(tmp_path):
     assert seen == [False, False]
 
 
-def test_unported_callbacks_refuse():
-    for cls in (pcb.CaptionImagePreview, pcb.StepProfiling,
-                pcb.TraceCapture):
-        with pytest.raises(NotImplementedError, match="ROADMAP M14"):
-            cls("run", None)
-
-
 def test_decoding_callbacks_leave_training_as_it_was(tmp_path):
     """PredictPreview and CaptionMetrics at every=1 in a real Trainer with
     dropout on: the same per-step losses as a run without them, the model

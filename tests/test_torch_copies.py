@@ -8,6 +8,7 @@ logs and the TensorBoard event writer."""
 
 import io
 import json
+import struct
 import threading
 import urllib.request
 
@@ -417,8 +418,12 @@ def test_event_writer_matches_original(tmp_path):
         (files[name],) = (tmp_path / name).glob("events.out.tfevents.*.x")
     assert _records(files["port"]) == _records(files["jax"])
     assert len(_records(files["port"])) == 5
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        ptensorboard.render_caption_image(None, "a caption")
+    # render_caption_image is the port's own (a bitmap font, not
+    # matplotlib): like the original it returns a PNG and its own size
+    for module in (ptensorboard, jtensorboard):
+        png, h, w = module.render_caption_image(img, "a caption")
+        assert png[:8] == b"\x89PNG\r\n\x1a\n"
+        assert struct.unpack(">II", png[16:24]) == (w, h)
 
 
 def _caption_dir(tmp_path):

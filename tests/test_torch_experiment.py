@@ -13,13 +13,15 @@ near-ties excepted, and ``run_metrics`` on B's texts gives the JAX dict
 exactly. Then the port alone: resume is bit for bit with dropout on,
 ``from_run_dir`` serves the run's words, the CLI prints the JAX CLI's keys,
 the parts a former slice refused (the other families, GloVe tables, the
-learned carry, beam and sampling, and their CLI flags) run, and every part
-that waits refuses, naming its ROADMAP item."""
+learned carry, beam and sampling, the profiling knobs, and their CLI flags)
+run, CaptionImagePreview's images carry the JAX run's tags and steps, and
+every part that waits refuses, naming its ROADMAP item."""
 
 import copy
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -146,13 +148,12 @@ def _listing(run_path):
 
 
 def test_run_directory_matches_the_jax_run(runs):
-    """The same files, with one exception: the JAX run's
-    ``tb/events.captions`` of CaptionImagePreview, which draws with
-    matplotlib and waits in the port (ROADMAP M14)."""
+    """The same files, ``tb/events.captions`` of CaptionImagePreview
+    included."""
     p, jb = runs["p_path"], runs["jb_path"]
     experiment.run_eval(runs["p"], p)
-    assert _listing(jb) - _listing(p) == {"tb/events.captions"}
-    assert _listing(p) - _listing(jb) == set()
+    assert _listing(p) == _listing(jb)
+    assert "tb/events.captions" in _listing(p)
     assert sorted(os.listdir(Path(p) / "model")) == [
         "ep000", "ep001", "meta.json"]
     for name in ("loss_history.csv", "batch_training_log.csv",
@@ -176,6 +177,23 @@ def test_run_directory_matches_the_jax_run(runs):
     assert meta["backend"] == "cpu"
     assert Config.load(Path(p) / "config.yaml").to_dict() == JConfig.load(
         Path(p) / "config.yaml").to_dict()
+
+
+def test_caption_images_match_the_jax_runs_tags_and_steps(runs):
+    """CaptionImagePreview's image summaries: the JAX run's tags at the
+    JAX run's steps, each image as large as its PNG."""
+    from test_torch_preview import image_events
+
+    events = {}
+    for name in ("p_path", "jb_path"):
+        (path,) = Path(runs[name], "tb").glob("events.out.tfevents.*.captions")
+        events[name] = image_events(path)
+    assert ([e[:2] for e in events["p_path"]]
+            == [e[:2] for e in events["jb_path"]])
+    assert [e[1] for e in events["p_path"]] == [
+        f"captions/sample_{i}" for i in range(4)]
+    for _, _, h, w, png in events["p_path"]:
+        assert struct.unpack(">II", png[16:24]) == (w, h)
 
 
 def _port_bundle_with_jax_weights(runs):
@@ -391,14 +409,6 @@ def _captioner_decoder(tmp_path, decoder):
     return run
 
 
-def _make(cls_name, module="masters_thesis_tpu_torch.train.callbacks"):
-    def run():
-        import importlib
-
-        getattr(importlib.import_module(module), cls_name)("dir", None)
-    return run
-
-
 REFUSALS = {
     "data mesh": (lambda t: lambda: _train(t, mesh_data=2), "M13"),
     "model mesh": (lambda t: lambda: _train(t, mesh_model=2), "M13"),
@@ -409,15 +419,6 @@ REFUSALS = {
     "remat": (lambda t: lambda: _train(t, remat=True), "M15"),
     "padded vocab": (lambda t: lambda: _train(t, vocab_pad_multiple=128),
                      "M13"),
-    "step profiling": (lambda t: lambda: _train(t, profile_steps=5), "M14"),
-    "profiler trace": (lambda t: lambda: _train(t, profile_trace=True),
-                       "M14"),
-    "CaptionImagePreview": (lambda t: _make("CaptionImagePreview"), "M14"),
-    "render_caption_image": (lambda t: lambda: __import__(
-        "masters_thesis_tpu_torch.utils.tensorboard",
-        fromlist=["x"]).render_caption_image(None, "a"), "M14"),
-    "StepProfiling": (lambda t: _make("StepProfiling"), "M14"),
-    "TraceCapture": (lambda t: _make("TraceCapture"), "M14"),
 }
 
 
@@ -433,7 +434,6 @@ def test_unported_parts_refuse_naming_their_roadmap_item(case, tmp_path):
     (["train", "--processes", "2"], "M13"),
     (["train", "--devices-per-process", "8"], "M13"),
     (["caption", "--shard", "2"], "M13"),
-    (["serve", "--export", "a.mttx"], "M14"),
     (["serve", "--shard", "2"], "M13"),
 ])
 def test_cli_flags_without_a_port_exit_naming_their_item(argv, item):
@@ -503,8 +503,11 @@ def _use_metrics_run(tmp_path):
     assert "GUSE_pearson_r" in scores and "GUSE_hash_pearson_r" not in scores
 
 
-# parts a former slice refused, naming ROADMAP M9, M11, M12 or M19, now run
+# parts a former slice refused, naming ROADMAP M9, M11, M12, M14 or M19,
+# now run
 FORMERLY_REFUSED = {
+    "step profiling": lambda t: _train(t, profile_steps=5),
+    "profiler trace": lambda t: _train(t, profile_trace=True),
     "USE encoder": _use_metrics_run,
     "real NSD data": _real_data_run,
     "another model family": lambda t: _train(t, model="showtell"),

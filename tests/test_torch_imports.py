@@ -1,6 +1,7 @@
 """The port stands alone: in a fresh interpreter with jax, jaxlib, flax,
-optax, orbax, yaml, h5py and PIL (which the card's machine lacks; the port
-imports the last two only in the commands that read HDF5 or write PNG) and
+optax, orbax, yaml, h5py, PIL and matplotlib (which the card's machine
+lacks; the port imports h5py and PIL only in the commands that read HDF5
+or write PNG, and matplotlib only where ``analyze`` draws) and
 the JAX package itself blocked by a meta-path finder, every module of the
 port and ``chip_smoke.py`` import, and importing them
 loads no module of the JAX package, does not load triton and builds no
@@ -22,7 +23,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "masters_thesis_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "triton",
-           "h5py", "PIL", "masters_thesis_tpu")
+           "h5py", "PIL", "matplotlib", "masters_thesis_tpu")
 
 
 def _port_modules() -> list[str]:
@@ -85,9 +86,12 @@ def test_port_imports_with_jax_flax_and_yaml_blocked(imported):
                  "models.efficientnet", "models.use_encoder",
                  "utils.farmhash", "utils.keras_import", "tune",
                  "tune.search", "tune.asha", "tune.runner",
-                 "tune.dispatch"):
+                 "tune.dispatch", "export", "evalsuite.analysis",
+                 "evalsuite.coco_adapter", "utils.profiling",
+                 "utils.monitor"):
         assert f"masters_thesis_tpu_torch.{name}" in loaded
-    for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
+    for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+                    "matplotlib"):
         assert blocked not in loaded
 
 
@@ -219,3 +223,42 @@ def test_guse_score_and_tune_run_with_jax_flax_yaml_and_h5py_blocked(
             assert not any(m.split(".")[0] == blocked for m in loaded), (
                 argv[0], blocked)
     assert np.load(tmp_path / "out" / "keys.npy").tolist() == [3, 5]
+
+
+def test_deploy_commands_run_with_matplotlib_blocked(tmp_path):
+    """A training run with ``tpu.profile_steps`` and ``tpu.profile_trace``
+    (its caption images drawn by the port's own font), ``export`` of it and
+    the artifact loaded, on the CPU, with matplotlib and the JAX package
+    blocked; ``analyze`` there exits non-zero naming matplotlib before it
+    writes anything."""
+    cfg = tmp_path / "smoke.yaml"
+    cfg.write_text((ROOT / "configs" / "smoke.yaml").read_text().replace(
+        "log: /tmp/mtt_logs/", f"log: {tmp_path}/")
+        + "tpu:\n  profile_steps: 3\n  profile_trace: true\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+    def run(argv):
+        return subprocess.run(
+            [sys.executable, "-c",
+             f"ARGV = {argv!r}\nBLOCKED = {BLOCKED!r}\n{CLI_SCRIPT}"],
+            capture_output=True, text=True, env=env, cwd=tmp_path,
+            timeout=300)
+
+    proc = run(["train", "--config", str(cfg), "--epochs", "2",
+                "--smoke-keys", "48", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    run_path = Path(json.loads(proc.stdout.strip().splitlines()[-2])[
+        "run_path"])
+    assert (run_path / "profile.json").exists()
+    assert list((run_path / "trace").glob("*.pt.trace.json"))
+    assert list((run_path / "tb").glob("*.captions"))
+    proc = run(["export", "--run", str(run_path), "--out",
+                str(tmp_path / "a.mttx"), "--batch-size", "4", "--device",
+                "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-2])["platforms"] == [
+        "cpu"]
+    proc = run(["analyze", "--run", str(run_path), "--device", "cpu"])
+    assert proc.returncode != 0 and "matplotlib" in proc.stderr
+    assert not (run_path / "analysis").exists()
