@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives ten paths, each at the full
+``nvcc`` a source, in parallel), then drives eleven paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -132,7 +132,21 @@ width of its model or at its probe's own sizes:
   trials, each trial's wall s and launches, the sweep's wall s and trials
   an hour and each process's peak device memory; K1 and K2 are counted in
   the processes that ran the trials, every trial must be recorded, none
-  in error, and each must have launched K1.
+  in error, and each must have launched K1;
+- the parallel phase (``parallel/``): ``run_training`` of
+  ``configs/flagship_synth.yaml`` at full width with its vocab padded to
+  5,008 (``tpu.vocab_pad_multiple: 8``), 1 epoch at 256 keys, four ways:
+  in this process, with ``mesh_data: 0`` over a process group of one
+  rank (NCCL), and through ``train --processes 2 --devices-per-process
+  1`` at data 1 x model 2 and data 2 x model 1, two ranks sharing the
+  card under gloo; each epoch loss within 1e-4 of the single process's,
+  K1 counted in every rank (on every train and val batch), the 1 x 2
+  run's checkpoint restored here bit for bit; K1 against its plain version
+  (and timed beside ``index_select``) on rank 0's columns of the store of
+  a 1 x 2 mesh; K2 against its plain version at vocab 5,008; ``caption
+  --shard 1`` against K2's plain words (near-ties counted) and against
+  ``caption`` on the run; ``dryrun --devices 4`` and ``dryrun
+  --flagship``. One card cannot show scaling over cards.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -157,8 +171,10 @@ and K2 also under ``launches_experiment``, their launches in the training
 product's phase, K1, K2 and K3 under ``launches_families``, theirs in
 the families' runs, under ``launches_ingest``, theirs in the ingest
 phase's runs, K1 and K2 under ``launches_sweep``, theirs in the sweep
-phase's runs, summed over its processes, and under ``launches_deploy``,
-theirs in the deploy phase's profiled run), its
+phase's runs, summed over its processes, under ``launches_deploy``,
+theirs in the deploy phase's profiled run, and under
+``launches_parallel``, theirs in the parallel phase, summed over its
+ranks), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -167,7 +183,9 @@ entry holds its check, times and bound at the wide shape under ``wide``,
 K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
 and P3's holds its and ``index_select``'s times in turns under ``turns``;
 K1's holds, for the training store and each ingest and sweep run's store,
-its and ``index_select``'s device, host and event times under ``stores``.
+its and ``index_select``'s device, host and event times under ``stores``,
+and its times on a rank's store under ``rank_store``; K2's its times at
+vocab 5,008 under ``vocab_5008``.
 Any failed phase raises, and the script then exits non-zero without those
 lines. It needs CUDA and the rest of the repository beside it; it imports
 nothing of the JAX package.
@@ -3416,6 +3434,231 @@ def sweep(device, card: str, scored: dict) -> dict:
             "k1_stores": guse["k1_stores"]}
 
 
+# ---- the parallel phase: ranks on the card, --shard, dryrun (parallel/)
+
+PARALLEL_KEYS = 256                 # 13 train steps at batch 64
+PARALLEL_PAD = 8                    # tpu.vocab_pad_multiple: 5,001 -> 5,008
+PARALLEL_MESHES = ((1, 2), (2, 1))  # (data, model), 2 ranks on cuda:0
+PARALLEL_LOSS_ATOL = 1e-4
+PARALLEL_STORE_SHARD = 2            # K1 on rank 0's columns of a 1 x 2 mesh
+DRYRUN_RANKS = 4
+
+
+def parallel_config(log: str, **tpu):
+    """``configs/flagship_synth.yaml`` for one epoch with its vocab padded
+    to 5,008, its ``tpu:`` knobs set from ``tpu``."""
+    from masters_thesis_tpu_torch.config import Config
+
+    cfg = Config.load(EXPERIMENT_CONFIG)
+    cfg.log, cfg.epochs = log, 1
+    cfg.tpu.vocab_pad_multiple = PARALLEL_PAD
+    for knob, value in tpu.items():
+        setattr(cfg.tpu, knob, value)
+    return cfg
+
+
+def parallel_runs(root: Path, device, card: str) -> dict:
+    """``run_training`` four ways: in this process (no mesh, then
+    ``mesh_data: 0`` over a process group of one rank, NCCL), then through
+    ``train --processes 2 --devices-per-process 1`` at data 1 x model 2 and
+    data 2 x model 1, two ranks sharing the card under gloo. Every run's
+    epoch loss within PARALLEL_LOSS_ATOL of the single-process run's, and
+    K1 on every train and val batch of every rank."""
+    import torch.distributed as dist
+
+    from masters_thesis_tpu_torch import cli, experiment
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+    from masters_thesis_tpu_torch.parallel import multiprocess as mp
+
+    runs, batches = {}, None
+    for label, tpu in (("single", {}), ("1 rank", {"mesh_data": 0})):
+        cfg = parallel_config(str(root / label.replace(" ", "_")), **tpu)
+        gather_rows.launches = 0
+        t0 = time.perf_counter()
+        run_path, logs, bundle = experiment.run_training(
+            cfg, smoke_keys=PARALLEL_KEYS, device=device)
+        torch.cuda.synchronize()
+        report = mp._training_report(run_path, bundle, logs)
+        report["wall_s"] = time.perf_counter() - t0
+        if batches is None:
+            batches = (len(bundle["pairs"]["train"]) // cfg.batch_size
+                       + len(bundle["pairs"]["val"]) // cfg.batch_size)
+        if label == "1 rank":
+            report["backend"] = dist.get_backend()
+            dist.destroy_process_group()
+        runs[label] = report
+        del bundle
+        release()
+    for d, m in PARALLEL_MESHES:
+        label = f"{d}x{m}"
+        cfg = parallel_config(str(root / label), mesh_data=d, mesh_model=m)
+        path = root / f"{label}.yaml"
+        cfg.save(path)
+        t0 = time.perf_counter()
+        report = with_stdout(cli.main, [
+            "train", "--config", str(path), "--processes", str(d * m),
+            "--devices-per-process", "1", "--smoke-keys",
+            str(PARALLEL_KEYS), "--device", device.type])
+        report["wall_s"] = time.perf_counter() - t0
+        report["backend"] = "gloo"
+        runs[label] = report
+    want = runs["single"]["epoch_losses"]
+    for label, r in runs.items():
+        diff = max(abs(a - b) for a, b in zip(r["epoch_losses"], want))
+        vdiff = max(abs(a - b) for a, b in zip(r["epoch_val_losses"],
+                                               runs["single"]
+                                               ["epoch_val_losses"]))
+        k1 = r["launches_by_rank"]["gather_rows"]
+        print(f"parallel {label}: mesh {r['mesh']}, "
+              f"{r.get('ranks', 1)} rank(s) on the card "
+              f"({r.get('backend', 'no group')}), loss "
+              f"{r['epoch_losses']}, val loss {r['epoch_val_losses']}, "
+              f"|loss - single| {diff:.3e} (limit {PARALLEL_LOSS_ATOL}), "
+              f"|val loss - single| {vdiff:.3e}, steps/s "
+              f"{r['steps_per_sec']}, param norm {r['param_norm']:.6f}, K1 "
+              f"launches by rank {k1} ({batches} train and val batches), "
+              f"run {r['wall_s']:.1f} s [{card}]")
+        if len(r["epoch_losses"]) != 1 or diff > PARALLEL_LOSS_ATOL:
+            raise RuntimeError(f"parallel {label}: epoch losses "
+                               f"{r['epoch_losses']} against the single "
+                               f"process's {want}")
+        if min(k1) < batches:
+            raise RuntimeError(f"parallel {label}: K1 launched {k1} times "
+                               f"by rank, for {batches} batches a rank")
+    return runs
+
+
+def check_rank_restore(run_path: str, report: dict, device,
+                       card: str) -> None:
+    """The multi-rank run's checkpoint restored in this process, on one
+    device: its whole state bit for bit (SHA-256)."""
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+    from masters_thesis_tpu_torch.parallel.multiprocess import _state_sha256
+    from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
+    from masters_thesis_tpu_torch.train.state import model_for, new_state
+
+    cfg = Config.load(Path(run_path) / "config.yaml")
+    layout = GroupLayout.load(Path(run_path) / "layout.npz")
+    state = new_state(model_for(cfg, layout), cfg, device)
+    _, epoch = CheckpointManager(str(Path(run_path) / "model")).restore(state)
+    sha = _state_sha256(state.model.state_dict())
+    print(f"parallel: the data 1 x model 2 run's epoch-{epoch} checkpoint "
+          f"restored on one device: SHA-256 {sha[:16]}..., the run's "
+          f"{report['state_sha256'][:16]}... [{card}]")
+    if sha != report["state_sha256"]:
+        raise RuntimeError("the multi-rank checkpoint did not restore bit "
+                           "for bit")
+
+
+def check_shard_serving(run_path: str, tok, device, card: str) -> tuple:
+    """K2 against its plain version at vocab 5,008; ``Captioner(shard=1)``
+    on that model against K2's plain words, near-ties excepted and counted,
+    its K2 launches counted; and ``caption --shard 1`` on the
+    single-process run against ``caption``."""
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    model = flagship_model(device, vocab_size=WIDTHS["vocab_size"]
+                           + (-WIDTHS["vocab_size"]) % PARALLEL_PAD,
+                           true_vocab=WIDTHS["vocab_size"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
+    k2 = check_kernel(model, rows, card, f"K2 at vocab {model.vocab_size}")
+    _, reference = fd.decode_kernel(model)
+    opts = fd.decode_options(model)
+    inputs = fd.decode_inputs(model, rows, tok.start_id)
+    want, _, margins = reference(*inputs, max_length=model.max_length,
+                                 return_margins=True, **opts)
+    sharded = Captioner(model, tok, WIDTHS["units"], model.max_length,
+                        batch_size=BATCH, device=device, shard=1)
+    fd.fused_greedy_decode.launches = 0
+    got = torch.as_tensor(sharded.caption_ids(rows.cpu().numpy()))
+    launches = fd.fused_greedy_decode.launches
+    differ = (got != want.cpu()).any(1)
+    ties = differ & (margins.cpu().min(1).values < TIE_MARGIN)
+    print(f"caption --shard 1 (Captioner, {len(sharded.replicas)} replica) "
+          f"vs K2's plain version at vocab {model.vocab_size}: "
+          f"{int((~differ).sum())}/{BATCH} rows identical, near-tie rows "
+          f"{int(ties.sum())}, K2 launches {launches} [{card}]")
+    if bool((differ & ~ties).any()) or launches < 1:
+        raise RuntimeError(f"--shard 1 serving: rows "
+                           f"{differ.nonzero().flatten().tolist()} differ "
+                           f"away from near-ties, K2 launches {launches}")
+    meta = json.loads((Path(run_path) / "run_meta.json").read_text())
+    with tempfile.TemporaryDirectory(prefix="mtt_shard_") as tmp:
+        betas = Path(tmp) / "rows.npy"
+        np.save(betas, np.random.default_rng(SEED).standard_normal(
+            (BATCH, *meta["input_row_shape"]), dtype=np.float32))
+        texts = {}
+        for shard in ("0", "1"):
+            out = Path(tmp) / f"{shard}.txt"
+            with_stdout(cli.main, ["caption", "--run", run_path, "--betas",
+                                   str(betas), "--shard", shard, "--out",
+                                   str(out), "--device", device.type])
+            texts[shard] = out.read_text()
+    print(f"caption --shard 1 on the single-process run: the words of "
+          f"caption, {texts['1'] == texts['0']} [{card}]")
+    if texts["1"] != texts["0"]:
+        raise RuntimeError("caption --shard 1 differs from caption")
+    return k2, launches
+
+
+def parallel(tok, device, card: str) -> dict:
+    """The parallel phase: ``parallel_runs``, the 1 x 2 run's checkpoint
+    restored here, K1 against its plain version (and timed beside
+    ``index_select``) on a rank's store of a 1 x 2 mesh, K2 at vocab 5,008
+    and ``--shard 1`` serving, then ``dryrun --devices 4`` and ``dryrun
+    --flagship``. Multi-card scaling is not measured: the machine has one
+    card, which the ranks share."""
+    from types import SimpleNamespace
+
+    from masters_thesis_tpu_torch import cli
+    from masters_thesis_tpu_torch.data.store import ArrayStore
+    from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+    from masters_thesis_tpu_torch.parallel.sharding import shard_store_array
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtt_parallel_") as tmp:
+        root = Path(tmp)
+        runs = parallel_runs(root, device, card)
+        check_rank_restore(runs["1x2"]["run_path"], runs["1x2"], device,
+                           card)
+        layout = GroupLayout.load(Path(runs["single"]["run_path"])
+                                  / "layout.npz")
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        raw = torch.randn(PARALLEL_KEYS, N_VOXELS, generator=gen,
+                          device=device)
+        rank = SimpleNamespace(m=0, model=PARALLEL_STORE_SHARD)
+        store = ArrayStore(shard_store_array(raw, layout, rank),
+                           range(PARALLEL_KEYS), device=device)
+        del raw
+        print(f"K1 on rank 0's store of a 1 x {PARALLEL_STORE_SHARD} mesh: "
+              f"{tuple(store.device_array().shape)}, of the "
+              f"{layout.padded_total} grouped columns")
+        k1 = check_gather(store, card)
+        del store
+        release()
+        k2, k2_launches = check_shard_serving(runs["single"]["run_path"],
+                                              tok, device, card)
+        release()
+    t0 = time.perf_counter()
+    cli.main(["dryrun", "--devices", str(DRYRUN_RANKS), "--device",
+              device.type])
+    cli.main(["dryrun", "--devices", "8", "--flagship", "--device",
+              device.type])
+    print(f"dryrun: {time.perf_counter() - t0:.1f} s")
+    k1_launches = sum(sum(r["launches_by_rank"]["gather_rows"])
+                      for r in runs.values())
+    print(f"parallel: the phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"K1 launches {k1_launches} over the four runs' ranks, K2 "
+          f"{k2_launches} [{card}]")
+    return {"K1": k1, "K2": k2, "launches": {"gather_rows": k1_launches,
+                                             "fused_greedy_decode":
+                                                 k2_launches}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3509,6 +3752,14 @@ def main(argv=None) -> int:
     swept = sweep(device, card, product.pop("scored"))
     swp = swept["launches"]
     release()
+    par = parallel(tok, device, card)
+    release()
+    k1["max_abs_err"] = max(k1["max_abs_err"], par["K1"]["max_abs_err"])
+    k1["stores"] += par["K1"]["stores"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], par["K2"]["max_abs_err"])
+    shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k1["rank_store"] = {k: par["K1"][k] for k in shape_keys}
+    k2["vocab_5008"] = {k: par["K2"][k] for k in shape_keys}
     k1["max_abs_err"] = max([k1["max_abs_err"], *ingested["errors"]["K1"],
                              swept["errors"]["K1"]])
     k1["stores"] += ingested["k1_stores"] + swept["k1_stores"]
@@ -3526,7 +3777,9 @@ def main(argv=None) -> int:
         "launches_deploy": dep["K2"],
         "launches_families": counts["fused_greedy_decode"],
         "launches_ingest": ing["fused_greedy_decode"],
-        "launches_sweep": swp["fused_greedy_decode"], **k2}, {
+        "launches_sweep": swp["fused_greedy_decode"],
+        "launches_parallel": par["launches"]["fused_greedy_decode"],
+        **k2}, {
         "name": "fused_greedy_decode_gru", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276",
@@ -3539,7 +3792,8 @@ def main(argv=None) -> int:
         "launches_deploy": dep["K1"],
         "launches_families": counts["gather_rows"],
         "launches_ingest": ing["gather_rows"],
-        "launches_sweep": swp["gather_rows"], **k1}, {
+        "launches_sweep": swp["gather_rows"],
+        "launches_parallel": par["launches"]["gather_rows"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},

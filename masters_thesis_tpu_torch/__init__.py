@@ -41,8 +41,14 @@ its own copy of ``utils.farmhash``) behind ``guse`` and ``score`` and
 ``run_metrics``' ``GUSE_*`` scores, the hyper-parameter sweep (``tune``:
 search, ASHA, trial processes and the shared-filesystem queue, copied)
 behind ``tune``, and the Keras weight import (``utils.keras_import``,
-copied). Entry points run on the card (``cuda``) unless the caller passes
-``device="cpu"`` (the CLI: ``--device cpu``).
+copied); and ``parallel/``: training over a ('data', 'model') mesh of
+ranks, one process and one device a rank (``parallel.mesh``,
+``parallel.sharding``: the flagship's encoder, embedding and head compute
+with their shards, collectives in ``parallel.collectives``), ``train
+--processes``, data-parallel serving replicas (``caption/serve --shard``),
+``dryrun`` and ``tpu.vocab_pad_multiple``. Entry points run on the card
+(``cuda``) unless the caller passes ``device="cpu"`` (the CLI: ``--device
+cpu``).
 """
 
 __version__ = "0.1.0"

@@ -4,13 +4,17 @@ The JAX package's ``mtt`` commands of the training product and of the
 input side, with their flags and their last-line JSON:
 
   python -m masters_thesis_tpu_torch train   --config c.yaml   (main.py)
+      [--processes P --devices-per-process D]   (P x D ranks, parallel/)
   python -m masters_thesis_tpu_torch eval    --config c.yaml   (eval.py)
   python -m masters_thesis_tpu_torch metrics --config c.yaml   (metric_suit.py)
   python -m masters_thesis_tpu_torch caption --run DIR --betas x.npy
       [--decoder greedy|beam|sample] [--subject a|b] [--pre PREDIR]
+      [--shard N]
   python -m masters_thesis_tpu_torch serve   --run DIR | --export A.mttx
       [--pre PREDIR] [--decoder ...] [--max-batch N] [--max-wait-ms T]
-      [--host H --port P]
+      [--host H --port P] [--shard N]
+  python -m masters_thesis_tpu_torch dryrun  --devices N [--flagship]
+      (one sharded train step over N ranks; the flagship's census)
   python -m masters_thesis_tpu_torch export  --run DIR --out A.mttx
       [--decoder greedy|beam] [--batch-size N] [--beam-width W]
       [--platforms cpu,cuda] [--subject a|b] [--pre PREDIR]
@@ -42,9 +46,13 @@ and ``stimuli`` run on the host; ``guse`` and ``score`` run the USE
 encoder on the device when a weight bundle is found, and otherwise embed
 on the host; ``analyze`` draws on the host and uses the device only for
 its PCA front end and the USE encoder; ``export`` traces one program for
-each of ``--platforms``, by default the platform of ``--device``). A flag
-of the JAX CLI that the port does not honour yet exits non-zero with a
-message that names the ROADMAP item that ports it.
+each of ``--platforms``, by default the platform of ``--device``).
+``train --processes`` starts one process a rank (``parallel.multiprocess``;
+ranks on one card share it under gloo), ``caption``/``serve --shard N``
+serve N replicas, one a device, and ``dryrun`` runs one sharded step over
+N ranks (``parallel.dryrun``). A ``tpu:`` knob that the port does not
+honour yet makes a run exit non-zero naming the ROADMAP item that ports
+it (``config.unsupported_knobs``).
 """
 
 from __future__ import annotations
@@ -52,20 +60,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# (flag's attribute, the value that needs no port, what ports the rest)
-_REFUSED = {
-    "train": (("processes", 1, "--processes (multi-process training) is "
-               "ported with parallel/ (ROADMAP M13)"),
-              ("devices_per_process", 4, "--devices-per-process (the devices "
-               "of a multi-process mesh) is ported with parallel/ (ROADMAP "
-               "M13)")),
-    "caption": (("shard", 0, "--shard (a data-parallel serving mesh) is "
-                 "ported with parallel/ (ROADMAP M13)"),),
-    "serve": (("shard", 0, "--shard (a data-parallel serving mesh) is "
-               "ported with parallel/ (ROADMAP M13)"),),
-}
-
 
 def _add_common(p):
     p.add_argument("--config", required=True, help="YAML config path")
@@ -92,9 +86,13 @@ def _parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="train a model from a config")
     _add_common(t)
     t.add_argument("--processes", type=int, default=1,
-                   help="not ported: multi-process training")
+                   help="train across P x D ranks, one process a rank, "
+                   "grouped as P hosts of --devices-per-process ranks "
+                   "(the config's tpu.mesh_* lay them out; a 1 x 1 mesh "
+                   "becomes data-parallel over every rank)")
     t.add_argument("--devices-per-process", type=int, default=4,
-                   help="not ported: devices per process")
+                   help="ranks (one device each) of each of --processes "
+                   "hosts")
 
     for name, what in (("eval", "train (or restore) then decode test set"),
                        ("metrics", "train+eval+score in one go")):
@@ -156,7 +154,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="write captions here (one line per row) instead "
                     "of stdout")
     cp.add_argument("--subject", choices=["a", "b"], default="a")
-    cp.add_argument("--shard", type=int, default=0)
+    cp.add_argument("--shard", type=int, default=0,
+                    help="data-parallel serving over N devices (0: one "
+                    "device): N replicas decode equal shares of each batch")
     cp.add_argument("--pre", default=None,
                     help="a `preprocess` output dir: replay its transform "
                     "chain on the raw betas before decoding")
@@ -185,11 +185,25 @@ def _parser() -> argparse.ArgumentParser:
                     "co-batchable work")
     sv.add_argument("--subject", choices=["a", "b"], default="a",
                     help="ms2_nic runs: which per-subject encoder serves")
-    sv.add_argument("--shard", type=int, default=0)
+    sv.add_argument("--shard", type=int, default=0,
+                    help="data-parallel serving over N devices")
     sv.add_argument("--pre", default=None,
                     help="a `preprocess` output dir: every request's raw "
                     "betas replay its transform chain before decoding")
     _add_device(sv)
+
+    dr = sub.add_parser("dryrun",
+                        help="one sharded train step over N ranks at tiny "
+                        "shapes, then the flagship's sharding census")
+    dr.add_argument("--devices", type=int, default=8,
+                    help="ranks, one process each (on one card they share "
+                    "it under gloo)")
+    dr.add_argument("--flagship", action="store_true",
+                    help="only the census of the reference-dimension model "
+                    "(327,684 voxels / 360 groups / vocab 5001 padded / "
+                    "units 512), built on the meta device: no array is "
+                    "allocated")
+    _add_device(dr)
 
     fe = sub.add_parser("features",
                         help="batched CNN feature extraction (the "
@@ -1180,7 +1194,7 @@ def make_server(args):
     else:
         args.decoder = args.decoder or "greedy"
         cap = Captioner.from_run_dir(args.run, device=args.device,
-                                     subject=args.subject)
+                                     subject=args.subject, shard=args.shard)
     if args.pre:
         cap = PreTransformCaptioner(cap, args.pre)
     return make_caption_server(
@@ -1191,10 +1205,12 @@ def make_server(args):
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    for attr, ported, message in _REFUSED.get(args.cmd, ()):
-        if getattr(args, attr) != ported:
-            raise SystemExit(f"masters_thesis_tpu_torch {args.cmd}: "
-                             f"{message}")
+    if args.cmd == "dryrun":
+        from masters_thesis_tpu_torch.parallel.dryrun import dryrun_multichip
+
+        dryrun_multichip(args.devices, flagship_only=args.flagship,
+                         device=args.device)
+        return 0
 
     if args.cmd == "features":
         print(json.dumps(_run_features(args)))
@@ -1250,7 +1266,7 @@ def main(argv=None) -> int:
         cap = Captioner.from_run_dir(
             args.run, device=args.device, subject=args.subject,
             temperature=args.temperature, sample_top_k=args.sample_top_k,
-            seed=args.seed)
+            seed=args.seed, shard=args.shard)
         rows = np.load(args.betas)
         if args.pre:
             from masters_thesis_tpu_torch.experiment import (
@@ -1295,6 +1311,17 @@ def main(argv=None) -> int:
             vc_parcels=args.vc_parcels, normalize=args.normalize,
             device=args.device)
         print(json.dumps(report))
+        return 0
+    if args.cmd == "train" and args.processes > 1:
+        from masters_thesis_tpu_torch.parallel.multiprocess import (
+            launch_cli_train,
+        )
+
+        print(json.dumps(launch_cli_train(
+            args.config, n_processes=args.processes,
+            devices_per_process=args.devices_per_process,
+            epochs=args.epochs, smoke_keys=args.smoke_keys,
+            resume=args.resume, device=args.device)))
         return 0
     run_path, logs, bundle = run_training(
         cfg, args.epochs, args.smoke_keys, resume=args.resume,

@@ -219,13 +219,9 @@ def load_config(path: str | os.PathLike) -> Config:
 
 # (knob, its default, the ROADMAP item that ports it)
 _UNSUPPORTED = (
-    ("mesh_data", 1, "M13, parallel/"),
-    ("mesh_model", 1, "M13, parallel/"),
     ("param_dtype", "float32", "M16, bf16 compute"),
     ("compute_dtype", "float32", "M16, bf16 compute"),
     ("remat", False, "M15, remat"),
-    ("vocab_pad_multiple", (0, 1), "M13, the padded vocab of a sharded "
-                                   "model axis"),
 )
 
 

@@ -20,8 +20,10 @@ The store is 2-D on the device: rows of more than one dimension, the (P, C)
 conv-feature patches of the image families, are stored as P·C columns,
 ``row_shape`` keeps their shape, and K1 gathers them flat like any row (the
 encoder, ``models.encoders.PatchDense``, shapes a gathered row back). The
-TPU's lane-packed layout is not ported, and the mesh-sharded store waits for
-the ``parallel`` port. ``permute_rows`` lays rows out in the encoder's grouped
+TPU's lane-packed layout is not ported; under a model axis a rank's store
+holds its columns of the grouped layout (``permute_rows`` with ``columns``,
+``parallel.sharding.shard_store_array``). ``permute_rows`` lays rows out in
+the encoder's grouped
 padded order (``GroupLayout.permute_rows``) on whatever device they are, for
 ``LocallyDense(pregathered=True)``.
 """
@@ -49,15 +51,20 @@ def store_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def permute_rows(data: torch.Tensor, layout, chunk: int = 256) -> torch.Tensor:
+def permute_rows(data: torch.Tensor, layout, chunk: int = 256,
+                 columns=None) -> torch.Tensor:
     """(N, n_voxels) -> (N, padded_total) in the grouped padded layout, with
     the same indices as ``GroupLayout.permute_rows``: padding slots read a
     zero column. Runs on ``data``'s device, ``chunk`` rows at a time, so the
-    zero-padded copy never holds more than one chunk."""
+    zero-padded copy never holds more than one chunk. ``columns`` (the
+    voxel of each output column, n_voxels for a padding slot) takes another
+    layout: a rank's columns under a model axis
+    (``parallel.sharding.shard_store_array``)."""
     if data.ndim != 2 or data.shape[1] != layout.n_voxels:
         raise ValueError(f"expected (N, {layout.n_voxels}) rows, got "
                          f"{tuple(data.shape)}")
-    flat = torch.as_tensor(layout.flat_indices(), dtype=torch.long,
+    flat = torch.as_tensor(layout.flat_indices() if columns is None
+                           else columns, dtype=torch.long,
                            device=data.device)
     out = torch.empty(data.shape[0], len(flat), dtype=data.dtype,
                       device=data.device)

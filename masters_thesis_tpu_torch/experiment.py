@@ -43,15 +43,17 @@ averaged, per-voxel statistics and the chained vc-mask -> normalize -> PCA
 views, the PCA fitted and applied on the card, and ``transform.json``,
 which ``apply_preprocess_chain`` replays on raw rows for serving.
 Without NSD data the data is ``data.synthetic`` made from the seed, at the
-sizes the JAX package uses. What waits raises ``NotImplementedError``
-naming its ROADMAP item: the ``tpu:`` knobs of
-``config.unsupported_knobs``.
+sizes the JAX package uses. With ``tpu.mesh_data``/``tpu.mesh_model``
+set, ``run_training`` is one rank's part of a sharded run
+(``parallel/``). What waits raises ``NotImplementedError`` naming its
+ROADMAP item: the ``tpu:`` knobs of ``config.unsupported_knobs``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import subprocess
 import time
@@ -365,21 +367,27 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     resumed run takes the uninterrupted run's steps). ``extra_callbacks``
     follow the standard ones. The bundle holds what ``run_eval`` and
     ``run_metrics`` read: model, state, tokenizer, store, split, pairs,
-    cfg, manager."""
+    cfg, manager.
+
+    With ``tpu.mesh_data``/``tpu.mesh_model`` other than 1 the run is one
+    rank's part of a ('data', 'model') mesh (``parallel/``; a process group
+    of one rank when no launcher started one): the same seeded state and
+    batches on every rank, the state sharded (``parallel.sharding``), a
+    voxel-sharded encoder's store holding the rank's columns, each batch
+    cut to the rank's rows, the sharded steps; the batch is rounded down to
+    the data axis (and to lcm(data, 2) for ms2_nic). The primary rank
+    writes the run directory, saves are collective, and with more than one
+    rank the preview, caption-metric and grad-stat callbacks are off, as
+    the JAX package turns them off with more than one process. The bundle
+    of a rank holds its shards."""
     from masters_thesis_tpu_torch.train import steps
     from masters_thesis_tpu_torch.train.callbacks import (
         BatchLoss,
-        CaptionImagePreview,
         CaptionMetrics,
         Checkpointing,
         ErrorLog,
-        GradStats,
         LossHistory,
-        PredictPreview,
-        StepProfiling,
         TensorBoardScalars,
-        TraceCapture,
-        load_stimulus_images,
     )
     from masters_thesis_tpu_torch.train.checkpoint import (
         CheckpointManager,
@@ -394,9 +402,19 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     name = cfg.model.lower()
     if name not in PORTED_MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
-    run_path = setup_run_dir(cfg.log, cfg.run, cfg)
+    mesh = None
+    if cfg.tpu.mesh_data != 1 or cfg.tpu.mesh_model != 1:
+        from masters_thesis_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(cfg.tpu.mesh_data, cfg.tpu.mesh_model, device)
+        device = mesh.device
+    ranks = mesh.world if mesh is not None else 1
+    is_primary = mesh is None or mesh.rank == 0
+    run_path = setup_run_dir(cfg.log, cfg.run, cfg if is_primary else None,
+                             file_log=is_primary)
     split, pairs, tok, host_store, groups = build_data(cfg, smoke_keys)
-    tok.save(os.path.join(run_path, "tokenizer.json"))
+    if is_primary:
+        tok.save(os.path.join(run_path, "tokenizer.json"))
     # glove_NIC: resolve the table once and keep it in the run directory,
     # which serving rebuilds from (a frozen table is no checkpoint entry);
     # on resume the kept table is authoritative, whatever glove_path holds
@@ -407,7 +425,8 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
             glove_table = np.load(persisted)
         else:
             glove_table = resolve_glove_table(cfg, tok)
-            np.save(persisted, glove_table)
+            if is_primary:
+                np.save(persisted, glove_table)
 
     row_shape = host_store.row_shape
     n_voxels = row_shape[0]
@@ -422,9 +441,38 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
                                           pregathered=pregathered,
                                           embedding_table=glove_table,
                                           row_shape=row_shape)
+    layout = None
     if name in LAYOUT_MODELS:
         layout = GroupLayout(groups, n_voxels)
-        layout.save(os.path.join(run_path, "layout.npz"))
+        if is_primary:
+            layout.save(os.path.join(run_path, "layout.npz"))
+    state = new_state(model, cfg, device)
+    model = state.model
+    if cfg.warm_start:
+        ws = warm_start_from_run(model, cfg.warm_start)
+        logger.info(
+            "warm start from %s (epoch %s): %d loaded, %d shape-skipped, "
+            "%d missing", cfg.warm_start, ws.get("source_epoch"),
+            len(ws["loaded"]), len(ws["skipped_shape"]), len(ws["missing"]))
+    if is_primary:
+        variables = to_flax(model.state_dict())
+        with open(os.path.join(run_path, "modelsummary.txt"), "w") as f:
+            f.write(model_summary(variables["params"],
+                                  variables.get("batch_stats"),
+                                  name=cfg.model))
+        del variables
+    voxel_sharded = False
+    if mesh is not None:
+        from masters_thesis_tpu_torch.parallel.sharding import (
+            encoder_voxel_sharded,
+            shard_params,
+            shard_store_array,
+        )
+
+        # the same seeded initial state on every rank, each keeping its
+        # shards; a voxel-sharded encoder reads the rank's store columns
+        state = shard_params(state, mesh)
+        voxel_sharded = encoder_voxel_sharded(model, state.shards)
 
     # the store on the device (a host-resident one in row blocks through a
     # pinned buffer); the host rows go as soon as it is there
@@ -437,7 +485,9 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
                 data.dtype, device, time.perf_counter() - t_up)
     data = data.view(len(keys), *row_shape)
     del host_store
-    if pregathered:
+    if voxel_sharded:
+        data = shard_store_array(data, layout, mesh)
+    elif pregathered:
         data = permute_rows(data, layout)
     store = ArrayStore(data, keys, device=device, dtype=cfg.tpu.store_dtype)
     del data
@@ -445,6 +495,18 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     train_enc = encode_pairs(pairs["train"], tok, cfg.max_length)
     val_enc = encode_pairs(pairs["val"], tok, cfg.max_length)
     bs = min(cfg.batch_size, max(2, len(train_enc) // 2))
+    if mesh is not None:
+        # the global batch's rows split evenly over the data axis (a mean
+        # of the ranks' means is the global mean only then), and ms2_nic's
+        # [A-half ; B-half] also needs an even batch: both at once
+        d = mesh.data
+        mult = math.lcm(d, 2) if name == "ms2_nic" else d
+        new_bs = max(mult, (bs // mult) * mult)
+        if new_bs != bs:
+            logger.warning(
+                "batch size %d not divisible by data axis %d%s; using %d",
+                bs, d, " x subject-split 2" if mult != d else "", new_bs)
+            bs = new_bs
     # ms2_NIC's two encoders need every batch laid out [A-half ; B-half]
     # (main_ms.py's generator contract)
     subject_split = name == "ms2_nic"
@@ -470,41 +532,28 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     batch = next(iter(BatchPipeline(train_enc, store, bs, seed=0,
                                     prefetch=0, **pipe_kw).epoch()))
 
-    state = new_state(model, cfg, device)
-    model = state.model
-    if cfg.warm_start:
-        ws = warm_start_from_run(model, cfg.warm_start)
-        logger.info(
-            "warm start from %s (epoch %s): %d loaded, %d shape-skipped, "
-            "%d missing", cfg.warm_start, ws.get("source_epoch"),
-            len(ws["loaded"]), len(ws["skipped_shape"]), len(ws["missing"]))
-
-    variables = to_flax(model.state_dict())
-    with open(os.path.join(run_path, "modelsummary.txt"), "w") as f:
-        f.write(model_summary(variables["params"],
-                              variables.get("batch_stats"), name=cfg.model))
-    del variables
-
     meta_path = os.path.join(run_path, "run_meta.json")
-    with open(meta_path, "w") as f:
-        json.dump({
-            "framework_version": __version__,
-            "git_revision": _git_revision(),
-            "model": cfg.model,
-            "backend": _backend(device),
-            "n_devices": (torch.cuda.device_count()
-                          if device.type == "cuda" else 1),
-            "n_processes": 1,
-            "mesh": None,
-            "input_row_shape": input_row_shape,
-            # torch's generators draw every mask whatever the value
-            "prng_impl": cfg.tpu.prng_impl,
-        }, f, indent=1)
+    if is_primary:
+        with open(meta_path, "w") as f:
+            json.dump({
+                "framework_version": __version__,
+                "git_revision": _git_revision(),
+                "model": cfg.model,
+                "backend": _backend(device),
+                "n_devices": (torch.cuda.device_count()
+                              if device.type == "cuda" else 1),
+                # one process a rank
+                "n_processes": ranks,
+                "mesh": mesh.shape if mesh is not None else None,
+                "input_row_shape": input_row_shape,
+                # torch's generators draw every mask whatever the value
+                "prng_impl": cfg.tpu.prng_impl,
+            }, f, indent=1)
 
     # decoded caption metrics on the val split: one row per unique val key,
     # the references rebuilt from the raw pairs
     caption_metrics_cb = None
-    if cfg.caption_metrics_every > 0 and pairs["val"]:
+    if cfg.caption_metrics_every > 0 and pairs["val"] and ranks == 1:
         seen: set = set()
         unique_val = []
         refs_by_key: dict = {}
@@ -520,7 +569,8 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
             _greedy_decoder(model, cfg), cm_pipe, tok, refs_by_key,
             every=cfg.caption_metrics_every)
 
-    mgr = CheckpointManager(os.path.join(run_path, "model"))
+    mgr = CheckpointManager(os.path.join(run_path, "model"),
+                            primary=is_primary)
     start_epoch = 0
     if resume:
         state, restored_epoch = mgr.restore(state)
@@ -528,13 +578,115 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
             start_epoch = restored_epoch + 1
             logger.info("resumed from epoch %d", restored_epoch)
 
-    train_step = steps.make_train_step(cfg, l2_rules, masked=masked)
-    eval_step = steps.make_eval_step(cfg, l2_rules, masked=masked)
+    placer = None
+    if mesh is not None:
+        from masters_thesis_tpu_torch.parallel import sharding
+
+        placer = sharding.MeshInputPlacer(
+            mesh, bs, state, layout, pregathered_reference=pregathered)
+        train_step = sharding.make_sharded_train_step(
+            cfg, l2_rules, state, placer, masked=masked)
+        eval_step = sharding.make_sharded_eval_step(
+            cfg, l2_rules, state, placer, masked=masked)
+    else:
+        train_step = steps.make_train_step(cfg, l2_rules, masked=masked)
+        eval_step = steps.make_eval_step(cfg, l2_rules, masked=masked)
+    if ranks > 1:
+        # the preview, caption-metric and grad-stat callbacks decode or
+        # differentiate outside the symmetric train loop: off with more
+        # than one rank, as the JAX package turns them off with more than
+        # one process; the primary rank writes the run directory's logs
+        callbacks = [
+            *([ErrorLog(run_path), LossHistory(run_path),
+               BatchLoss(run_path)] if is_primary else []),
+            Checkpointing(mgr, every=cfg.tpu.ckpt_every),
+            *([TensorBoardScalars(os.path.join(run_path, "tb"))]
+              if is_primary else []),
+            *extra_callbacks,
+        ]
+    else:
+        callbacks = _single_rank_callbacks(
+            cfg, run_path, mgr, caption_metrics_cb, train_pipe, val_pipe,
+            val_enc, bs, batch, tok, model, l2_rules, masked,
+            extra_callbacks)
+    trainer = Trainer(
+        cfg, train_step, eval_step, state, train_pipe, val_pipe,
+        callbacks=callbacks, store=store,
+        metric_logger=(MetricLogger(os.path.join(run_path, "metrics.jsonl"))
+                       if is_primary else None),
+        input_placer=placer)
+    if cfg.tpu.scan_steps > 0:
+        # K steps a call from the device tables, and the validation pass in
+        # one call
+        if mesh is not None:
+            trainer.use_scanned_steps(
+                sharding.make_sharded_scanned_train_steps_from_tables(
+                    cfg, l2_rules, state, placer, masked=masked), tables=True)
+            trainer.use_scanned_eval(
+                sharding.make_sharded_scanned_eval_steps_from_tables(
+                    cfg, l2_rules, state, placer, masked=masked))
+        else:
+            trainer.use_scanned_steps(
+                steps.make_scanned_train_steps_from_tables(cfg, l2_rules,
+                                                           masked=masked),
+                tables=True)
+            trainer.use_scanned_eval(
+                steps.make_scanned_eval_steps_from_tables(cfg, l2_rules,
+                                                          masked=masked))
+    t_fit = time.perf_counter()
+    logs = trainer.fit(epochs=epochs, start_epoch=start_epoch)
+    train_wall = time.perf_counter() - t_fit
+    bundle = {
+        "model": model, "state": trainer.state, "tokenizer": tok,
+        "store": store, "split": split, "pairs": pairs, "cfg": cfg,
+        "manager": mgr,
+    }
+    if not is_primary:
+        return run_path, logs, bundle
+
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["train_wall_s"] = round(train_wall, 2)
+    meta["steps_per_sec_final_epoch"] = round(
+        float(logs.get("steps_per_sec", 0.0)), 2)
+    sps = trainer.epoch_steps_per_sec
+    if len(sps) > 1:
+        # epoch 0 carries the first launches' set-up: the median of the
+        # rest is the steady-state number
+        meta["steps_per_sec_median"] = round(float(np.median(sps[1:])), 2)
+    meta["epochs_ran"] = len(sps)
+    meta["epochs_target"] = epochs if epochs is not None else cfg.epochs
+    if caption_metrics_cb is not None and caption_metrics_cb.history:
+        meta["caption_metrics"] = caption_metrics_cb.history
+    with open(meta_path, "w") as f:
+        json.dump(meta, f, indent=1)
+    return run_path, logs, bundle
+
+
+def _single_rank_callbacks(cfg, run_path, mgr, caption_metrics_cb,
+                           train_pipe, val_pipe, val_enc, bs, batch, tok,
+                           model, l2_rules, masked, extra_callbacks):
+    """The standard callbacks of a run of one rank."""
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.callbacks import (
+        BatchLoss,
+        CaptionImagePreview,
+        Checkpointing,
+        ErrorLog,
+        GradStats,
+        LossHistory,
+        PredictPreview,
+        StepProfiling,
+        TensorBoardScalars,
+        TraceCapture,
+        load_stimulus_images,
+    )
+
     preview_batch = (next(iter(val_pipe.epoch())) if len(val_enc) >= bs
                      else next(iter(train_pipe.epoch())))
     # one decoder, shared by both preview callbacks
     preview_decoder = _greedy_decoder(model, cfg)
-    callbacks = [
+    return [
         ErrorLog(run_path),
         LossHistory(run_path),
         BatchLoss(run_path),
@@ -560,46 +712,6 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
         *([TraceCapture(run_path)] if cfg.tpu.profile_trace else []),
         *extra_callbacks,
     ]
-    trainer = Trainer(
-        cfg, train_step, eval_step, state, train_pipe, val_pipe,
-        callbacks=callbacks, store=store,
-        metric_logger=MetricLogger(os.path.join(run_path, "metrics.jsonl")))
-    if cfg.tpu.scan_steps > 0:
-        # K steps a call from the device tables, and the validation pass in
-        # one call
-        trainer.use_scanned_steps(
-            steps.make_scanned_train_steps_from_tables(cfg, l2_rules,
-                                                       masked=masked),
-            tables=True)
-        trainer.use_scanned_eval(
-            steps.make_scanned_eval_steps_from_tables(cfg, l2_rules,
-                                                      masked=masked))
-    t_fit = time.perf_counter()
-    logs = trainer.fit(epochs=epochs, start_epoch=start_epoch)
-    train_wall = time.perf_counter() - t_fit
-
-    with open(meta_path) as f:
-        meta = json.load(f)
-    meta["train_wall_s"] = round(train_wall, 2)
-    meta["steps_per_sec_final_epoch"] = round(
-        float(logs.get("steps_per_sec", 0.0)), 2)
-    sps = trainer.epoch_steps_per_sec
-    if len(sps) > 1:
-        # epoch 0 carries the first launches' set-up: the median of the
-        # rest is the steady-state number
-        meta["steps_per_sec_median"] = round(float(np.median(sps[1:])), 2)
-    meta["epochs_ran"] = len(sps)
-    meta["epochs_target"] = epochs if epochs is not None else cfg.epochs
-    if caption_metrics_cb is not None and caption_metrics_cb.history:
-        meta["caption_metrics"] = caption_metrics_cb.history
-    with open(meta_path, "w") as f:
-        json.dump(meta, f, indent=1)
-    bundle = {
-        "model": model, "state": trainer.state, "tokenizer": tok,
-        "store": store, "split": split, "pairs": pairs, "cfg": cfg,
-        "manager": mgr,
-    }
-    return run_path, logs, bundle
 
 
 # ---------------------------------------------------------------- eval

@@ -19,6 +19,11 @@ import math
 import torch
 from torch import nn
 
+from masters_thesis_tpu_torch.parallel.collectives import (
+    batch_moments,
+    batch_rand,
+)
+
 BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
 NEGATIVE_SLOPE = 0.2  # LeakyReLU(0.2) throughout lc_NIC
@@ -124,17 +129,20 @@ def activation(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, generator=None,
-            training: bool = False) -> torch.Tensor:
+            training: bool = False, columns: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: in training, keep each element with probability
     1 - rate and scale kept ones by 1 / (1 - rate); the identity otherwise
     and at rate 0. The mask is drawn from ``generator`` (on ``x``'s
-    device), so one seed gives one mask on either framework's side only."""
+    device), so one seed gives one mask on either framework's side only.
+    Inside a sharded step it is this rank's rows of the global batch's
+    mask, and with ``columns`` (the model's input) this rank's columns of a
+    voxel-sharded row (``parallel.collectives.batch_rand``)."""
     if not training or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = batch_rand(x.shape, generator, x.device, columns) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -171,8 +179,10 @@ class BatchNorm(nn.Module):
     ``batch_stats``), ``scale``/``bias`` are parameters.
 
     In training, the statistics are those of the batch over every axis but
-    the last, the variance is the biased one, and the running statistics
-    move in place as ``ra = 0.99 ra + 0.01 batch``, as flax's do.
+    the last (of the global batch inside a sharded step, whose data axis
+    is wider than one: ``parallel.collectives.batch_moments``), the
+    variance is the biased one, and the running statistics move in place
+    as ``ra = 0.99 ra + 0.01 batch``, as flax's do.
     ``torch.nn.BatchNorm*`` would use the unbiased variance for the running
     update and a momentum of 0.01 in the other sense."""
 
@@ -187,7 +197,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         if training:
             axes = tuple(range(x.ndim - 1))
-            var, mean = torch.var_mean(x, dim=axes, correction=0)
+            var, mean = batch_moments(x, axes)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.mean.mul_(m).add_((1 - m) * mean)

@@ -20,6 +20,13 @@ package leaves both to XLA, outside any Pallas kernel. With
 (``GroupLayout.permute_rows``, or ``data.store.permute_rows`` on the device),
 and each bucket is the slice at ``layout.bucket_offsets[b]``: the training
 store is permuted once at upload, so a step skips the voxel gather.
+
+Under a model axis (``parallel.sharding.shard_params``) a bucket kernel may
+hold this rank's slice of its padded voxel axis, (G_b, P_b / M, D): the
+input is then this rank's columns of the grouped layout, each bucket's
+slice of every group side by side (``parallel.sharding.rank_columns``),
+and the bucket's partial products are summed over the model group before
+the bias (``parallel.collectives.reduce_from_model``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from masters_thesis_tpu_torch.models.common import (
     truncated_normal,
 )
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.parallel.collectives import reduce_from_model
 
 
 def _bucket_kernel_init(sizes: np.ndarray, padded: int, out_dim: int,
@@ -93,19 +101,29 @@ class LocallyDense(nn.Module):
         """The shape of one raw (not pregathered) input row."""
         return (self.layout.n_voxels,)
 
+    def _widths(self) -> list[int]:
+        """Each bucket kernel's voxel width: P_b, or this rank's slice of
+        it under a model axis."""
+        return [getattr(self, f"kernel_{b}").shape[1]
+                for b in range(len(self.layout.buckets))]
+
     def _bucket_inputs(self, x: torch.Tensor):
-        """(B, G_b, P_b) input of every bucket."""
+        """(B, G_b, P_b) input of every bucket (P_b this rank's slice under a
+        model axis)."""
         B = x.shape[0]
         if self.pregathered:
-            # >= : a wider row's tail past padded_total is never read
-            if x.shape[-1] < self.layout.padded_total:
+            widths = self._widths()
+            sizes = [len(bk.group_ids) * w
+                     for bk, w in zip(self.layout.buckets, widths)]
+            # >= : a wider row's tail past the layout is never read
+            if x.shape[-1] < sum(sizes):
                 raise ValueError(f"pregathered input must be >= "
-                                 f"{self.layout.padded_total} wide, got "
-                                 f"{x.shape[-1]}")
-            offsets = self.layout.bucket_offsets
-            for b, bucket in enumerate(self.layout.buckets):
-                gb, pb = len(bucket.group_ids), bucket.padded
-                yield x[:, offsets[b]:offsets[b] + gb * pb].view(B, gb, pb)
+                                 f"{sum(sizes)} wide, got {x.shape[-1]}")
+            offset = 0
+            for bucket, w, size in zip(self.layout.buckets, widths, sizes):
+                yield x[:, offset:offset + size].view(B, len(bucket.group_ids),
+                                                      w)
+                offset += size
             return
         xpad = F.pad(x, (0, 1))       # column n_voxels is the zero pad slot
         for b, bucket in enumerate(self.layout.buckets):
@@ -118,6 +136,8 @@ class LocallyDense(nn.Module):
         outs = []
         for b, xg in enumerate(self._bucket_inputs(x)):
             y = torch.einsum("bgp,gpd->bgd", xg, getattr(self, f"kernel_{b}"))
+            if xg.shape[-1] != self.layout.buckets[b].padded:
+                y = reduce_from_model(y)      # this rank's voxel slice
             outs.append(activation(y + getattr(self, f"bias_{b}"),
                                    self.activation))
         out = torch.cat(outs, dim=1).index_select(1, self.unpermute)

@@ -23,6 +23,7 @@ from torch import nn
 from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
 from masters_thesis_tpu_torch.models.nic import NIC
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.parallel.collectives import active, sub_rows
 
 MODES = ("split", "a", "b")
 
@@ -51,12 +52,20 @@ class DualSubjectEncoder(nn.Module):
             return self.encoder_a(x, training, generator)
         if self.mode == "b":
             return self.encoder_b(x, training, generator)
-        if x.shape[0] % 2:
+        # inside a sharded step this rank's rows are a block of the global
+        # batch, whose first half is subject A's (parallel.sharding)
+        p = active()
+        n = p.n_rows if p is not None else x.shape[0]
+        if n % 2:
             raise ValueError(f"split mode needs an even batch (A-half ; "
-                             f"B-half), got {x.shape[0]} rows")
-        half = x.shape[0] // 2
-        return torch.cat([self.encoder_a(x[:half], training, generator),
-                          self.encoder_b(x[half:], training, generator)])
+                             f"B-half), got {n} rows")
+        a = (int((p.rows < n // 2).sum()) if p is not None
+             else x.shape[0] // 2)
+        with sub_rows(0, a, n // 2):
+            out_a = self.encoder_a(x[:a], training, generator)
+        with sub_rows(a, x.shape[0] - a, n // 2):
+            out_b = self.encoder_b(x[a:], training, generator)
+        return torch.cat([out_a, out_b])
 
 
 def Ms2NIC(layout_a: GroupLayout, layout_b: GroupLayout, units: int = 512,

@@ -58,6 +58,10 @@ from masters_thesis_tpu_torch.models.encoders import PatchDense
 from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
 from masters_thesis_tpu_torch.models.lstm import KerasGRUCell, KerasLSTMCell
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.parallel.collectives import (
+    vocab_parallel_dense,
+    vocab_parallel_embedding,
+)
 
 CELL_TYPES = ("lstm", "gru")
 
@@ -150,17 +154,26 @@ class NIC(nn.Module):
     # ---- pieces ----
     def encode(self, x: torch.Tensor, training: bool = False,
                generator=None) -> torch.Tensor:
-        x = dropout(x, self.dropout_input, generator, training)
+        x = dropout(x, self.dropout_input, generator, training, columns=True)
         return self.encoder(x, training, generator)          # (B, R, D)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.embedding.shape[0] != self.vocab_size:
+            # this rank's rows of a vocab-sharded table (parallel/)
+            return vocab_parallel_embedding(tokens, self.embedding)
         return F.embedding(tokens, self.embedding)
 
     def head(self, h: torch.Tensor, training: bool = False,
              generator=None) -> torch.Tensor:
         x = activation(self.dense_inter(h), self.head_activation)
         x = dropout(x, self.dropout_out, generator, training)
-        return mask_padded_vocab(self.dense_out(x), self.true_vocab)
+        out = self.dense_out
+        if out.kernel.shape[1] != self.vocab_size:
+            # this rank's columns of a vocab-sharded head (parallel/)
+            logits = vocab_parallel_dense(x, out.kernel, out.bias)
+        else:
+            logits = out(x)
+        return mask_padded_vocab(logits, self.true_vocab)
 
     def _step(self, h, c, x):
         """The cell on input x from carry (h, c): returns (h', c', out).

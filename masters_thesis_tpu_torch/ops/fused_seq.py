@@ -49,6 +49,7 @@ from masters_thesis_tpu_torch.ops.fused_decode import (
     require_hopper,
 )
 from masters_thesis_tpu_torch.ops import tiles
+from masters_thesis_tpu_torch.parallel.collectives import batch_rand
 from masters_thesis_tpu_torch.train.losses import (
     accuracy,
     attention_loss,
@@ -89,10 +90,11 @@ def fold_in(key: int, t: int) -> int:
 def _attn_mask(generator: torch.Generator, key: int, t: int, like, rate):
     """Step t's inverted-dropout scale mask for the attention scores
     (dropout after the tanh, attention.py), drawn from ``generator``
-    reseeded from (key, t): keep / (1 - rate) or 0."""
+    reseeded from (key, t): keep / (1 - rate) or 0; inside a sharded step,
+    this rank's rows of the global batch's mask."""
     generator.manual_seed(fold_in(key, t))
     keep = 1.0 - rate
-    m = torch.rand(like.shape, generator=generator, device=like.device)
+    m = batch_rand(like.shape, generator, like.device)
     return (m < keep).to(like.dtype) / keep
 
 

@@ -31,6 +31,10 @@ families, (P, C) patches for the image ones, a 512-wide GUSE vector for
 ``guse_nic``. ``input_row_shape`` is that shape and ``input_width`` its last
 dimension, as in the JAX ``Captioner`` and server.
 
+``shard=N`` serves N replicas of the model, one a device (the JAX
+``Captioner``'s data-parallel ``mesh``): each decodes an equal share of
+every chunk with the single-device decoders.
+
 ``from_run_dir`` rebuilds the model of a run directory that the port's
 ``experiment.run_training`` wrote (``config.yaml``, ``tokenizer.json``,
 ``run_meta.json``, ``layout.npz`` where the family reads a layout,
@@ -43,6 +47,8 @@ captioner, so that it takes raw rows.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -131,6 +137,22 @@ class PreTransformCaptioner:
                                       decoder=decoder)
 
 
+def _replicas(model, device: torch.device, n: int) -> tuple[list, list]:
+    """(models, devices): ``model`` on the first of ``n`` devices of
+    ``device``'s type and a copy on each other one."""
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise ValueError(f"--shard {n} needs {n} CUDA devices; "
+                             f"{have} visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [device] * n
+    models = [(model if i == 0 else copy.deepcopy(model)).to(dev).eval()
+              for i, dev in enumerate(devices)]
+    return models, devices
+
+
 def sample_seed(seed: int, call: int) -> int:
     """The 64-bit seed of the sampler's ``call``-th draw, from (seed, call)
     alone."""
@@ -141,13 +163,28 @@ class Captioner:
     def __init__(self, model, tokenizer, units: int, max_length: int,
                  batch_size: int = 64, use_fused: bool = True, device=None,
                  beam_width: int = 5, temperature: float = 1.0,
-                 sample_top_k: int = 0, seed: int = 0):
+                 sample_top_k: int = 0, seed: int = 0, shard: int = 0):
         """Moves ``model`` to ``device`` (by default ``cuda``; raises
         without a card unless ``device="cpu"``). A request row has the
         shape of the model's ``row_shape``. ``beam_width`` sizes the beam;
-        ``temperature``, ``sample_top_k`` and ``seed`` set the sampler."""
+        ``temperature``, ``sample_top_k`` and ``seed`` set the sampler.
+
+        ``shard`` N > 0 serves N replicas of the model on the first N
+        devices (``cuda:0`` .. ``cuda:N-1``, or N on the CPU): the service
+        batch is rounded up to a multiple of N and each replica decodes an
+        equal share of each chunk through the single-device decoders (K2 or
+        K3 on the card), so greedy and beam give the words of one device;
+        replica r > 0 samples from its own stream, seeded by (seed + r,
+        call). Fewer than N devices raise."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.shard = int(shard)
+        self.replicas, self.replica_devices = [self.model], [self.device]
+        if self.shard:
+            self.replicas, self.replica_devices = _replicas(
+                self.model, self.device, self.shard)
+            # each replica holds an equal share of every chunk
+            batch_size = -(-batch_size // self.shard) * self.shard
         self.tokenizer = tokenizer
         self.units = units
         self.max_length = max_length
@@ -229,37 +266,55 @@ class Captioner:
         return inst
 
     def _decoder(self, kind: str):
-        """decode(rows) -> (B, T) words of the ``kind`` decoder."""
+        """decode(rows) -> (B, T) words of the ``kind`` decoder: each
+        replica's share of the rows on its device under ``shard``."""
         if kind in self._decoders:
             return self._decoders[kind]
+        if kind not in _DECODERS:
+            raise ValueError(f"unknown decoder {kind!r}: expected one of "
+                             f"{_DECODERS}")
+        decoders = [self._replica_decoder(kind, model, r)
+                    for r, model in enumerate(self.replicas)]
+
+        def decode(rows):
+            if len(decoders) == 1:
+                return decoders[0](rows)
+            shares = rows.chunk(len(decoders))
+            words = [dec(share.to(dev)) for dec, share, dev in
+                     zip(decoders, shares, self.replica_devices)]
+            return torch.cat([w.to(rows.device) for w in words])
+
+        if kind == "sample":
+            base = decode
+
+            def decode(rows):
+                try:
+                    return base(rows)
+                finally:
+                    self._sample_calls += 1
+        self._decoders[kind] = decode
+        return decode
+
+    def _replica_decoder(self, kind: str, model, replica: int):
         start, end = self.tokenizer.start_id, self.tokenizer.end_id
         if kind == "greedy":
             greedy = (make_whole_fused_greedy_decoder
-                      if self.use_fused and isinstance(self.model, NIC)
-                      else make_greedy_decoder)(self.model, self.max_length)
-
-            def decode(rows):
-                return greedy(rows, start)[0]
-        elif kind == "beam":
-            beam = make_beam_decoder(self.model, self.max_length,
+                      if self.use_fused and isinstance(model, NIC)
+                      else make_greedy_decoder)(model, self.max_length)
+            return lambda rows: greedy(rows, start)[0]
+        if kind == "beam":
+            beam = make_beam_decoder(model, self.max_length,
                                      beam_width=self.beam_width)
+            return lambda rows: beam(rows, start, end)[0]
+        sample = make_sampling_decoder(
+            model, self.max_length, temperature=self.temperature,
+            top_k=self.sample_top_k)
 
-            def decode(rows):
-                return beam(rows, start, end)[0]
-        elif kind == "sample":
-            sample = make_sampling_decoder(
-                self.model, self.max_length, temperature=self.temperature,
-                top_k=self.sample_top_k)
+        def decode(rows):
+            gen = torch.Generator(device=rows.device).manual_seed(
+                sample_seed(self.seed + replica, self._sample_calls))
+            return sample(rows, start, gen)
 
-            def decode(rows):
-                gen = torch.Generator(device=rows.device).manual_seed(
-                    sample_seed(self.seed, self._sample_calls))
-                self._sample_calls += 1
-                return sample(rows, start, gen)
-        else:
-            raise ValueError(f"unknown decoder {kind!r}: expected one of "
-                             f"{_DECODERS}")
-        self._decoders[kind] = decode
         return decode
 
     def caption_ids(self, inputs: np.ndarray, decoder: str = "greedy"):

@@ -23,6 +23,12 @@ the file. Only the file write runs on a thread, behind the next epoch, and
 the meta/prune bookkeeping of a save is deferred until its write commits;
 every read flushes the write in flight first. ``timings`` records, per
 save, the ms that ``save`` blocked, the ms to the commit and the bytes.
+
+Under a mesh a save is collective: every rank gathers the whole state
+(``parallel.sharding.gather_state_dict``), and the primary rank's manager
+(``primary=True``) writes it in the same format, so a checkpoint does not
+depend on the topology that wrote it; a restore on any topology slices the
+whole state to each rank's shards, as orbax restores the JAX package's.
 """
 
 from __future__ import annotations
@@ -67,13 +73,22 @@ def snapshot(state) -> dict:
     """What a checkpoint holds, as host copies (``to_flax`` copies every
     tensor): {"params", "batch_stats", "opt_state", "step", "seed"}, the
     trees flax-named."""
+    from masters_thesis_tpu_torch.parallel.sharding import (
+        gather_slots,
+        gather_state_dict,
+    )
+
     model, tx = state.model, state.tx
-    variables = to_flax(model.state_dict())
+    whole = bool(state.shards)
+    variables = to_flax(gather_state_dict(state) if whole
+                        else model.state_dict())
     names = [n for n, _ in model.named_parameters()]
+    slots = (gather_slots(state) if whole
+             else {slot: getattr(tx, slot) for slot in _slots(tx)})
     opt = {"name": tx.name, "count": int(tx.count)}
     for slot in _slots(tx):
-        opt[slot] = _torch_tree(
-            to_flax(dict(zip(names, getattr(tx, slot))))["params"])
+        opt[slot] = _torch_tree(to_flax(dict(zip(names, slots[slot])))
+                                ["params"])
     return {"params": _torch_tree(variables.get("params", {})),
             "batch_stats": _torch_tree(variables.get("batch_stats", {})),
             "opt_state": opt, "step": int(state.step),
@@ -90,10 +105,15 @@ def nbytes(target: dict) -> int:
 
 def load_into(state, target: dict) -> None:
     """Put a snapshot back into ``state``, in place: the model's parameters
-    and BatchNorm statistics, the optimizer, step and seed."""
+    and BatchNorm statistics, the optimizer, step and seed; each sharded
+    leaf's slice of this rank under a mesh."""
+    from masters_thesis_tpu_torch.parallel.sharding import local_slice
+
     model, tx = state.model, state.tx
-    model.load_state_dict(from_flax(
-        {c: target[c] for c in ("params", "batch_stats") if target[c]}))
+    whole = from_flax(
+        {c: target[c] for c in ("params", "batch_stats") if target[c]})
+    model.load_state_dict({k: local_slice(k, v, state)
+                           for k, v in whole.items()})
     opt = target["opt_state"]
     if opt["name"] != tx.name:
         raise ValueError(f"checkpoint optimizer {opt['name']!r} != the "
@@ -103,20 +123,23 @@ def load_into(state, target: dict) -> None:
         for slot in _slots(tx):
             saved = _flat(opt[slot])
             for name, t in zip(names, getattr(tx, slot)):
-                t.copy_(saved[name])
+                t.copy_(local_slice(name, saved[name], state))
     tx.count = int(opt["count"])
     state.step = int(target["step"])
     state.seed = int(target["seed"])
 
 
 class CheckpointManager:
-    """Single-process; the JAX manager's multi-process collectives wait for
-    the ``parallel`` port (ROADMAP M13)."""
+    """``primary``: this rank writes. Under a mesh every rank's manager
+    takes part in a save (the gather is collective) and only the primary's
+    writes files and ``meta.json``; every rank restores from the files."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 primary: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.primary = primary
         self._pending: tuple[int, float | None] | None = None
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -147,6 +170,8 @@ class CheckpointManager:
         self._finalize_pending()
         t0 = time.perf_counter()
         target = snapshot(state)
+        if not self.primary:
+            return
         path = self._epoch_dir(epoch)
         if os.path.exists(path):
             shutil.rmtree(path)

@@ -11,8 +11,13 @@ copy at its end (or when it is cut short), where the batch callbacks then
 fire in step order: a host read per step would hold the host behind the
 card. The hooks the callbacks of ``train/callbacks.py`` read are the JAX
 Trainer's: ``metric_logger`` (one ``epoch`` record per epoch in
-``metrics.jsonl``), ``_target_epochs`` and ``epoch_steps_per_sec``. The
-mesh input placement waits for ROADMAP M13.
+``metrics.jsonl``), ``_target_epochs`` and ``epoch_steps_per_sec``.
+
+Under a mesh (``parallel/``) every rank runs this loop over the same
+seed-determined global batches, and ``input_placer``
+(``parallel.sharding.MeshInputPlacer``) cuts each batch, and each block of
+scanned pair ids, to the rank's rows before K1 gathers them from the
+rank's store.
 """
 
 from __future__ import annotations
@@ -71,8 +76,10 @@ def _mean_metrics(rows: list[dict]) -> dict:
 
 class Trainer:
     def __init__(self, cfg, train_step, eval_step, state, train_pipe,
-                 val_pipe=None, callbacks=(), store=None, metric_logger=None):
+                 val_pipe=None, callbacks=(), store=None, metric_logger=None,
+                 input_placer=None):
         self.cfg = cfg
+        self.input_placer = input_placer
         self.metric_logger = metric_logger
         self.train_step = train_step
         self.eval_step = eval_step
@@ -123,11 +130,21 @@ class Trainer:
 
     def _batch_arrays(self, batch):
         """The batch on the device, its rows gathered from the store through
-        K1."""
+        K1 (this rank's rows under a mesh)."""
+        if self.input_placer is not None:
+            batch = self.input_placer.batch(batch)
         idx = torch.as_tensor(batch["idx"], device=self.device)
         return (gather_rows(self.store.device_array(), idx),
                 torch.as_tensor(batch["tokens"], device=self.device),
                 torch.as_tensor(batch["target"], device=self.device))
+
+    def _sel(self, sel: np.ndarray) -> torch.Tensor:
+        """A (K, B) block of pair ids on the device, this rank's columns
+        of it under a mesh."""
+        sel = torch.as_tensor(sel, device=self.device)
+        if self.input_placer is not None:
+            sel = self.input_placer.sel(sel)
+        return sel
 
     def _run_epoch_steps(self, epoch: int) -> list[dict]:
         """One epoch: chunks of ``scan_steps`` through the scanned step when
@@ -140,8 +157,7 @@ class Trainer:
         chunk: list[dict] = []
 
         def flush(chunk):
-            sel = torch.as_tensor(np.stack([b["sel"] for b in chunk]),
-                                  device=self.device)
+            sel = self._sel(np.stack([b["sel"] for b in chunk]))
             self.state, metrics = self.scanned_step(
                 self.state, self.store.device_array(), *self._scan_tables,
                 sel)
@@ -240,9 +256,8 @@ class Trainer:
             if self._val_scan_args is None:
                 n = p.steps_per_epoch * p.batch_size
                 sel = p._order()[:n].reshape(p.steps_per_epoch, p.batch_size)
-                self._val_scan_args = (
-                    *self._tables(p),
-                    torch.as_tensor(sel.astype(np.int32), device=self.device))
+                self._val_scan_args = (*self._tables(p),
+                                       self._sel(sel.astype(np.int32)))
             stacked = self.scanned_eval(self.state, self.store.device_array(),
                                         *self._val_scan_args)
             self._check_preempted()

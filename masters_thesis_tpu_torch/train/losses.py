@@ -17,6 +17,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from masters_thesis_tpu_torch.parallel.collectives import (
+    global_sums,
+    is_sharded,
+    reduce_from_model,
+)
+
 
 def caption_loss(logits, target_ids, mask=None) -> torch.Tensor:
     """Mean cross-entropy over (B, T); ``mask`` (B, T) zeroes masked steps
@@ -29,12 +35,14 @@ def caption_loss(logits, target_ids, mask=None) -> torch.Tensor:
 
 
 def accuracy(logits, target_ids, mask=None) -> torch.Tensor:
-    """Categorical accuracy (lc_NIC.py:469-486): argmax match rate."""
+    """Categorical accuracy (lc_NIC.py:469-486): argmax match rate; the
+    masked rate's sums are over the global batch inside a sharded step."""
     hit = (logits.argmax(dim=-1) == target_ids).float()
     if mask is None:
         return hit.mean()
     mask = mask.to(hit.dtype)
-    return (hit * mask).sum() / mask.sum().clamp(min=1.0)
+    hits, count = global_sums((hit * mask).sum(), mask.sum())
+    return hits / count.clamp(min=1.0)
 
 
 def attention_loss(alphas) -> torch.Tensor:
@@ -76,13 +84,16 @@ def _matches(names: tuple[str, ...], pattern: tuple[str, ...]) -> bool:
 def l2_loss(model, rules) -> torch.Tensor:
     """Keras-style L2: sum_i coeff_i * sum(w_i**2) over the parameters whose
     dotted names (flax's paths, ``named_parameters()``) match a rule; the
-    first matching rule wins."""
+    first matching rule wins. Inside a sharded step, the term of a shard
+    that its layer computes with is summed over the model group."""
     total = None
     for name, param in model.named_parameters():
         names = tuple(name.split("."))
         for pattern, coeff in rules:
             if coeff and _matches(names, pattern):
                 term = coeff * torch.sum(torch.square(param))
+                if is_sharded(name):
+                    term = reduce_from_model(term)
                 total = term if total is None else total + term
                 break
     if total is None:

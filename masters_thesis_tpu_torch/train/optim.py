@@ -13,6 +13,11 @@ The learning rate is a schedule evaluated at optax's step count: the count
 BEFORE the update's increment, so linear warmup gives 0 at the first step.
 Schedules compute in fp32, one operation at a time, as optax writes them.
 Updates happen in place on the parameters, under ``torch.no_grad``.
+
+Under a model axis a parameter may be this rank's shard
+(``parallel.sharding.shard_params`` sets ``shard_axes`` and ``model_sum``):
+a norm that reduces over its sharded axis is then the whole tensor's, its
+squares summed over the model group.
 """
 
 from __future__ import annotations
@@ -24,35 +29,56 @@ import torch
 # ---- gradient transforms (lists of tensors in, new list out) ----
 
 
-def clip_by_per_tensor_norm(grads, max_norm: float) -> list[torch.Tensor]:
+def _sharded(axes, i: int, dims) -> bool:
+    """Does tensor ``i``, a shard along ``axes[i]``, reduce over its
+    sharded axis when summed over ``dims`` (all when None)?"""
+    axis = axes[i] if axes else None
+    return axis is not None and (dims is None or axis in dims)
+
+
+def clip_by_per_tensor_norm(grads, max_norm: float, axes=None,
+                            model_sum=None) -> list[torch.Tensor]:
     """``tf.clip_by_norm`` tensor by tensor: a norm above ``max_norm``
-    scales that tensor by max_norm / (norm + 1e-12)."""
+    scales that tensor by max_norm / (norm + 1e-12). ``axes``/``model_sum``:
+    the shards' axes and their sum over the model group."""
     out = []
-    for g in grads:
-        norm = torch.linalg.vector_norm(g)
+    for i, g in enumerate(grads):
+        if _sharded(axes, i, None):
+            norm = torch.sqrt(model_sum(torch.sum(torch.square(g))))
+        else:
+            norm = torch.linalg.vector_norm(g)
         out.append(g * torch.where(norm > max_norm, max_norm / (norm + 1e-12),
                                    1.0))
     return out
 
 
-def _unitwise_norm(x: torch.Tensor) -> torch.Tensor:
+def _unitwise_norm(x: torch.Tensor, sharded: bool = False,
+                   model_sum=None) -> torch.Tensor:
     """NFNet unitwise norm (Model/agc.py:6-18): the whole tensor for <= 1-D,
     per output unit (axis 0) for 2-D and 3-D kernels, per filter (axes 0, 1,
-    2) for 4-D conv kernels."""
+    2) for 4-D conv kernels. ``sharded``: the squares of a shard summed over
+    the model group."""
+    reduce = model_sum if sharded else (lambda s: s)
     if x.ndim <= 1:
-        return torch.sqrt(torch.sum(torch.square(x)))
+        return torch.sqrt(reduce(torch.sum(torch.square(x))))
     dims = (0,) if x.ndim in (2, 3) else (0, 1, 2)
-    return torch.sqrt(torch.sum(torch.square(x), dim=dims, keepdim=True))
+    return torch.sqrt(reduce(torch.sum(torch.square(x), dim=dims,
+                                       keepdim=True)))
 
 
-def adaptive_grad_clip(grads, params, clip_factor: float,
-                       eps: float = 1e-3) -> list[torch.Tensor]:
+def adaptive_grad_clip(grads, params, clip_factor: float, eps: float = 1e-3,
+                       axes=None, model_sum=None) -> list[torch.Tensor]:
     """NFNet AGC: a unit whose gradient norm reaches clip_factor times its
-    weight norm (at least ``eps``) is scaled back to that bound."""
+    weight norm (at least ``eps``) is scaled back to that bound.
+    ``axes``/``model_sum`` as in ``clip_by_per_tensor_norm``."""
     out = []
-    for g, w in zip(grads, params):
-        max_norm = torch.clamp(_unitwise_norm(w), min=eps) * clip_factor
-        g_norm = _unitwise_norm(g)
+    for i, (g, w) in enumerate(zip(grads, params)):
+        dims = (None if w.ndim <= 1
+                else (0,) if w.ndim in (2, 3) else (0, 1, 2))
+        sharded = _sharded(axes, i, dims)
+        max_norm = torch.clamp(_unitwise_norm(w, sharded, model_sum),
+                               min=eps) * clip_factor
+        g_norm = _unitwise_norm(g, sharded, model_sum)
         clipped = g * (max_norm / torch.clamp(g_norm, min=1e-6))
         out.append(torch.where(g_norm < max_norm, g, clipped))
     return out
@@ -138,6 +164,9 @@ class Optimizer:
         self.beta_1, self.beta_2, self.epsilon = beta_1, beta_2, epsilon
         self.clipnorm, self.agc_clip = clipnorm, agc_clip
         self.count = 0
+        # a mesh's shards: each parameter's sharded axis (or None) and the
+        # sum over the model group (parallel.sharding.shard_params)
+        self.shard_axes, self.model_sum = None, None
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         if self.name == "adam":
             self.mu, self.nu = zeros(), zeros()
@@ -147,10 +176,12 @@ class Optimizer:
     @torch.no_grad()
     def step(self, grads) -> None:
         grads = list(grads)
+        shards = dict(axes=self.shard_axes, model_sum=self.model_sum)
         if self.agc_clip:
-            grads = adaptive_grad_clip(grads, self.params, self.agc_clip)
+            grads = adaptive_grad_clip(grads, self.params, self.agc_clip,
+                                       **shards)
         if self.clipnorm:
-            grads = clip_by_per_tensor_norm(grads, self.clipnorm)
+            grads = clip_by_per_tensor_norm(grads, self.clipnorm, **shards)
         step_size = -self.lr(self.count)
         self.count += 1
         if self.name == "sgd":

@@ -9,11 +9,16 @@ folds the step into its key, so they depend on the seed and s alone; the
 fused sequence's attention masks are drawn from the integer key of (seed,
 s) on the host (``dropout_key``). The two frameworks draw different masks
 all the same.
+
+Under a mesh (``parallel.sharding.shard_params``) the model's parameters
+and the optimizer's moments hold this rank's shards: ``mesh`` is the
+rank's ``parallel.mesh.Mesh`` and ``shards`` maps each sharded parameter's
+name to its sharded axis.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
@@ -37,6 +42,8 @@ class TrainState:
     generator: torch.Generator
     seed: int
     step: int = 0
+    mesh: object = None
+    shards: dict = field(default_factory=dict)
 
     def dropout_key(self) -> int:
         """The current step's 64-bit dropout key, from (seed, step) alone,

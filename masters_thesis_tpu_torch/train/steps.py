@@ -20,10 +20,16 @@ never waits on a step. A CUDA graph of the step is later work (ROADMAP
 M17).
 
 The JAX package's ``model`` argument has no counterpart: the model lives in
-the state.
+the state. ``mesh`` (``parallel.sharding.MeshOps``) makes a body a rank's
+part of a sharded step: the forward reads the sharded leaves that no layer
+computes with in their gathered whole, the gradients are averaged over the
+data group, the norms are those of the whole tensors and the metrics are
+those of the global batch (``parallel.sharding`` builds these steps).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -67,10 +73,12 @@ def _forward_loss(model, cfg, l2_rules, betas, tokens, target, mask,
     return total, metrics
 
 
-def _step_body(cfg, l2_rules, masked: bool):
+def _step_body(cfg, l2_rules, masked: bool, mesh=None):
     """``one(state, betas, tokens, target) -> (state, metrics)``: one
-    optimisation step, SAM's two passes when ``cfg.sam_rho`` > 0."""
+    optimisation step, SAM's two passes when ``cfg.sam_rho`` > 0; a rank's
+    part of the sharded step with ``mesh``."""
     routes = {}     # model -> its forward and loss, built on first use
+    norm = global_norm if mesh is None else mesh.global_norm
 
     def forward_loss(model):
         if model not in routes:
@@ -82,10 +90,15 @@ def _step_body(cfg, l2_rules, masked: bool):
         return routes[model]
 
     def loss_and_grads(state, params, betas, tokens, target, mask):
-        total, metrics = forward_loss(state.model)(
-            betas, tokens, target, mask, state.dropout_generator(),
-            key=state.dropout_key())
-        return total, metrics, torch.autograd.grad(total, params)
+        with (contextlib.nullcontext() if mesh is None
+              else mesh.gathered(state.model)):
+            total, metrics = forward_loss(state.model)(
+                betas, tokens, target, mask, state.dropout_generator(),
+                key=state.dropout_key())
+            grads = torch.autograd.grad(total, params)
+        if mesh is not None:
+            grads = mesh.average(grads)
+        return total, metrics, grads
 
     def one(state, betas, tokens, target):
         model = state.model
@@ -99,7 +112,7 @@ def _step_body(cfg, l2_rules, masked: bool):
             stats = [b for b in model.buffers() if b.is_floating_point()]
             saved_stats = [b.clone() for b in stats]
             _, _, g1 = loss_and_grads(state, params, *batch)
-            scale = cfg.sam_rho / (global_norm(g1) + 1e-12)
+            scale = cfg.sam_rho / (norm(g1) + 1e-12)
             saved = [p.detach().clone() for p in params]
             with torch.no_grad():
                 for p, g in zip(params, g1):
@@ -113,17 +126,19 @@ def _step_body(cfg, l2_rules, masked: bool):
         else:
             total, metrics, grads = loss_and_grads(state, params, *batch)
         metrics["total"] = total.detach()
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = norm(grads)
         state.tx.step(grads)
         state.step += 1
+        if mesh is not None:
+            metrics = mesh.metrics(metrics)
         return state, metrics
 
     return one
 
 
-def make_train_step(cfg, l2_rules, masked: bool = False):
+def make_train_step(cfg, l2_rules, masked: bool = False, mesh=None):
     """``step(state, betas, tokens, target) -> (state, metrics)``."""
-    return _step_body(cfg, l2_rules, masked)
+    return _step_body(cfg, l2_rules, masked, mesh)
 
 
 def make_gathered_train_step(cfg, l2_rules, masked: bool = False):
@@ -137,41 +152,45 @@ def make_gathered_train_step(cfg, l2_rules, masked: bool = False):
     return step
 
 
-def _eval_body(cfg, l2_rules, masked: bool):
+def _eval_body(cfg, l2_rules, masked: bool, mesh=None):
     """Inference-mode forward and the reference's val metrics
     (lc_NIC.test_step :410-459), shared by the per-batch and the scanned
-    eval."""
+    eval; a rank's part of the sharded eval with ``mesh``."""
 
     @torch.no_grad()
     def body(state, betas, tokens, target):
         mask = (target != 0) if masked else None
         betas = betas.float()
         a0 = torch.zeros(betas.shape[0], cfg.units, device=betas.device)
-        logits, alphas = state.model(betas, tokens.long(), a0, a0)
-        return {
-            "loss": caption_loss(logits, target, mask),
-            "L2": l2_loss(state.model, l2_rules),
-            "attention": attention_loss(alphas),
-            "accuracy": accuracy(logits, target, mask),
-        }
+        with (contextlib.nullcontext() if mesh is None
+              else mesh.gathered(state.model)):
+            logits, alphas = state.model(betas, tokens.long(), a0, a0)
+            metrics = {
+                "loss": caption_loss(logits, target, mask),
+                "L2": l2_loss(state.model, l2_rules),
+                "attention": attention_loss(alphas),
+                "accuracy": accuracy(logits, target, mask),
+            }
+        return metrics if mesh is None else mesh.metrics(metrics)
 
     return body
 
 
-def make_eval_step(cfg, l2_rules, masked: bool = False):
+def make_eval_step(cfg, l2_rules, masked: bool = False, mesh=None):
     """``step(state, betas, tokens, target) -> metrics``, no update."""
-    return _eval_body(cfg, l2_rules, masked)
+    return _eval_body(cfg, l2_rules, masked, mesh)
 
 
 def _stack(metrics: list[dict]) -> dict:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def make_scanned_train_steps_from_tables(cfg, l2_rules, masked: bool = False):
+def make_scanned_train_steps_from_tables(cfg, l2_rules, masked: bool = False,
+                                         mesh=None):
     """``steps(state, store, store_idx (N,), tokens (N, T), target (N, T),
     pair_idx (K, B)) -> (state, metrics stacked (K,))``: K steps in one
     call, the tables and the store on the device and indexed by pair id."""
-    one = _step_body(cfg, l2_rules, masked)
+    one = _step_body(cfg, l2_rules, masked, mesh)
 
     def steps(state, store, store_idx, tokens, target, pair_idx):
         metrics = []
@@ -185,10 +204,11 @@ def make_scanned_train_steps_from_tables(cfg, l2_rules, masked: bool = False):
     return steps
 
 
-def make_scanned_eval_steps_from_tables(cfg, l2_rules, masked: bool = False):
+def make_scanned_eval_steps_from_tables(cfg, l2_rules, masked: bool = False,
+                                        mesh=None):
     """The whole validation pass in one call, over the (K, B) pair ids, as
     ``make_scanned_train_steps_from_tables``: metrics stacked (K,)."""
-    body = _eval_body(cfg, l2_rules, masked)
+    body = _eval_body(cfg, l2_rules, masked, mesh)
 
     def steps(state, store, store_idx, tokens, target, pair_idx):
         return _stack([body(state,

@@ -4,12 +4,16 @@ The reference logs per-batch scalars and epoch-end caption text to
 TensorBoard (main.py:202-211, Callbacks/Predict.py:27-46). This image has no
 TensorFlow, so the TFRecord event framing (length + masked crc32c + payload)
 and the Event/Summary protobufs are hand-encoded here (both formats are
-stable, documented wire formats). Scalars and text summaries only — enough
-for ``tensorboard --logdir`` to render the runs.
+stable, documented wire formats). Scalars, text and images: an event's
+``summary`` (field 5) holds each ``Summary.Value`` in its repeated
+``value`` field (1), the layout TensorBoard's own parser reads.
 
 The port's own copy of ``masters_thesis_tpu/utils/tensorboard.py``
 (``EventWriter`` and ``encode_png``, held against the originals by
-``tests/test_torch_copies.py``). ``render_caption_image`` is the port's
+``tests/test_torch_copies.py``). The JAX writer puts each value's fields
+straight into the summary, without the ``value`` wrapper, which
+TensorBoard's parser refuses; the port's writes the same tags, steps and
+values in the wrapped layout. ``render_caption_image`` is the port's
 own: the JAX one draws with matplotlib, which the card's machine lacks, so
 the port draws the caption in a bitmap font kept in this module.
 """
@@ -75,6 +79,11 @@ def _int64_field(num: int, value: int) -> bytes:
     return _field(num, 0) + _varint(value & 0xFFFFFFFFFFFFFFFF)
 
 
+def _summary(*values: bytes) -> bytes:
+    """Summary{ value=1 (repeated Summary.Value) }."""
+    return b"".join(_bytes_field(1, v) for v in values)
+
+
 def _scalar_value(tag: str, value: float) -> bytes:
     # Summary.Value{ tag=1, simple_value=2 }
     return _bytes_field(1, tag.encode()) + _float_field(2, float(value))
@@ -126,18 +135,19 @@ class EventWriter:
         self._f.flush()
 
     def scalar(self, tag: str, value: float, step: int) -> None:
-        self._write_event(self._event(_scalar_value(tag, value), step))
+        self._write_event(self._event(_summary(_scalar_value(tag, value)),
+                                      step))
 
     def scalars(self, values: dict, step: int, prefix: str = "") -> None:
         if not values:
             return
-        summary = b"".join(
-            _scalar_value(prefix + k, float(v)) for k, v in values.items()
-        )
+        summary = _summary(*(_scalar_value(prefix + k, float(v))
+                             for k, v in values.items()))
         self._write_event(self._event(summary, step))
 
     def text(self, tag: str, content: str, step: int) -> None:
-        self._write_event(self._event(_text_value(tag, content), step))
+        self._write_event(self._event(_summary(_text_value(tag, content)),
+                                      step))
 
     def image(self, tag: str, png_bytes: bytes, height: int, width: int,
               step: int, colorspace: int = 3) -> None:
@@ -151,7 +161,7 @@ class EventWriter:
             + _bytes_field(4, png_bytes)
         )
         value = _bytes_field(1, tag.encode()) + _bytes_field(4, img)
-        self._write_event(self._event(value, step))
+        self._write_event(self._event(_summary(value), step))
 
     def close(self) -> None:
         self._f.close()

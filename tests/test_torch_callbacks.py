@@ -147,14 +147,20 @@ def _drive(cb_module, run_path, metric_logger, jax_side, interrupt_at=None):
     return manager.calls, stopped, callbacks[4].history, model.training
 
 
-def _event_payloads(run_path):
+def _event_payloads(run_path, wrapped: bool):
+    """The records of the run's event file, wall time cut off; the port's
+    (``wrapped``) with each summary value taken out of its ``value``
+    wrapper, the layout the JAX writer writes (ROADMAP F8)."""
+    from test_torch_copies import _unwrapped
+
     (path,) = [os.path.join(run_path, "tb", f)
                for f in os.listdir(os.path.join(run_path, "tb"))]
     data = open(path, "rb").read()
     out, i = [], 0
     while i < len(data):
         (n,) = struct.unpack("<Q", data[i:i + 8])
-        out.append(data[i + 12 + 9:i + 12 + n])   # wall time cut off
+        payload = data[i + 12:i + 12 + n]
+        out.append(_unwrapped(payload) if wrapped else payload[9:])
         i += 16 + n
     return out
 
@@ -187,7 +193,7 @@ def test_callbacks_write_what_the_jax_callbacks_write(tmp_path,
     jrows = [{k: v for k, v in json.loads(line).items() if k != "ts"}
              for line in open(jax_ / "metrics.jsonl")]
     assert rows == jrows
-    assert _event_payloads(port) == _event_payloads(jax_)
+    assert _event_payloads(port, True) == _event_payloads(jax_, False)
 
 
 def test_decoding_callbacks_put_the_models_mode_back(tmp_path):

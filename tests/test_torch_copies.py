@@ -382,48 +382,149 @@ def test_run_logs_match_original(tmp_path):
     assert _masked_jsonl(port / "m.jsonl") == _masked_jsonl(jax_ / "m.jsonl")
 
 
-def _records(path):
-    """The event file's records with their crc checked, each payload with
-    its wall time (the leading double field) cut off."""
+def _payloads(path):
+    """The event file's record payloads, each record's length and payload
+    crc checked."""
     import struct
 
     data = path.read_bytes()
     out, i = [], 0
     while i < len(data):
         (n,) = struct.unpack("<Q", data[i:i + 8])
+        (crc,) = struct.unpack("<I", data[i + 8:i + 12])
+        assert crc == jtensorboard._masked_crc(data[i:i + 8])
         payload = data[i + 12:i + 12 + n]
         (crc,) = struct.unpack("<I", data[i + 12 + n:i + 16 + n])
         assert crc == jtensorboard._masked_crc(payload)
-        assert payload[:1] == b"\x09"          # field 1, 64-bit: wall time
-        out.append(payload[9:])
+        out.append(payload)
         i += 16 + n
     return out
 
 
+def _fields(buf):
+    """(field number, raw value) pairs of one protobuf message."""
+    out, i = [], 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            start = i
+            _, i = _varint(buf, i)
+            out.append((num, buf[start:i]))
+            continue
+        n, i = ((8, i) if wire == 1 else (4, i) if wire == 5
+                else _varint(buf, i))
+        out.append((num, buf[i:i + n]))
+        i += n
+    return out
+
+
+def _varint(buf, i):
+    shift = value = 0
+    while True:
+        b = buf[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return value, i
+
+
+def _unwrapped(payload):
+    """An event payload with its wall time (the leading double) cut off and
+    its summary's ``value`` wrappers taken away: the layout the JAX writer
+    puts its values in, straight into the summary field."""
+    assert payload[:1] == b"\x09"             # field 1, 64-bit: wall time
+    rest = payload[9:]
+    out = b""
+    for num, raw in _fields(rest):
+        if num != 5:
+            out += _field_bytes(num, raw)
+            continue
+        values = _fields(raw)
+        assert [n for n, _ in values] == [1] * len(values)
+        inner = b"".join(v for _, v in values)
+        out += jtensorboard._bytes_field(5, inner)
+    return out
+
+
+def _field_bytes(num, raw):
+    """A field of number ``num`` re-encoded from its raw value: a varint's
+    bytes, or a length-delimited payload."""
+    if num == 2:                                # Event.step, a varint
+        return jtensorboard._field(2, 0) + raw
+    return jtensorboard._bytes_field(num, raw)
+
+
+def _jax_records(path):
+    """The JAX writer's records with their wall times cut off."""
+    out = []
+    for payload in _payloads(path):
+        assert payload[:1] == b"\x09"
+        out.append(payload[9:])
+    return out
+
+
+def _write_events(module, logdir, img):
+    w = module.EventWriter(str(logdir), filename_suffix=".x")
+    w.scalar("loss", 0.5, 3)
+    w.scalars({"a": 1.0, "b": np.float32(2.5)}, 4, prefix="epoch/")
+    w.scalars({}, 5)
+    w.text("preview", "a dog", 6)
+    w.image("captions/sample_0", module.encode_png(img), 5, 7, 7)
+    w.close()
+    (path,) = logdir.glob("events.out.tfevents.*.x")
+    return path
+
+
 def test_event_writer_matches_original(tmp_path):
-    """``EventWriter`` records (scalars, text, an image) and
-    ``encode_png``, byte for byte with the wall times masked."""
+    """``EventWriter`` (scalars, text, an image) and ``encode_png`` against
+    the originals. ``encode_png`` is byte for byte the same. The port wraps
+    each value in the summary's ``value`` field, where the JAX writer puts
+    the value's fields straight into the summary, which TensorBoard's
+    parser refuses: TensorBoard's own ``Event`` reads every record of the
+    port's file to the tags, steps and values the JAX writer meant."""
+    event_pb2 = pytest.importorskip("tensorboard.compat.proto.event_pb2")
     img = np.random.default_rng(0).integers(0, 256, (5, 7, 3),
                                             dtype=np.uint8)
-    assert ptensorboard.encode_png(img) == jtensorboard.encode_png(img)
-    files = {}
-    for module, name in ((ptensorboard, "port"), (jtensorboard, "jax")):
-        w = module.EventWriter(str(tmp_path / name), filename_suffix=".x")
-        w.scalar("loss", 0.5, 3)
-        w.scalars({"a": 1.0, "b": np.float32(2.5)}, 4, prefix="epoch/")
-        w.scalars({}, 5)
-        w.text("preview", "a dog", 6)
-        w.image("captions/sample_0", module.encode_png(img), 5, 7, 7)
-        w.close()
-        (files[name],) = (tmp_path / name).glob("events.out.tfevents.*.x")
-    assert _records(files["port"]) == _records(files["jax"])
-    assert len(_records(files["port"])) == 5
+    png = jtensorboard.encode_png(img)
+    assert ptensorboard.encode_png(img) == png
+    port = _write_events(ptensorboard, tmp_path / "port", img)
+    _write_events(jtensorboard, tmp_path / "jax", img)
+    events = [event_pb2.Event.FromString(p) for p in _payloads(port)]
+    assert len(events) == 5
+    assert events[0].file_version == "brain.Event:2"
+    got = [(e.step, [(v.tag, v.WhichOneof("value")) for v in e.summary.value])
+           for e in events[1:]]
+    assert got == [(3, [("loss", "simple_value")]),
+                   (4, [("epoch/a", "simple_value"),
+                        ("epoch/b", "simple_value")]),
+                   (6, [("preview", "tensor")]),
+                   (7, [("captions/sample_0", "image")])]
+    assert [v.simple_value for e in events[1:3] for v in e.summary.value] \
+        == [0.5, 1.0, 2.5]
+    (text,) = events[3].summary.value
+    assert text.tensor.dtype == 7 and text.tensor.string_val == [b"a dog"]
+    assert text.metadata.plugin_data.plugin_name == "text"
+    (image,) = events[4].summary.value
+    assert (image.image.height, image.image.width, image.image.colorspace,
+            image.image.encoded_image_string) == (5, 7, 3, png)
     # render_caption_image is the port's own (a bitmap font, not
     # matplotlib): like the original it returns a PNG and its own size
     for module in (ptensorboard, jtensorboard):
         png, h, w = module.render_caption_image(img, "a caption")
         assert png[:8] == b"\x89PNG\r\n\x1a\n"
         assert struct.unpack(">II", png[16:24]) == (w, h)
+
+
+def test_event_records_unwrap_to_the_original_bytes(tmp_path):
+    """Without the ``value`` wrappers, the port's records are the JAX
+    writer's, byte for byte with the wall times cut off."""
+    img = np.random.default_rng(0).integers(0, 256, (5, 7, 3),
+                                            dtype=np.uint8)
+    port = _write_events(ptensorboard, tmp_path / "port", img)
+    jax_ = _write_events(jtensorboard, tmp_path / "jax", img)
+    assert [_unwrapped(p) for p in _payloads(port)] == _jax_records(jax_)
 
 
 def _caption_dir(tmp_path):

@@ -57,19 +57,25 @@ def _varint(buf, i):
             return value, i
 
 
-def image_events(path):
+def image_events(path, wrapped: bool = True):
     """[(step, tag, height, width, png)] of an event file's images. The
-    writer (both packages') puts the value's fields, tag 1 and image 4,
-    straight into the event's summary field 5."""
+    port's writer puts each value (tag 1, image 4) in the repeated
+    ``value`` field 1 of the event's summary field 5, as TensorBoard reads
+    it; the JAX writer (``wrapped=False``) puts the value's fields straight
+    into the summary."""
     data, i, out = open(path, "rb").read(), 0, []
     while i < len(data):
         (n,) = struct.unpack("<Q", data[i:i + 8])
         event = dict(_fields(data[i + 12:i + 12 + n]))
         i += 16 + n
-        value = dict(_fields(event.get(5, b"")))
-        if 4 in value:
-            img = dict(_fields(value[4]))
-            out.append((event[2], value[1].decode(), img[1], img[2], img[4]))
+        summary = event.get(5, b"")
+        values = ([v for num, v in _fields(summary) if num == 1] if wrapped
+                  else [summary])
+        for value in map(dict, map(_fields, values)):
+            if 4 in value:
+                img = dict(_fields(value[4]))
+                out.append((event[2], value[1].decode(), img[1], img[2],
+                            img[4]))
     return out
 
 
@@ -125,7 +131,7 @@ def _drive(module, logdir, images, jax_side):
         cb.on_epoch_end(trainer, epoch, {})
     cb.on_train_end(trainer)
     (path,) = logdir.glob("events.out.tfevents.*.captions")
-    return image_events(path)
+    return image_events(path, wrapped=not jax_side)
 
 
 def _pictures():
@@ -147,6 +153,23 @@ def test_preview_tags_and_steps_match_the_jax_callback(tmp_path, images):
         # the picture of sample 0 stands under its banner, unchanged
         pixels = decode_png(got[0][4])
         np.testing.assert_array_equal(pixels[-40:], images[0])
+
+
+def test_caption_events_read_with_tensorboards_parser(tmp_path):
+    """Every record of the port's caption-image event file parses with
+    TensorBoard's own ``Event``, to the images ``image_events`` reads."""
+    event_pb2 = pytest.importorskip("tensorboard.compat.proto.event_pb2")
+    got = _drive(pcb, tmp_path / "port", _pictures(), False)
+    (path,) = (tmp_path / "port").glob("events.out.tfevents.*.captions")
+    data, i, parsed = path.read_bytes(), 0, []
+    while i < len(data):
+        (n,) = struct.unpack("<Q", data[i:i + 8])
+        event = event_pb2.Event.FromString(data[i + 12:i + 12 + n])
+        i += 16 + n
+        parsed += [(event.step, v.tag, v.image.height, v.image.width,
+                    v.image.encoded_image_string)
+                   for v in event.summary.value]
+    assert parsed == got and len(parsed) == 12
 
 
 def test_stimulus_pixels_stand_unchanged_under_the_banner():
