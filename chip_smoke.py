@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives eleven paths, each at the full
+``nvcc`` a source, in parallel), then drives twelve paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -146,7 +146,20 @@ width of its model or at its probe's own sizes:
   a 1 x 2 mesh; K2 against its plain version at vocab 5,008; ``caption
   --shard 1`` against K2's plain words (near-ties counted) and against
   ``caption`` on the run; ``dryrun --devices 4`` and ``dryrun
-  --flagship``. One card cannot show scaling over cards.
+  --flagship``. One card cannot show scaling over cards;
+- the precision phase (``tpu.compute_dtype: bfloat16`` and ``tpu.remat``):
+  ``run_training`` of ``configs/flagship_synth.yaml`` (1 epoch at 256 keys,
+  from the device store through K1) in fp32, bf16, fp32 + remat and
+  bf16 + remat, then fp32 and bf16 under ``tpu.fused_seq`` from a bf16
+  store, each run's epoch loss, steps/s, peak device memory and K1 and K4
+  launches; each remat run's loss within 1e-5 (relative) of its twin's,
+  each bf16 run's within 1% of its fp32 twin's; peak memory of one train step with and
+  without remat at units 2,048, batch 256 in both dtypes; the bf16-weight
+  K4 against its plain version at the flagship and the wide shape (step by
+  step on the kernel's carries, and the whole sequence no farther than the
+  fp32 plain version), timed beside the fp32 K4 in alternate turns; then, its count set to 0, the bf16 sequence's forward
+  and custom backward through ``make_fused_sequence(backend="kernel",
+  compute_dtype=bfloat16)``, which must launch it.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -174,7 +187,8 @@ phase's runs, K1 and K2 under ``launches_sweep``, theirs in the sweep
 phase's runs, summed over its processes, under ``launches_deploy``,
 theirs in the deploy phase's profiled run, and under
 ``launches_parallel``, theirs in the parallel phase, summed over its
-ranks), its
+ranks; the bf16-weight K4 through the bf16 sequence of the precision
+phase), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -229,6 +243,7 @@ CNN_RNN_REQUEST_ROWS = 5    # one .npy request through the server
 # the card's peaks (H100 SXM datasheet: dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16, dense, on the tensor cores
 # training: configs/flagship_synth.yaml's 2,571 keys give 8,995 train pairs,
 # 140 steps of 64, and 1,925 val pairs, 30 batches
 TRAIN_KEYS = 2571
@@ -319,12 +334,13 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> dict:
     """The least time the card could take for work that must move
-    ``nbytes`` and do ``flops`` fp32 operations: the larger of the two
-    times at the card's peaks, and which of them it is."""
+    ``nbytes`` and do ``flops`` operations at ``peak`` (by default fp32):
+    the larger of the two times at the card's peaks, and which of them it
+    is."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS * 1e3
+    by_ops = flops / peak * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -3659,6 +3675,328 @@ def parallel(tok, device, card: str) -> dict:
                                                  k2_launches}}
 
 
+# ---- mixed precision and remat (M16 and M15) ----
+
+PRECISION_KEYS = 256                # 13 train steps of one epoch at 64
+PRECISION_RUNS = (
+    ("fp32", {}),
+    ("bf16", {"compute_dtype": "bfloat16"}),
+    ("fp32 + remat", {"remat": True}),
+    ("bf16 + remat", {"compute_dtype": "bfloat16", "remat": True}),
+    # the fused route from a bf16 store, its bf16 run against its fp32 one
+    # (its attention masks come from another stream than autograd's)
+    ("fp32 fused_seq", {"fused_seq": True, "store_dtype": "bfloat16"}),
+    ("bf16 fused_seq", {"compute_dtype": "bfloat16", "fused_seq": True,
+                        "store_dtype": "bfloat16"}),
+)
+REMAT_TWINS = {"fp32 + remat": "fp32", "bf16 + remat": "bf16"}
+BF16_TWINS = {"bf16": "fp32", "bf16 + remat": "fp32 + remat",
+              "bf16 fused_seq": "fp32 fused_seq"}
+REMAT_RTOL = 1e-5                   # a remat run's epoch loss vs its twin's
+# |bf16 - fp32| / fp32 of the epoch loss, stated before the first bf16 run
+# on the card: the same masks and data, the weights and betas rounded
+BF16_LOSS_BAND = 1e-2
+WIDE_MEMORY = dict(units=2048, batch_size=256)  # JAX config.py:80-84
+# the bf16 K4 against its plain version, step by step on the kernel's own
+# carries: fp32 sums in another order (~1e-5), and now and then a rounding
+# to bf16 that the last bit of ctx flips, which moves that input by 2^-8 of
+# itself and the whole row of the step's z by up to that times a weight
+# (about one row in a thousand on the flagship's inputs): at most
+# BF16_FLIP_ROWS of a residual's (t, b) rows may be off by more than
+# BF16_STEP_ATOL, and no entry by more than BF16_SEQ_ATOL
+BF16_STEP_ATOL, BF16_FLIP_ROWS, BF16_SEQ_ATOL = 1e-4, 0.02, 1e-2
+# over the whole sequence the rounding of h to bf16 each step turns the
+# kernel's last-bit differences into bf16 ones within a few steps: the
+# kernel must stay no farther from the plain version than this share of
+# the fp32 plain version's distance to it (the bf16 noise itself)
+BF16_FREE_SHARE = 1.0
+SEQ_TURNS = 5           # fp32 and bf16 K4 timed in alternate turns
+
+
+def precision_runs(root: Path, device, card: str) -> dict:
+    """``run_training`` of ``configs/flagship_synth.yaml`` (1 epoch at 256
+    keys, from the device store through K1) the six ways of
+    ``PRECISION_RUNS``: each run's epoch loss, steps/s, peak device memory
+    and K1 and K4 launches; each remat run's loss within REMAT_RTOL of its
+    twin's, each bf16 run's within BF16_LOSS_BAND of its fp32 twin's, every
+    loss
+    finite, K1 on every train and val batch, the chosen dtype in
+    ``run_meta.json``."""
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+    from masters_thesis_tpu_torch.parallel import multiprocess as mp
+
+    runs = {}
+    for label, tpu in PRECISION_RUNS:
+        cfg = Config.load(EXPERIMENT_CONFIG)
+        cfg.log, cfg.epochs = str(root / label.replace(" ", "_")), 1
+        for knob, value in tpu.items():
+            setattr(cfg.tpu, knob, value)
+        gather_rows.launches = 0
+        fs.fused_seq_forward.launches = fs.fused_seq_forward.launches_bf16 = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_path, logs, bundle = experiment.run_training(
+            cfg, smoke_keys=PRECISION_KEYS, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report = mp._training_report(run_path, bundle, logs)
+        meta = json.loads((Path(run_path) / "run_meta.json").read_text())
+        batches = (len(bundle["pairs"]["train"]) // cfg.batch_size
+                   + len(bundle["pairs"]["val"]) // cfg.batch_size)
+        runs[label] = r = {
+            "loss": report["epoch_losses"][0],
+            "val_loss": report["epoch_val_losses"][0],
+            "steps_per_s": report["steps_per_sec"][0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "K1": gather_rows.launches,
+            "K4": fs.fused_seq_forward.launches,
+            "K4_bf16": fs.fused_seq_forward.launches_bf16,
+            "compute_dtype": meta["compute_dtype"], "wall_s": wall}
+        print(f"precision {label}: tpu {tpu or 'defaults'}, forward in "
+              f"{r['compute_dtype']}, epoch loss {r['loss']:.9f}, val loss "
+              f"{r['val_loss']:.9f}, steps/s {r['steps_per_s']:.2f}, peak "
+              f"device memory {r['peak_gb']:.3f} GB, K1 launches {r['K1']} "
+              f"({batches} train and val batches), K4 launches fp32 "
+              f"{r['K4']} bf16 {r['K4_bf16']}, run {wall:.1f} s [{card}]")
+        want = "bfloat16" if tpu.get("compute_dtype") else "float32"
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["val_loss"])):
+            raise RuntimeError(f"precision {label}: a loss is not finite")
+        if r["compute_dtype"] != want or r["K1"] < batches:
+            raise RuntimeError(f"precision {label}: forward in "
+                               f"{r['compute_dtype']} (want {want}), K1 "
+                               f"launched {r['K1']} times for {batches} "
+                               f"batches")
+        del bundle
+        release()
+    for label, r in runs.items():
+        twin = REMAT_TWINS.get(label)
+        if twin is not None:
+            rel = abs(r["loss"] - runs[twin]["loss"]) / abs(runs[twin]["loss"])
+            print(f"precision {label} vs {twin}: epoch loss rel diff "
+                  f"{rel:.3e} (limit {REMAT_RTOL}), peak memory "
+                  f"{r['peak_gb']:.3f} vs {runs[twin]['peak_gb']:.3f} GB")
+            if rel > REMAT_RTOL:
+                raise RuntimeError(f"precision {label}: epoch loss "
+                                   f"{r['loss']} leaves {twin}'s")
+        twin = BF16_TWINS.get(label)
+        if twin is not None:
+            base = runs[twin]["loss"]
+            rel = abs(r["loss"] - base) / abs(base)
+            print(f"precision {label} vs {twin}: epoch loss rel diff "
+                  f"{rel:.3e} (band {BF16_LOSS_BAND}), steps/s "
+                  f"{r['steps_per_s']:.2f} vs {runs[twin]['steps_per_s']:.2f}"
+                  f", peak memory {r['peak_gb']:.3f} vs "
+                  f"{runs[twin]['peak_gb']:.3f} GB")
+            if rel > BF16_LOSS_BAND:
+                raise RuntimeError(f"precision {label}: epoch loss "
+                                   f"{r['loss']} outside the band around "
+                                   f"{twin}'s {base}")
+    return runs
+
+
+def wide_memory(device, card: str) -> dict:
+    """One train step of LcNIC at the flagship encoder and units 2,048,
+    batch 256 (the JAX package's wide shape) with and without remat, in
+    fp32 and bf16: peak device memory of the step and its ms."""
+    from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
+    from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+    from masters_thesis_tpu_torch.train.state import init_model
+
+    layout = GroupLayout(synthetic_groups(N_VOXELS, N_GROUPS, seed=SEED),
+                         N_VOXELS)
+    B, T = WIDE_MEMORY["batch_size"], WIDTHS["max_length"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    betas = torch.randn(B, N_VOXELS, generator=gen, device=device)
+    tokens = torch.randint(1, WIDTHS["vocab_size"], (B, T), generator=gen,
+                           device=device)
+    target = torch.roll(tokens, -1, 1)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for remat in (False, True):
+            cfg = train_config()
+            cfg.units, cfg.batch_size = (WIDE_MEMORY["units"],
+                                         WIDE_MEMORY["batch_size"])
+            cfg.tpu.compute_dtype, cfg.tpu.remat = dtype, remat
+            state = init_model(cfg, layout, device)
+            step = steps.make_train_step(cfg, lc_nic_l2_rules(cfg))
+            state, m = step(state, betas, tokens, target)      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            ms = cuda_ms(lambda: step(state, betas, tokens, target), reps=3,
+                         warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            label = f"{dtype}{' + remat' if remat else ''}"
+            out[label] = {"peak_gb": peak / 1e9,
+                          "step_gb": (peak - before) / 1e9, "ms": ms}
+            print(f"wide step (units {cfg.units}, batch {B}) {label}: peak "
+                  f"device memory {peak / 1e9:.3f} GB, of it "
+                  f"{(peak - before) / 1e9:.3f} GB above the state, "
+                  f"{ms:.2f} ms a step, loss {float(m['loss']):.6f} "
+                  f"[{card}]")
+            if not np.isfinite(float(m["loss"])):
+                raise RuntimeError(f"wide step {label}: loss not finite")
+            del state, step, m
+            release()
+    return out
+
+
+def seq_bound_bf16(inputs) -> dict:
+    """``bound`` of one bf16-weight K4 forward: as ``seq_bound`` with 2
+    bytes for each weight element of W2, Wx and Wh, and the multiply-adds
+    at the bf16 tensor-core peak."""
+    pre, features, emb, w2, b2, v, bv, wx, wh, b = inputs
+    B, R, A = pre.shape
+    T, E = emb.shape[1:]
+    D, U = features.shape[2], w2.shape[0]
+    read = sum(t.numel() * t.element_size() for t in inputs)
+    written = 4 * T * B * (U + U + R + 4 * U + A)
+    fma = B * T * (U * A + R * A + R * D + (D + E + U) * 4 * U)
+    return bound(read + written, 2 * fma, BF16_FLOPS)
+
+
+@torch.inference_mode()
+def check_seq_kernel_bf16(inputs, attn_slope: float, card: str,
+                          label: str) -> dict:
+    """The bf16-weight K4 against its plain version on ``inputs`` (fp32;
+    W2, Wx and Wh cast to bf16): each step on the kernel's own carries,
+    residual by residual, within BF16_STEP_ATOL but for BF16_FLIP_ROWS of
+    its rows and within BF16_SEQ_ATOL for all, and the whole sequence no
+    farther from the plain version than BF16_FREE_SHARE of the fp32 plain
+    version's distance to it; then the bf16 and the fp32 K4 timed in
+    alternate turns, and the plain version. Returns the entry of the
+    kernels line, less its launches."""
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+
+    names = ("h", "c", "alpha", "z", "hw_pre")
+    half = tuple(t.to(torch.bfloat16) if k in fs.BF16_ARGS else t
+                 for k, t in zip(fs.SEQ_ARGS, inputs))
+    got = fs.fused_seq_forward(*half, attn_slope)
+    torch.cuda.synchronize()
+    stepped = fs.fused_seq_forward_reference(*half, attn_slope,
+                                             carries=(got[0], got[1]))
+    want = fs.fused_seq_forward_reference(*half, attn_slope)
+    fp32 = fs.fused_seq_forward_reference(*inputs, attn_slope)
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    errs = {n: err(g, w) for n, g, w in zip(names, got, stepped)}
+    flips = {n: float(((g - w).abs() > BF16_STEP_ATOL).any(-1).float()
+                      .mean()) for n, g, w in zip(names, got, stepped)}
+    free = {n: err(g, w) for n, g, w in zip(names, got, want)}
+    control = {n: err(f, w) for n, f, w in zip(names, fp32, want)}
+    B, T, R = got[2].shape
+    show = lambda e: ", ".join(f"{n} {x:.3e}" for n, x in e.items())  # noqa
+    print(f"{label} vs plain at B={B} T={T} R={R}, step by step on the "
+          f"kernel's carries: max abs err {show(errs)} (limit "
+          f"{BF16_SEQ_ATOL}), share of rows off by more than "
+          f"{BF16_STEP_ATOL} {show(flips)} (limit {BF16_FLIP_ROWS}); the "
+          f"whole sequence: {show(free)}, the fp32 plain version's distance "
+          f"to the bf16 one {show(control)} [{card}]")
+    if not all(torch.isfinite(g).all() for g in got):
+        raise RuntimeError(f"{label} produced a value that is not finite")
+    if max(errs.values()) > BF16_SEQ_ATOL or max(flips.values()) > (
+            BF16_FLIP_ROWS) or any(free[n] > BF16_FREE_SHARE * control[n]
+                                    for n in names):
+        raise RuntimeError(f"{label} disagrees with its plain version: "
+                           f"step by step {errs}, whole {free}, fp32 "
+                           f"{control}")
+    times = {"fp32": [], "bf16": []}
+    for _ in range(SEQ_TURNS):
+        for which, args in (("fp32", inputs), ("bf16", half)):
+            times[which].append(cuda_ms(
+                lambda a=args: fs.fused_seq_forward(*a, attn_slope)))
+    ms, fp32_ms = (float(np.median(times[k])) for k in ("bf16", "fp32"))
+    plain_ms = cuda_ms(lambda: fs.fused_seq_forward_reference(*half,
+                                                              attn_slope))
+    work = seq_bound_bf16(half)
+    print(f"{label} forward at B={B}, T={T}: bf16 kernel {ms:.4f} ms "
+          f"(turns {min(times['bf16']):.4f}-{max(times['bf16']):.4f}), fp32 "
+          f"K4 {fp32_ms:.4f} ms in the same turns "
+          f"({min(times['fp32']):.4f}-{max(times['fp32']):.4f}), plain "
+          f"version {plain_ms:.4f} ms, bound {work['bound_ms']:.4f} ms (by "
+          f"{work['bound_by']}, 3.35 TB/s and 989 TFLOP/s dense bf16) "
+          f"[{card}]")
+    return {"max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, **work, "library_ms": None,
+            "fp32_ms": fp32_ms}
+
+
+def precision(device, card: str) -> dict:
+    """The precision phase: ``precision_runs``, ``wide_memory``, the
+    bf16-weight K4 against its plain version at the flagship and the wide
+    shape (timed beside the fp32 K4), then, its count set to 0, the bf16
+    sequence (``make_fused_sequence(backend="kernel",
+    compute_dtype=bfloat16)``) forward and backward on the flagship model,
+    which must launch the bf16 K4. Returns its entry of the kernels line
+    and the runs."""
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+
+    t_phase = time.perf_counter()
+    # checkpoint's first call imports torch's compiler stack (seconds): do
+    # it before the runs, so that no run's steps/s carries it
+    from torch.utils.checkpoint import checkpoint
+
+    checkpoint(torch.square, torch.ones(1, device=device, requires_grad=True),
+               use_reentrant=False)
+    with tempfile.TemporaryDirectory(prefix="mtt_precision_") as tmp:
+        runs = precision_runs(Path(tmp), device, card)
+    memory = wide_memory(device, card)
+    slope = 0.2
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = flagship_model(device)
+    T, V = WIDTHS["max_length"], WIDTHS["vocab_size"]
+    betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
+    tokens = torch.randint(1, V, (BATCH, T), generator=gen, device=device)
+    inputs = seq_inputs(model, betas, tokens)
+    k4 = check_seq_kernel_bf16(inputs, slope, card, "bf16 K4 (flagship)")
+    dec = decoder_model(device, PROBE_WIDE,
+                        torch.Generator().manual_seed(SEED))
+    features = torch.randn(PROBE_WIDE_BATCH, N_GROUPS,
+                           PROBE_WIDE["group_size"], generator=gen,
+                           device=device)
+    toks = torch.randint(1, PROBE_WIDE["vocab_size"],
+                         (PROBE_WIDE_BATCH, PROBE_WIDE["max_length"]),
+                         generator=gen, device=device)
+    wide = check_seq_kernel_bf16(seq_inputs(dec, features, toks), slope,
+                                 card, "bf16 K4 (the probe's wide shape)")
+    k4["wide"] = {"shape": f"B {PROBE_WIDE_BATCH}, U "
+                  f"{PROBE_WIDE['units']}, A {PROBE_WIDE['attn_units']}, D "
+                  f"{PROBE_WIDE['group_size']}, E "
+                  f"{PROBE_WIDE['embedding_text']}, R {N_GROUPS}, T "
+                  f"{PROBE_WIDE['max_length']}", **wide}
+    del dec, features, toks
+    release()
+
+    # the path: the bf16 sequence's forward (K4) and custom backward
+    seq = fs.make_fused_sequence(slope, "kernel",
+                                 compute_dtype=torch.bfloat16)
+    pre, feats, emb = (t.detach().requires_grad_(True) for t in inputs[:3])
+    w = {k: t.detach().requires_grad_(True)
+         for k, t in zip(fs.W_KEYS, inputs[3:])}
+    fs.fused_seq_forward.launches_bf16 = 0
+    hseq, alphas = seq(w, pre, feats, emb)
+    grads = torch.autograd.grad(hseq.square().sum() + alphas.sum(),
+                                [pre, feats, emb, *w.values()])
+    torch.cuda.synchronize()
+    launches = fs.fused_seq_forward.launches_bf16
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"bf16 K4 launches through make_fused_sequence(backend='kernel', "
+          f"compute_dtype=bfloat16), forward and custom backward: "
+          f"{launches}; gradients finite and fp32: "
+          f"{finite and all(g.dtype == torch.float32 for g in grads)}")
+    if launches < 1 or not finite:
+        raise RuntimeError("the bf16 sequence never launched the bf16 K4, "
+                           "or its gradients are not finite")
+    print(f"precision: the phase in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return {"K4": {"launches": launches, **k4}, "runs": runs,
+            "wide_memory": memory}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3754,6 +4092,8 @@ def main(argv=None) -> int:
     release()
     par = parallel(tok, device, card)
     release()
+    prec = precision(device, card)
+    release()
     k1["max_abs_err"] = max(k1["max_abs_err"], par["K1"]["max_abs_err"])
     k1["stores"] += par["K1"]["stores"]
     k2["max_abs_err"] = max(k2["max_abs_err"], par["K2"]["max_abs_err"])
@@ -3796,7 +4136,11 @@ def main(argv=None) -> int:
         "launches_parallel": par["launches"]["gather_rows"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
-        "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4},
+        "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4}, {
+        "name": "fused_seq_forward_bf16", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
+        "replaces": "masters_thesis_tpu/ops/fused_seq.py:204",
+        **prec["K4"]},
         *probes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,9 +50,8 @@ each of ``--platforms``, by default the platform of ``--device``).
 ``train --processes`` starts one process a rank (``parallel.multiprocess``;
 ranks on one card share it under gloo), ``caption``/``serve --shard N``
 serve N replicas, one a device, and ``dryrun`` runs one sharded step over
-N ranks (``parallel.dryrun``). A ``tpu:`` knob that the port does not
-honour yet makes a run exit non-zero naming the ROADMAP item that ports
-it (``config.unsupported_knobs``).
+N ranks (``parallel.dryrun``). ``tpu.use_pallas: false`` makes a run on
+the card exit non-zero (``config.unsupported_knobs``).
 """
 
 from __future__ import annotations

@@ -17,10 +17,11 @@ mappings, several documents, a tab in the indentation) raises ``ValueError``
 naming its line. ``save`` writes YAML that PyYAML reads back to the same
 dict.
 
-Some knobs have no port yet. ``experiment.run_training`` refuses them when
-they differ from their defaults (``unsupported_knobs``), and refuses
-``use_pallas: false`` on the card; ``prng_impl`` is recorded and changes
-nothing, because torch's generators draw every mask.
+Every knob of the JAX package's schema is honoured.
+``experiment.run_training`` refuses ``use_pallas: false`` on the card
+(``unsupported_knobs``); ``prng_impl`` is recorded and changes nothing,
+because torch's generators draw every mask, and ``param_dtype`` changes
+nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,10 +66,15 @@ class TPUConfig:
     """The JAX package's ``tpu:`` knobs, by the same names. On the card:
     ``use_pallas`` must stay true (``unsupported_knobs``), ``scan_steps``
     > 0 trains from the device store through K1, and ``store_dtype``,
-    ``fused_seq`` and ``ckpt_every`` mean what they mean there. ``prng_impl``, ``donate_state``, ``prefetch_depth`` and
-    ``compile_cache_dir`` are XLA's and change nothing here. The mesh,
-    dtype, remat, vocab-padding and profiling knobs wait for their ports
-    (``unsupported_knobs``)."""
+    ``fused_seq``, ``ckpt_every``, the mesh, vocab-padding and profiling
+    knobs mean what they mean there. ``compute_dtype: bfloat16`` trains in
+    bf16 on fp32 masters on a CUDA device and in fp32 on the CPU, as the
+    JAX package does only on its TPU (``train.steps._compute_dtype``);
+    ``remat`` recomputes each decoder step in the backward
+    (``models.nic.NIC``). ``prng_impl``, ``donate_state``,
+    ``prefetch_depth`` and ``compile_cache_dir`` are XLA's and change
+    nothing here; ``param_dtype`` is read by nothing, in the JAX package
+    as here."""
 
     mesh_data: int = 1
     mesh_model: int = 1
@@ -217,19 +223,9 @@ def load_config(path: str | os.PathLike) -> Config:
     return Config.load(path)
 
 
-# (knob, its default, the ROADMAP item that ports it)
-_UNSUPPORTED = (
-    ("param_dtype", "float32", "M16, bf16 compute"),
-    ("compute_dtype", "float32", "M16, bf16 compute"),
-    ("remat", False, "M15, remat"),
-)
-
-
 def unsupported_knobs(cfg: Config, device=None) -> None:
-    """Raise ``NotImplementedError`` for the first ``tpu:`` knob set to a
-    value the port cannot honour yet, naming the ROADMAP item that ports
-    it; and ``ValueError`` for ``use_pallas: false`` on a CUDA ``device``
-    (a ``torch.device``)."""
+    """Raise ``ValueError`` for ``use_pallas: false`` on a CUDA ``device``
+    (a ``torch.device``): the one setting the port cannot honour."""
     if (device is not None and device.type == "cuda"
             and not cfg.tpu.use_pallas):
         raise ValueError(
@@ -238,13 +234,6 @@ def unsupported_knobs(cfg: Config, device=None) -> None:
             "K2), and their plain PyTorch versions run only on CPU tensors, "
             "as the oracles the kernels are checked against; set it true, "
             "or run on the CPU")
-    for name, default, item in _UNSUPPORTED:
-        value = getattr(cfg.tpu, name)
-        allowed = default if isinstance(default, tuple) else (default,)
-        if value not in allowed:
-            raise NotImplementedError(
-                f"tpu.{name}: {value!r} is not ported yet (ROADMAP {item}); "
-                f"the port runs {allowed[0]!r}")
 
 
 # ---------------------------------------------------------------- YAML subset

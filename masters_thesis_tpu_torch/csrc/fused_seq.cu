@@ -56,9 +56,163 @@
 // All math is fp32 with fp32 accumulation. The Python wrapper passes outputs
 // and scratch. Each launch is checked with cudaGetLastError, and the entry
 // point returns the first error.
+//
+// The bf16-weight variant (mtt_fused_seq_forward_bf16) is the TPU kernel at
+// compute dtype bf16 (_forward_pallas casts w2, wx and wh to bf16 at :228,
+// and _seq_kernel casts h and x to the weights' dtype at :163-184): W2, Wx
+// and Wh are read as bf16, h and [ctx ; emb_t] are rounded to bf16 (round to
+// nearest even, as torch's .to(bfloat16)) before the products, and every
+// product is summed in fp32; b2, v, bv, b, ctx, the carries and every output
+// stay fp32. Its bound: the flagship forward reads its bf16 weights once
+// (~4.4 MB) beside the same fp32 activations as the fp32 kernel (~26 MB all
+// told, ~8 us at 3.35 TB/s) and does ~2.1 G multiply-adds (~4.3 us at the
+// card's 989 TFLOP/s dense bf16 tensor-core peak, NVIDIA's H100 SXM data
+// sheet), so bytes bound it. The design is the simple one: a step is
+// bfloat_rows_kernel for h W2, the same attention_kernel as the fp32 kernel's,
+// and bfloat_rows_kernel for the LSTM cell. A block of 256 threads owns 8 or
+// 32 batch rows (8 up to B 128, so that the flagship's 64 rows still make
+// 128 blocks of the cell) x 32 output units (x 4 gates for the cell); the
+// rounded rows and the weights, widened to fp32, pass through shared memory
+// 32 reduction rows at a time, and each thread sums 1 or 4 rows x its unit's
+// gates in fp32 on the CUDA cores and forms the cell in registers. The fp32 kernels
+// above (the tile kernel's instantiations) are untouched. wgmma and TMA for
+// bf16 are later work.
+
+#include <cuda_bf16.h>
 
 #include "step_kernels.cuh"
 #include "tile_kernels.cuh"
+
+namespace {
+
+constexpr int kBfUnits = 32;    // output units a block (one per lane)
+constexpr int kBfK = 32;        // reduction rows a stage
+constexpr int kBfThreads = 256; // 8 warps, each kRowsPer of the block's rows
+constexpr int kBfWarps = kBfThreads / kBfUnits;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// out = round(x) W + bias for the rows of x = [x0 | x1 | x2] (widths k0, k1,
+// k2, row-major, rows contiguous) against W = [w0 ; w1] bf16 ((k0 + k1, G N)
+// and (k2, G N); w1 may be null when k2 is 0), G = 4 gates [i | f | g | o]
+// of N units for the LSTM cell (kLstm), G = 1 for a dense product; a block
+// owns 8 x kRowsPer rows. The cell writes z, the new c (from c_prev) and h;
+// the dense product writes out.
+template <bool kLstm, int kRowsPer>
+__global__ void __launch_bounds__(kBfThreads) bfloat_rows_kernel(
+    const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ x2, int k0, int k1, int k2,
+    const __nv_bfloat16* __restrict__ w0,
+    const __nv_bfloat16* __restrict__ w1, const float* __restrict__ bias,
+    int B, int N, const float* __restrict__ c_prev, float* __restrict__ out,
+    float* __restrict__ c_out, float* __restrict__ h_out) {
+  constexpr int G = kLstm ? 4 : 1;
+  constexpr int kBfRows = kBfWarps * kRowsPer;
+  __shared__ float sx[kBfRows][kBfK + 1];
+  __shared__ float sw[kBfK][G][kBfUnits];
+  const int lane = threadIdx.x % kBfUnits;
+  const int group = threadIdx.x / kBfUnits;
+  const int row0 = blockIdx.y * kBfRows;
+  const int unit0 = blockIdx.x * kBfUnits;
+  const int K = k0 + k1 + k2;
+  const int cols = G * N;
+
+  float acc[kRowsPer][G];
+#pragma unroll
+  for (int r = 0; r < kRowsPer; ++r)
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[r][g] = 0.f;
+
+  for (int kb = 0; kb < K; kb += kBfK) {
+    // the rounded inputs: the block's rows x 32 reduction rows
+    for (int e = threadIdx.x; e < kBfRows * kBfK; e += kBfThreads) {
+      const int r = e / kBfK, kk = e % kBfK, k = kb + kk, row = row0 + r;
+      float v = 0.f;
+      if (row < B && k < K) {
+        v = k < k0 ? x0[(size_t)row * k0 + k]
+            : k < k0 + k1 ? x1[(size_t)row * k1 + (k - k0)]
+                          : x2[(size_t)row * k2 + (k - k0 - k1)];
+      }
+      sx[r][kk] = round_bf16(v);
+    }
+    // the weights, widened: 32 reduction rows x G gates x 32 units
+    for (int e = threadIdx.x; e < kBfK * G * kBfUnits; e += kBfThreads) {
+      const int j = e % kBfUnits, g = (e / kBfUnits) % G,
+                kk = e / (kBfUnits * G), k = kb + kk, unit = unit0 + j;
+      float v = 0.f;
+      if (k < K && unit < N) {
+        const size_t col = (size_t)g * N + unit;
+        v = __bfloat162float(k < k0 + k1 ? w0[(size_t)k * cols + col]
+                                         : w1[(size_t)(k - k0 - k1) * cols +
+                                              col]);
+      }
+      sw[kk][g][j] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kBfK; ++kk) {
+      float w[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) w[g] = sw[kk][g][lane];
+#pragma unroll
+      for (int r = 0; r < kRowsPer; ++r) {
+        const float xv = sx[group * kRowsPer + r][kk];
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[r][g] = fmaf(xv, w[g], acc[r][g]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int unit = unit0 + lane;
+  if (unit >= N) return;
+#pragma unroll
+  for (int r = 0; r < kRowsPer; ++r) {
+    const int row = row0 + group * kRowsPer + r;
+    if (row >= B) continue;
+    if constexpr (kLstm) {
+      float z[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        z[g] = acc[r][g] + bias[g * N + unit];
+        out[(size_t)row * cols + g * N + unit] = z[g];
+      }
+      const size_t at = (size_t)row * N + unit;
+      const float c = sigmoid(z[1]) * c_prev[at] + sigmoid(z[0]) * tanhf(z[2]);
+      c_out[at] = c;
+      h_out[at] = sigmoid(z[3]) * tanhf(c);
+    } else {
+      out[(size_t)row * N + unit] = acc[r][0] + bias[unit];
+    }
+  }
+}
+
+// bfloat_rows_kernel on B rows and N units: 8 rows a block up to B 128,
+// else 32.
+template <bool kLstm>
+cudaError_t launch_bfloat_rows(
+    const float* x0, const float* x1, const float* x2, int k0, int k1, int k2,
+    const __nv_bfloat16* w0, const __nv_bfloat16* w1, const float* bias,
+    int B, int N, const float* c_prev, float* out, float* c_out,
+    float* h_out, cudaStream_t stream) {
+  const int units = (N + kBfUnits - 1) / kBfUnits;
+  if (B <= 128) {
+    const dim3 grid(units, (B + kBfWarps - 1) / kBfWarps);
+    bfloat_rows_kernel<kLstm, 1><<<grid, kBfThreads, 0, stream>>>(
+        x0, x1, x2, k0, k1, k2, w0, w1, bias, B, N, c_prev, out, c_out,
+        h_out);
+  } else {
+    const dim3 grid(units, (B + 4 * kBfWarps - 1) / (4 * kBfWarps));
+    bfloat_rows_kernel<kLstm, 4><<<grid, kBfThreads, 0, stream>>>(
+        x0, x1, x2, k0, k1, k2, w0, w1, bias, B, N, c_prev, out, c_out,
+        h_out);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -110,6 +264,49 @@ int mtt_fused_seq_forward(
                             D + E, b, B, U, 1.f, hseq + t * bu, cseq + t * bu,
                             c, zs + (size_t)t * 4 * bu},
                            stream)) != cudaSuccess)
+      return (int)err;
+  }
+  return 0;
+}
+
+// K4 with bf16 W2, Wx and Wh (the arguments of mtt_fused_seq_forward less
+// the plans; w2, wx and wh point to bf16). Returns 0 on success, else the
+// first CUDA error.
+int mtt_fused_seq_forward_bf16(
+    const float* pre, const float* features, const float* emb,
+    const __nv_bfloat16* w2, const float* b2, const float* v, const float* bv,
+    const __nv_bfloat16* wx, const __nv_bfloat16* wh, const float* b,
+    const float* h0, const float* c0, float* ctx, float* hseq, float* cseq,
+    float* alphas, float* zs, float* hwps, int B, int R, int A, int D, int E,
+    int U, int T, float attn_slope, int device, void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+
+  const size_t attn_smem = attention_smem_bytes(A, R);
+  if ((err = cudaFuncSetAttribute(attention_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)attn_smem)) != cudaSuccess)
+    return (int)err;
+
+  const size_t bu = (size_t)B * U;
+  for (int t = 0; t < T; ++t) {
+    const float* h = t == 0 ? h0 : hseq + (t - 1) * bu;
+    const float* c = t == 0 ? c0 : cseq + (t - 1) * bu;
+    float* hw = hwps + (size_t)t * B * A;
+    if ((err = launch_bfloat_rows<false>(h, nullptr, nullptr, U, 0, 0, w2,
+                                         nullptr, b2, B, A, nullptr, hw,
+                                         nullptr, nullptr, stream)) !=
+        cudaSuccess)
+      return (int)err;
+    attention_kernel<<<B, kThreads, attn_smem, stream>>>(
+        pre, features, v, bv, ctx, alphas + (size_t)t * B * R, hw, R, A, D,
+        attn_slope, 1, 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = launch_bfloat_rows<true>(
+             ctx, emb + (size_t)t * B * E, h, D, E, U, wx, wh, b, B, U, c,
+             zs + (size_t)t * 4 * bu, cseq + t * bu, hseq + t * bu,
+             stream)) != cudaSuccess)
       return (int)err;
   }
   return 0;

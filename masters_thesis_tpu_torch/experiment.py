@@ -45,8 +45,12 @@ which ``apply_preprocess_chain`` replays on raw rows for serving.
 Without NSD data the data is ``data.synthetic`` made from the seed, at the
 sizes the JAX package uses. With ``tpu.mesh_data``/``tpu.mesh_model``
 set, ``run_training`` is one rank's part of a sharded run
-(``parallel/``). What waits raises ``NotImplementedError`` naming its
-ROADMAP item: the ``tpu:`` knobs of ``config.unsupported_knobs``.
+(``parallel/``). ``tpu.compute_dtype: bfloat16`` trains in bf16 on fp32
+masters on the card and in fp32 on the CPU (``train.steps._compute_dtype``:
+logged once, and recorded as ``run_meta.json``'s ``compute_dtype``);
+``tpu.remat`` reaches the NIC, ImgNIC and CnnRnnNIC models
+(``train.state.model_for``). ``tpu.use_pallas: false`` is refused on the
+card (``config.unsupported_knobs``).
 """
 
 from __future__ import annotations
@@ -399,6 +403,10 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
 
     device = resolve_device(device)
     unsupported_knobs(cfg, device)
+    compute_dtype = steps._compute_dtype(cfg, device)
+    logger.info("training forward in %s (tpu.compute_dtype %s on %s)",
+                str(compute_dtype).removeprefix("torch."),
+                cfg.tpu.compute_dtype, device.type)
     name = cfg.model.lower()
     if name not in PORTED_MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
@@ -548,6 +556,8 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
                 "input_row_shape": input_row_shape,
                 # torch's generators draw every mask whatever the value
                 "prng_impl": cfg.tpu.prng_impl,
+                # the training forward's dtype (bf16 only on the card)
+                "compute_dtype": str(compute_dtype).removeprefix("torch."),
             }, f, indent=1)
 
     # decoded caption metrics on the val split: one row per unique val key,

@@ -10,10 +10,20 @@ that compare the two packages transplant the flax weights instead.
 Layers keep flax's parameter layout: a Dense kernel is (in, out), not
 torch's (out, in), so state-dict keys and shapes match the flax tree one to
 one (see ``masters_thesis_tpu_torch/transplant.py``).
+
+Mixed dtypes follow flax and ``jnp``, since a bf16 training forward
+(``tpu.compute_dtype``) runs on bf16 copies of fp32 parameters beside fp32
+carries and statistics: a product of a bf16 and an fp32 tensor promotes
+both to fp32 (``promote``, ``matmul``; torch refuses such a product), a
+product that JAX takes with ``preferred_element_type=float32`` rounds
+nothing and sums in fp32 (``matmul_f32``), BatchNorm takes its batch
+statistics in fp32, and dropout keeps its input's dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
@@ -128,6 +138,62 @@ def activation(x: torch.Tensor, name: str) -> torch.Tensor:
                      f"{sorted(ACTIVATION_SLOPES)}")
 
 
+def promote(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """flax ``promote_dtype``: every tensor in the dtype they all promote
+    to (bf16 with fp32 -> fp32)."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return [t.to(dtype) for t in tensors]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.matmul``: both operands promoted to one dtype first (bf16 with
+    bf16 stays bf16, as the JAX dot rounds its fp32 sum to bf16)."""
+    a, b = promote(a, b)
+    return a @ b
+
+
+def matmul_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(spec, a, b, preferred_element_type=float32)``: the
+    operands as they are (a bf16 value is exact in fp32), the products
+    summed and returned in fp32, nothing rounded to bf16."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+@contextlib.contextmanager
+def parameters_from(slots, tensors):
+    """Inside, each (module, name) of ``slots`` holds the matching tensor of
+    ``tensors`` as its parameter; the parameters come back after."""
+    kept = [m._parameters[name] for m, name in slots]
+    try:
+        for (m, name), t in zip(slots, tensors):
+            m._parameters[name] = t
+        yield
+    finally:
+        for (m, name), t in zip(slots, kept):
+            m._parameters[name] = t
+
+
+def parameters_as(module: nn.Module, dtype: torch.dtype):
+    """Inside, every fp32 parameter of ``module`` is a ``dtype`` copy made
+    by one differentiable cast, so a backward through the forward run
+    inside lands its gradients on the fp32 parameters themselves (flax's
+    ``tree_map(astype)`` of the masters); buffers keep their dtype. The
+    identity at fp32."""
+    slots = [] if dtype == torch.float32 else [
+        (m, name) for m in module.modules()
+        for name, p in m._parameters.items()
+        if p is not None and p.dtype == torch.float32]
+    return parameters_from(slots, [m._parameters[name].to(dtype)
+                                   for m, name in slots])
+
+
+def widen_carry(x: torch.Tensor) -> torch.Tensor:
+    """A recurrent carry in at least fp32: bf16 widened, as the JAX scans
+    re-cast theirs after every cell under a bf16 compute dtype; a float64
+    model's (the checks') kept float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def dropout(x: torch.Tensor, rate: float, generator=None,
             training: bool = False, columns: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: in training, keep each element with probability
@@ -170,7 +236,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        x, kernel, bias = promote(x, self.kernel, self.bias)
+        return x @ kernel + bias
 
 
 class BatchNorm(nn.Module):
@@ -182,7 +249,10 @@ class BatchNorm(nn.Module):
     the last (of the global batch inside a sharded step, whose data axis
     is wider than one: ``parallel.collectives.batch_moments``), the
     variance is the biased one, and the running statistics move in place
-    as ``ra = 0.99 ra + 0.01 batch``, as flax's do.
+    as ``ra = 0.99 ra + 0.01 batch``, as flax's do. The batch statistics
+    are taken in at least fp32 and the running ones stay fp32; the output
+    is in the dtype that x, scale and bias promote to (flax
+    ``_compute_stats`` and ``_normalize``).
     ``torch.nn.BatchNorm*`` would use the unbiased variance for the running
     update and a momentum of 0.01 in the other sense."""
 
@@ -197,7 +267,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         if training:
             axes = tuple(range(x.ndim - 1))
-            var, mean = batch_moments(x, axes)
+            var, mean = batch_moments(
+                x.to(torch.promote_types(x.dtype, torch.float32)), axes)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.mean.mul_(m).add_((1 - m) * mean)
@@ -205,4 +276,5 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         mul = self.scale * torch.rsqrt(var + self.epsilon)
-        return (x - mean) * mul + self.bias
+        out = (x - mean) * mul + self.bias
+        return out.to(promote(x, self.scale, self.bias)[0].dtype)

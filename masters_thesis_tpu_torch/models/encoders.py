@@ -23,6 +23,10 @@ Then ``relu`` or LeakyReLU(0.2), the optional BatchNorm ``bn`` over D (the
 port's flax-exact one), and dropout in training. It also takes a row flat,
 (B, P·C), as the 2-D device store gathers it, and shapes it back.
 
+The per-patch and per-region contractions sum in fp32 (the JAX einsums'
+``preferred_element_type``); the per-patch one returns the input's dtype,
+as the JAX one casts back.
+
 Each encoder has the flax tree's parameter names, ``out_dim`` (the width of
 a region's features) and ``row_shape`` (one input row's shape).
 """
@@ -41,6 +45,7 @@ from masters_thesis_tpu_torch.models.common import (
     dropout,
     he_normal,
     leaky_relu,
+    matmul_f32,
     truncated_normal,
 )
 from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
@@ -82,7 +87,8 @@ class PatchDense(nn.Module):
         if x.ndim == 2:
             x = x.reshape(x.shape[0], *self.row_shape)
         if self.per_patch:
-            y = torch.einsum("bpc,pcd->bpd", x, self.kernel) + self.bias
+            y = (matmul_f32("bpc,pcd->bpd", x, self.kernel)
+                 + self.bias).to(x.dtype)
         else:
             y = self.proj(x)
         y = activation(y, self.activation)
@@ -167,7 +173,7 @@ class DeepLocallyDense(nn.Module):
         y = self.block0(x, training, generator)
         for d in range(1, self.depth):
             y = getattr(self, f"bn{d}")(y, training)
-            y = leaky_relu(torch.einsum("bgd,gde->bge", y,
-                                        getattr(self, f"kernel{d}"))
+            y = leaky_relu(matmul_f32("bgd,gde->bge", y,
+                                      getattr(self, f"kernel{d}"))
                            + getattr(self, f"bias{d}"))
         return dropout(y, self.dropout, generator, training)

@@ -15,7 +15,10 @@ LeakyReLU, as the concat and deep encoders build it
 (``models/encoders.py``).
 
 The gather is ``index_select`` and the contraction is ``einsum``: the JAX
-package leaves both to XLA, outside any Pallas kernel. With
+package leaves both to XLA, outside any Pallas kernel. The contraction sums
+in fp32 and returns fp32 whatever the operands' dtype, as the JAX einsum's
+``preferred_element_type``: under a bf16 forward the bf16 rows meet the
+bf16 kernels and the encoder's output is fp32. With
 ``pregathered=True`` the input is already in the grouped padded layout
 (``GroupLayout.permute_rows``, or ``data.store.permute_rows`` on the device),
 and each bucket is the slice at ``layout.bucket_offsets[b]``: the training
@@ -40,6 +43,7 @@ from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
     activation,
     dropout,
+    matmul_f32,
     truncated_normal,
 )
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
@@ -135,7 +139,7 @@ class LocallyDense(nn.Module):
                 generator=None) -> torch.Tensor:
         outs = []
         for b, xg in enumerate(self._bucket_inputs(x)):
-            y = torch.einsum("bgp,gpd->bgd", xg, getattr(self, f"kernel_{b}"))
+            y = matmul_f32("bgp,gpd->bgd", xg, getattr(self, f"kernel_{b}"))
             if xg.shape[-1] != self.layout.buckets[b].padded:
                 y = reduce_from_model(y)      # this rank's voxel slice
             outs.append(activation(y + getattr(self, f"bias_{b}"),

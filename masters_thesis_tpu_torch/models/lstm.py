@@ -19,7 +19,12 @@ the CNN_RNN decoder uses it (CNN_RNN/model.py:67-115):
 - z = sigmoid(xz_z + hz_z);  r = sigmoid(xz_r + hz_r)
 - h̄ = tanh(xz_h + r·hz_h);  h' = z·h + (1 − z)·h̄
 
-The carry stays fp32.
+The carry stays fp32. Under a bf16 forward (``tpu.compute_dtype``) the
+products promote as ``jnp``'s do: h is cast to the input's dtype, and a
+bf16 input against bf16 kernels stays bf16 while an fp32 one promotes the
+kernels (``models.common.matmul``); the new state takes the dtype its
+terms promote to, and the output is cast to the gates' dtype, as in the
+JAX cells (``models/lstm.py:46-59, 80-88``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 
 from masters_thesis_tpu_torch.models.common import (
     glorot_uniform,
+    matmul,
     orthogonal,
     unit_forget_bias,
 )
@@ -47,7 +53,9 @@ class KerasLSTMCell(nn.Module):
     def forward(self, carry, x: torch.Tensor):
         """carry = (h, c) each (B, U); x: (B, F). Returns ((h', c'), h')."""
         h, c = carry
-        z = x @ self.kernel + h.to(x.dtype) @ self.recurrent_kernel + self.bias
+        z = (matmul(x, self.kernel) + matmul(h.to(x.dtype),
+                                             self.recurrent_kernel)
+             + self.bias)
         i, f, g, o = torch.chunk(z, 4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -66,8 +74,8 @@ class KerasGRUCell(nn.Module):
 
     def forward(self, h: torch.Tensor, x: torch.Tensor):
         """h: (B, U); x: (B, F). Returns (h', h')."""
-        xz = x @ self.kernel + self.bias[0]
-        hz = h.to(x.dtype) @ self.recurrent_kernel + self.bias[1]
+        xz = matmul(x, self.kernel) + self.bias[0]
+        hz = matmul(h.to(x.dtype), self.recurrent_kernel) + self.bias[1]
         xz_z, xz_r, xz_h = torch.chunk(xz, 3, dim=-1)
         hz_z, hz_r, hz_h = torch.chunk(hz, 3, dim=-1)
         z = torch.sigmoid(xz_z + hz_z)

@@ -33,6 +33,19 @@ order: ``drop_input`` on the inputs, ``drop_text`` on the embedded tokens,
 ``drop_lstm`` on each cell output (not on the carry) and ``drop_out`` after
 the head's activation; the encoder and the attention hold the other two.
 Masks are drawn from the caller's ``torch.Generator``.
+
+The carry rides fp32 whatever the compute dtype and is re-cast after every
+cell (JAX ``nic.py:183-193``; a float64 model's stays float64). ``remat`` (``tpu.remat``; the NIC, ImgNIC
+and CnnRnnNIC factories take it, as the JAX ones do) runs each time step,
+the attention, the cell and ``drop_lstm``, under
+``torch.utils.checkpoint``: the backward recomputes the step instead of
+keeping its activations. The recompute replays the forward's dropout masks
+exactly: ``checkpoint`` restores only the global RNG states, never a
+generator passed in, so the step keeps its generator's state from its
+start, draws from it again in the recompute and puts the generator back
+after; and it takes the step's weights as inputs, so that it reads the
+tensors the forward read (bf16 copies, or a sharded run's gathered
+leaves) after those have left the modules.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from masters_thesis_tpu_torch.models.attention import BahdanauAttention
 from masters_thesis_tpu_torch.models.common import (
@@ -53,6 +67,8 @@ from masters_thesis_tpu_torch.models.common import (
     mask_padded_vocab,
     pad_zero_cols,
     pad_zero_rows,
+    parameters_from,
+    widen_carry,
 )
 from masters_thesis_tpu_torch.models.encoders import PatchDense
 from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
@@ -94,7 +110,8 @@ class NIC(nn.Module):
                  learned_init_state: bool = False,
                  dropout_input: float = 0.0, dropout_text: float = 0.2,
                  dropout_attn: float = 0.2, dropout_lstm: float = 0.2,
-                 dropout_out: float = 0.2, generator=None):
+                 dropout_out: float = 0.2, remat: bool = False,
+                 generator=None):
         super().__init__()
         if cell_type not in CELL_TYPES:
             raise ValueError(f"cell_type {cell_type!r}: expected one of "
@@ -115,6 +132,7 @@ class NIC(nn.Module):
         self.dropout_text = dropout_text
         self.dropout_lstm = dropout_lstm
         self.dropout_out = dropout_out
+        self.remat = remat
         tv = true_vocab or vocab_size
         features_dim = encoder.out_dim
 
@@ -164,9 +182,15 @@ class NIC(nn.Module):
         return F.embedding(tokens, self.embedding)
 
     def head(self, h: torch.Tensor, training: bool = False,
-             generator=None) -> torch.Tensor:
-        x = activation(self.dense_inter(h), self.head_activation)
-        x = dropout(x, self.dropout_out, generator, training)
+             generator=None, rounded=None) -> torch.Tensor:
+        """``rounded`` (a dtype) rounds each product's input to it and sums
+        in fp32 against the (bf16) kernels: the fused train route's ``_mm``
+        at bf16 (``ops.fused_seq.make_train_forward_loss``)."""
+        def operand(x):
+            return x if rounded is None else x.to(rounded).float()
+
+        x = activation(self.dense_inter(operand(h)), self.head_activation)
+        x = operand(dropout(x, self.dropout_out, generator, training))
         out = self.dense_out
         if out.kernel.shape[1] != self.vocab_size:
             # this rank's columns of a vocab-sharded head (parallel/)
@@ -198,15 +222,55 @@ class NIC(nn.Module):
         if self.learned_init_state:
             a0, c0 = self.init_carry(features)
         h, c = a0.float(), c0.float()
+        step = (self._checkpointed_step
+                if self.remat and torch.is_grad_enabled() else
+                self._teacher_step)
         hseq, alphas = [], []
         for t in range(tokens.shape[1]):
-            context, alpha = self.attention(h, features, training, generator)
-            h, c, out = self._step(h, c, torch.cat([context, emb[:, t]], -1))
-            hseq.append(dropout(out, self.dropout_lstm, generator, training))
-            alphas.append(alpha[..., 0])
+            h, c, out, alpha = step(h, c, features, emb[:, t], training,
+                                    generator)
+            hseq.append(out)
+            alphas.append(alpha)
         logits = self.head(torch.stack(hseq, dim=1), training,
                            generator)                         # (B, T, V)
         return logits, torch.stack(alphas, dim=1)
+
+    def _teacher_step(self, h, c, features, emb_t, training, generator):
+        """One teacher-forced step: (h', c', the dropped cell output, alpha
+        (B, R)), the carry re-cast to fp32."""
+        context, alpha = self.attention(h, features, training, generator)
+        h, c, out = self._step(h, c, torch.cat([context, emb_t], -1))
+        out = dropout(out, self.dropout_lstm, generator, training)
+        return widen_carry(h), widen_carry(c), out, alpha[..., 0]
+
+    def _checkpointed_step(self, h, c, features, emb_t, training, generator):
+        """``_teacher_step`` under ``checkpoint``, its recompute on the
+        forward's weights and dropout masks (the module docstring)."""
+        slots = [(m, name) for part in (self.attention, self.cell)
+                 for m in part.modules() for name in m._parameters]
+        weights = [m._parameters[name] for m, name in slots]
+        start = generator.get_state() if generator is not None else None
+        calls = []
+
+        def run(h, c, features, emb_t, *weights):
+            # a recompute may stop early (checkpoint's early stop raises out
+            # of the step), so the generator is put back in a finally
+            now = None
+            if calls and generator is not None:
+                now = generator.get_state()
+                generator.set_state(start)
+            calls.append(True)
+            try:
+                with parameters_from(slots, weights):
+                    return self._teacher_step(h, c, features, emb_t,
+                                              training, generator)
+            finally:
+                if now is not None:
+                    generator.set_state(now)
+
+        # the generator is replayed above; no global RNG is drawn from
+        return checkpoint(run, h, c, features, emb_t, *weights,
+                          use_reentrant=False, preserve_rng_state=False)
 
     # ---- single decode step (shared by the decoders) ----
     def init_carry(self, features: torch.Tensor):

@@ -37,6 +37,7 @@ from masters_thesis_tpu_torch.models.common import (
     mask_padded_vocab,
     pad_zero_cols,
     pad_zero_rows,
+    widen_carry,
 )
 from masters_thesis_tpu_torch.models.lstm import KerasLSTMCell
 
@@ -134,7 +135,8 @@ class ShowTell(nn.Module):
         carry = (a0.float(), c0.float())
         hseq = []
         for t in range(xs.shape[1]):
-            carry, out = self.lstm(carry, xs[:, t])
+            (h, c), out = self.lstm(carry, xs[:, t])
+            carry = (widen_carry(h), widen_carry(c))
             hseq.append(out)
         hseq = torch.stack(hseq, dim=1)                          # (B, T+1, U)
         kept = hseq[:, :-1] if self.align == "self" else hseq[:, 1:]

@@ -255,5 +255,8 @@ def vocab_parallel_embedding(tokens: torch.Tensor,
 def vocab_parallel_dense(x: torch.Tensor, kernel: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
     """``x @ kernel + bias`` with this rank's columns of a vocab-sharded
-    kernel: the replicated input's products on each rank, side by side."""
-    return gather_from_model(copy_to_model(x) @ kernel, -1) + bias
+    kernel: the replicated input's products on each rank, side by side;
+    a bf16 operand against an fp32 one is promoted, as in ``Dense``."""
+    dtype = torch.promote_types(x.dtype, kernel.dtype)
+    return gather_from_model(copy_to_model(x.to(dtype)) @ kernel.to(dtype),
+                             -1) + bias

@@ -122,8 +122,11 @@ def model_for(cfg, layout=None, seed: int | None = None,
     if name == "guse_nic":
         return GuseNIC(units=cfg.units, dropout=cfg.dropout_features,
                        generator=gen, **vocab)
+    # remat reaches the NIC, ImgNIC and CnnRnnNIC factories, as in the JAX
+    # build_model; Ms2NIC and the ShowTell family never see it
     nic = dict(units=cfg.units, learned_init_state=cfg.learned_init_state,
-               generator=gen, **vocab, **_nic_dropouts(cfg))
+               remat=cfg.tpu.remat, generator=gen, **vocab,
+               **_nic_dropouts(cfg))
     if name in ("lc_nic", "ms_nic"):
         glove = {}
         if embedding_table is not None:
@@ -138,7 +141,7 @@ def model_for(cfg, layout=None, seed: int | None = None,
             dropout_features=cfg.dropout_features, pregathered=pregathered,
             **glove, **nic)
     if name == "ms2_nic":
-        del nic["learned_init_state"]
+        del nic["learned_init_state"], nic["remat"]
         return Ms2NIC(layout, layout, group_size=cfg.group_size,
                       embedding_text=cfg.embedding_text,
                       attn_units=cfg.attn_units,

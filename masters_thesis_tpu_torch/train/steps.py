@@ -19,6 +19,16 @@ and the metrics come back stacked (K,) and still on the device, so the host
 never waits on a step. A CUDA graph of the step is later work (ROADMAP
 M17).
 
+Mixed precision (``tpu.compute_dtype: bfloat16``) follows the JAX
+``_compute_dtype``: bf16 on the accelerator (here a CUDA device), fp32
+elsewhere, so a CPU run trains in fp32. At bf16 the training forward runs
+on bf16 copies of the fp32 parameters, each cast once a step by a
+differentiable cast (``models.common.parameters_as``), so the gradients
+land on the fp32 masters; the betas are cast to bf16, BatchNorm's running
+statistics stay fp32, the CCE reads fp32 logits, the attention loss fp32
+alphas, L2 the masters and ``accuracy`` the logits as they come. The eval
+steps stay fp32. ``tpu.param_dtype`` is read by nothing, as in JAX.
+
 The JAX package's ``model`` argument has no counterpart: the model lives in
 the state. ``mesh`` (``parallel.sharding.MeshOps``) makes a body a rank's
 part of a sharded step: the forward reads the sharded leaves that no layer
@@ -33,6 +43,7 @@ import contextlib
 
 import torch
 
+from masters_thesis_tpu_torch.models.common import parameters_as
 from masters_thesis_tpu_torch.ops.fused_seq import (
     fused_train_supported,
     make_train_forward_loss,
@@ -52,18 +63,30 @@ def global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
 
 
+def _compute_dtype(cfg, device) -> torch.dtype:
+    """The training forward's dtype: bf16 for ``tpu.compute_dtype:
+    bfloat16`` on a CUDA device, else fp32, as the JAX ``_compute_dtype``
+    gives bf16 only on its accelerator (``train/steps.py:28-34``)."""
+    name = getattr(getattr(cfg, "tpu", None), "compute_dtype", "float32")
+    if name == "bfloat16" and torch.device(device).type == "cuda":
+        return torch.bfloat16
+    return torch.float32
+
+
 def _forward_loss(model, cfg, l2_rules, betas, tokens, target, mask,
-                  generator):
-    """Training forward and loss -> (total, metrics). The compute is fp32: a
-    bf16 store's rows are widened here, as JAX promotes them against fp32
-    parameters."""
-    betas = betas.float()
-    a0 = torch.zeros(betas.shape[0], cfg.units, device=betas.device)
-    logits, alphas = model(betas, tokens.long(), a0, a0, training=True,
-                           generator=generator)
-    cce = caption_loss(logits, target, mask)
+                  generator, cdt=torch.float32):
+    """Training forward and loss -> (total, metrics), the forward in
+    ``cdt`` (the module docstring). At fp32 a bf16 store's rows are widened
+    here, as JAX promotes them against fp32 parameters."""
+    betas = betas.to(cdt)
+    a0 = torch.zeros(betas.shape[0], cfg.units, dtype=betas.dtype,
+                     device=betas.device)
+    with parameters_as(model, cdt):
+        logits, alphas = model(betas, tokens.long(), a0, a0, training=True,
+                               generator=generator)
+    cce = caption_loss(logits.float(), target, mask)
     l2 = l2_loss(model, l2_rules)
-    attn = attention_loss(alphas)
+    attn = attention_loss(alphas.float())
     total = cce + l2
     if cfg.attn_loss:
         total = total + attn
@@ -77,22 +100,24 @@ def _step_body(cfg, l2_rules, masked: bool, mesh=None):
     """``one(state, betas, tokens, target) -> (state, metrics)``: one
     optimisation step, SAM's two passes when ``cfg.sam_rho`` > 0; a rank's
     part of the sharded step with ``mesh``."""
-    routes = {}     # model -> its forward and loss, built on first use
+    routes = {}     # (model, dtype) -> its forward and loss, on first use
     norm = global_norm if mesh is None else mesh.global_norm
 
-    def forward_loss(model):
-        if model not in routes:
+    def forward_loss(model, cdt):
+        if (model, cdt) not in routes:
             if cfg.tpu.fused_seq and fused_train_supported(model, cfg):
-                routes[model] = make_train_forward_loss(model, cfg, l2_rules)
+                routes[model, cdt] = make_train_forward_loss(
+                    model, cfg, l2_rules, cdt)
             else:
-                routes[model] = lambda *batch, key: _forward_loss(
-                    model, cfg, l2_rules, *batch)
-        return routes[model]
+                routes[model, cdt] = lambda *batch, key: _forward_loss(
+                    model, cfg, l2_rules, *batch, cdt)
+        return routes[model, cdt]
 
     def loss_and_grads(state, params, betas, tokens, target, mask):
+        cdt = _compute_dtype(cfg, betas.device)
         with (contextlib.nullcontext() if mesh is None
               else mesh.gathered(state.model)):
-            total, metrics = forward_loss(state.model)(
+            total, metrics = forward_loss(state.model, cdt)(
                 betas, tokens, target, mask, state.dropout_generator(),
                 key=state.dropout_key())
             grads = torch.autograd.grad(total, params)
@@ -236,7 +261,8 @@ def make_grad_stats_fn(cfg, l2_rules, masked: bool = False):
         mask = (target != 0) if masked else None
         try:
             total, _ = _forward_loss(model, cfg, l2_rules, betas, tokens,
-                                     target, mask, state.dropout_generator())
+                                     target, mask, state.dropout_generator(),
+                                     _compute_dtype(cfg, betas.device))
             grads = torch.autograd.grad(total, params)
         finally:
             with torch.no_grad():

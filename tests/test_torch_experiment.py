@@ -170,8 +170,10 @@ def test_run_directory_matches_the_jax_run(runs):
         assert len(got) == 2, kind
     meta = json.loads((Path(p) / "run_meta.json").read_text())
     jmeta = json.loads((Path(jb) / "run_meta.json").read_text())
-    # the port also records tpu.prng_impl, which changes nothing there
-    assert set(meta) - set(jmeta) == {"prng_impl"}
+    # the port also records tpu.prng_impl, which changes nothing there, and
+    # the training forward's dtype
+    assert set(meta) - set(jmeta) == {"prng_impl", "compute_dtype"}
+    assert meta["compute_dtype"] == "float32"
     assert set(jmeta) - set(meta) == set()
     assert meta["input_row_shape"] == jmeta["input_row_shape"]
     assert meta["backend"] == "cpu"
@@ -409,21 +411,56 @@ def _captioner_decoder(tmp_path, decoder):
     return run
 
 
-REFUSALS = {
-    "bf16 params": (lambda t: lambda: _train(t, param_dtype="bfloat16"),
-                    "M16"),
-    "bf16 compute": (lambda t: lambda: _train(t, compute_dtype="bfloat16"),
-                     "M16"),
-    "remat": (lambda t: lambda: _train(t, remat=True), "M15"),
+# knobs -> the dtype run_meta.json records; "bf16 on the card" forces the
+# card's rule (bf16 wherever compute_dtype asks for it) on the CPU
+PRECISION_RUNS = {
+    "bf16 params": (dict(param_dtype="bfloat16"), "float32"),
+    "bf16 compute": (dict(compute_dtype="bfloat16"), "float32"),
+    "bf16 on the card": (dict(compute_dtype="bfloat16"), "bfloat16"),
+    "remat": (dict(remat=True), "float32"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_unported_parts_refuse_naming_their_roadmap_item(case, tmp_path):
-    make, item = REFUSALS[case]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\b"):
-        make(tmp_path)()
-    assert not list(tmp_path.rglob("run_meta.json"))
+@pytest.mark.parametrize("case", sorted(PRECISION_RUNS))
+def test_precision_and_remat_knobs_train_end_to_end(case, tmp_path,
+                                                    monkeypatch):
+    """``tpu.param_dtype``, ``tpu.compute_dtype: bfloat16`` and
+    ``tpu.remat`` train through ``run_training``: one epoch with finite
+    losses, the chosen forward dtype in ``run_meta.json`` (fp32 on the CPU,
+    the JAX package's rule off its accelerator) and fp32 parameters in the
+    checkpoint."""
+    from masters_thesis_tpu_torch.train import steps
+
+    knobs, dtype = PRECISION_RUNS[case]
+    if case == "bf16 on the card":
+        monkeypatch.setattr(
+            steps, "_compute_dtype",
+            lambda cfg, device: (torch.bfloat16
+                                 if cfg.tpu.compute_dtype == "bfloat16"
+                                 else torch.float32))
+    _train(tmp_path, **knobs)
+    (meta,) = tmp_path.rglob("run_meta.json")
+    assert json.loads(meta.read_text())["compute_dtype"] == dtype
+    (metrics,) = tmp_path.rglob("metrics.jsonl")
+    losses = [r["loss"] for r in map(json.loads,
+                                     metrics.read_text().splitlines())
+              if "loss" in r]
+    assert losses and np.all(np.isfinite(losses))
+    (state,) = tmp_path.rglob("state.pt")
+    params = torch.load(state, weights_only=False)
+    floats = [t for t in _tensors(params) if t.is_floating_point()]
+    assert floats and all(t.dtype == torch.float32 for t in floats)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _glove_run(tmp_path):

@@ -10,7 +10,8 @@ tensors against the CPU; the store row gather (K1) at small and flagship
 widths and through three train steps; the teacher-forced sequence forward
 (K4) at odd and flagship widths, through the custom backward, and against
 K2 on K2's own words, and with every tile of its tile kernel forced at
-shapes that cross the tiles' edges. A CUDA kernel has no CPU mode, so every
+shapes that cross the tiles' edges; and K4's bf16-weight variant at every
+K4 shape, step by step, and through the bf16 sequence's backward. A CUDA kernel has no CPU mode, so every
 test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -956,3 +957,107 @@ def test_probe_entry_point_on_the_card(cuda):
     assert result["exact"] and result["exact_launches"] == 1
     for line in result["variants"][1:]:
         assert line["launches"] >= 2 * 3, line
+
+
+# ---- the bf16-weight K4 (the TPU kernel at compute dtype bf16) ----
+
+# each step on the kernel's own carries: fp32 sums in another order (~1e-5),
+# and now and then a rounding to bf16 that the last bit of an input flips,
+# which moves the input by 2^-8 of itself and a whole row of z with it: at
+# most BF16_FLIP_ROWS of a residual's (t, b) rows beyond BF16_STEP_ATOL, no
+# entry beyond BF16_SEQ_ATOL (as chip_smoke.py)
+BF16_STEP_ATOL, BF16_FLIP_ROWS, BF16_SEQ_ATOL = 1e-4, 0.02, 1e-2
+
+
+def _bf16_weights(inputs):
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    return tuple(t.to(torch.bfloat16) if k in fused_seq.BF16_ARGS else t
+                 for k, t in zip(fused_seq.SEQ_ARGS, inputs))
+
+
+@pytest.mark.parametrize("shape", list(SEQ_SHAPES))
+def test_bf16_seq_kernel_matches_plain_version_step_by_step(cuda, shape):
+    """The bf16-weight K4 at every shape of the fp32 one: each step against
+    the plain version started from the kernel's carries, within 1e-4 but
+    for the few rows a flipped bf16 rounding moves; the
+    whole sequence no farther from the plain version than the fp32 plain
+    version is (the recurrence's rounding of h makes their last-bit
+    differences bf16 ones); launches counted apart from the fp32 K4's."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    B, R, A, D, E, U, T = SEQ_SHAPES[shape]
+    inputs = _seq_inputs(cuda, B, R, A, D, E, U, T)
+    half = _bf16_weights(inputs)
+    before = (fused_seq.fused_seq_forward.launches,
+              fused_seq.fused_seq_forward.launches_bf16)
+    got = fused_seq.fused_seq_forward(*half, 0.2)
+    torch.cuda.synchronize()
+    assert (fused_seq.fused_seq_forward.launches,
+            fused_seq.fused_seq_forward.launches_bf16) == (
+        before[0], before[1] + 1)
+    stepped = fused_seq.fused_seq_forward_reference(
+        *half, 0.2, carries=(got[0], got[1]))
+    free = fused_seq.fused_seq_forward_reference(*half, 0.2)
+    fp32 = fused_seq.fused_seq_forward_reference(*inputs, 0.2)
+    for name, g, s, f, w in zip(("hseq", "cseq", "alphas", "zs", "hwps"),
+                                got, stepped, free, fp32):
+        assert g.shape == s.shape and g.dtype == torch.float32, name
+        off = (g - s).abs()
+        assert float(off.max()) <= BF16_SEQ_ATOL, name
+        assert float((off > BF16_STEP_ATOL).any(-1).float().mean()) <= (
+            BF16_FLIP_ROWS), name
+        assert float((g - f).abs().max()) <= float((w - f).abs().max()), name
+
+
+def test_bf16_seq_kernel_refuses_mixed_weight_dtypes(cuda):
+    """W2, Wx and Wh all in bf16, or all in fp32, and the rest in fp32:
+    anything else raises before a launch; the bf16 kernel takes no plans."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    inputs = _seq_inputs(cuda, *SEQ_SHAPES["small-odd"])
+    half = list(_bf16_weights(inputs))
+    before = fused_seq.fused_seq_forward.launches_bf16
+    for i, k in enumerate(fused_seq.SEQ_ARGS):
+        bad = list(half)
+        bad[i] = (bad[i].float() if k in fused_seq.BF16_ARGS
+                  else bad[i].to(torch.bfloat16))
+        with pytest.raises(ValueError, match="float32, or w2, wx and wh"):
+            fused_seq.fused_seq_forward(*bad, 0.2)
+    with pytest.raises(ValueError, match="no tile plans"):
+        fused_seq._launch(tuple(half), 0.2, fused_seq.seq_plans(inputs))
+    assert fused_seq.fused_seq_forward.launches_bf16 == before
+
+
+def test_bf16_sequence_through_the_kernel_matches_the_scan_forward(cuda):
+    """``make_fused_sequence(backend="kernel", compute_dtype=bf16)`` on the
+    card: the bf16 K4 forward and the custom backward; its gradients
+    against those of the same sequence with the plain version's forward
+    (each gradient within 1e-2 of max(1, the leaf's largest entry): the
+    two forwards' residuals differ by bf16 roundings)."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    inputs = _seq_inputs(cuda, *SEQ_SHAPES["small-odd"])
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        w = dict(zip(fused_seq.W_KEYS, leaves[3:]))
+        seq = fused_seq.make_fused_sequence(0.2, "kernel",
+                                            compute_dtype=torch.bfloat16)
+        before = fused_seq.fused_seq_forward.launches_bf16
+        if plain:
+            real = fused_seq.plain_or_kernel
+            fused_seq.plain_or_kernel = lambda name, args: True
+        try:
+            hseq, alphas = seq(w, *leaves[:3])
+        finally:
+            if plain:
+                fused_seq.plain_or_kernel = real
+        assert fused_seq.fused_seq_forward.launches_bf16 == before + (
+            not plain)
+        grads.append(torch.autograd.grad(
+            hseq.square().sum() + alphas.sum(), leaves))
+    for g, want in zip(*grads):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        scale = max(1.0, float(want.abs().max()))
+        assert float((g - want).abs().max()) <= 1e-2 * scale

@@ -342,3 +342,55 @@ def padded_vocab_run(root: str, mesh_data: str, mesh_model: str) -> dict:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+
+
+def remat_step(compute_dtype: str) -> dict:
+    """One sharded train step of a tiny LcNIC with every dropout on, on a
+    1 x world mesh (vocab- and voxel-sharded, masks from ``batch_rand``),
+    with and without ``tpu.remat``, from the same initial state: each
+    loss, the largest difference of the whole updated parameters, and the
+    dropout-off loss. ``compute_dtype`` "bfloat16" forces the forward into
+    bf16 as on the card."""
+    from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
+    from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+    from masters_thesis_tpu_torch.parallel import sharding
+    from masters_thesis_tpu_torch.parallel.mesh import make_mesh
+    from masters_thesis_tpu_torch.train import steps
+    from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
+    from masters_thesis_tpu_torch.train.state import model_for, new_state
+
+    cdt = getattr(torch, compute_dtype)
+    steps._compute_dtype = lambda cfg, device: cdt
+    world = torch.distributed.get_world_size()
+    layout = GroupLayout(synthetic_groups(n_voxels=256, n_groups=8, seed=0),
+                         256)
+    rng = np.random.default_rng(0)
+    betas = torch.as_tensor(rng.standard_normal((8, 256)).astype(np.float32))
+    tokens = torch.as_tensor(rng.integers(1, 64, (8, 6)).astype(np.int32))
+    target = torch.roll(tokens, -1, 1)
+    runs = {}
+    for name, remat, rate in (("plain", False, 0.3), ("remat", True, 0.3),
+                              ("off", False, 0.0)):
+        cfg = _tiny_cfg(dropout_features=rate, dropout_text=rate,
+                        dropout_attn=rate, dropout_lstm=rate,
+                        dropout_out=rate, dropout_input=rate)
+        cfg.tpu.remat = remat
+        mesh = make_mesh(1, world, "cpu")
+        state = sharding.shard_params(
+            new_state(model_for(cfg, layout), cfg, "cpu"), mesh)
+        placer = sharding.MeshInputPlacer(mesh, cfg.batch_size, state,
+                                          layout)
+        rows = torch.as_tensor(placer.rows)
+        x = betas
+        if sharding.encoder_voxel_sharded(state.model, state.shards):
+            x = sharding.shard_store_array(betas, layout, mesh)
+        step = sharding.make_sharded_train_step(cfg, lc_nic_l2_rules(cfg),
+                                                state, placer)
+        state, metrics = step(state, x[rows], tokens[rows], target[rows])
+        runs[name] = (float(metrics["loss"]),
+                      sharding.gather_state_dict(state))
+    plain, remat = runs["plain"][1], runs["remat"][1]
+    return {name: loss for name, (loss, _) in runs.items()} | {
+        "max_param_diff": max(float((plain[k] - remat[k]).abs().max())
+                              for k in plain),
+        "dtypes": sorted({str(v.dtype) for v in remat.values()})}
