@@ -31,8 +31,11 @@ width of its model or at its probe's own sizes:
   against autograd, times K4, its plain version and a decoder fwd+bwd three
   ways (autograd, the custom backward with the scan forward, with K4) at
   the flagship and at the wide shape of ``scripts/fused_seq_probe.py``
-  (with a K4 check there too), holds three ``tpu.fused_seq`` train steps
-  against the autograd steps, and trains one epoch with ``tpu.fused_seq``;
+  (with a K4 check there too), takes the bf16-weight K4's device time a
+  step by part (h W2, attention, the cell) at both shapes by
+  ``torch.profiler``, with the cell's TFLOP/s, holds three
+  ``tpu.fused_seq`` train steps against the autograd steps, and trains one
+  epoch with ``tpu.fused_seq``;
 - the gather probe (``masters_thesis_tpu_torch.scripts.gather_probe``, the
   port of ``scripts/gather_probe.py``) on its 1,024 x 327,684 fp32 store
   (1.34 GB): holds P1 (``gather_rows_chunked``) at its four chunks and P2
@@ -157,7 +160,9 @@ width of its model or at its probe's own sizes:
   without remat at units 2,048, batch 256 in both dtypes; the bf16-weight
   K4 against its plain version at the flagship and the wide shape (step by
   step on the kernel's carries, and the whole sequence no farther than the
-  fp32 plain version), timed beside the fp32 K4 in alternate turns; then, its count set to 0, the bf16 sequence's forward
+  fp32 plain version), timed beside the fp32 K4 in alternate turns (its
+  device time a step by part is taken in the fused-sequence phase); then,
+  its count set to 0, the bf16 sequence's forward
   and custom backward through ``make_fused_sequence(backend="kernel",
   compute_dtype=bfloat16)``, which must launch it.
 
@@ -195,6 +200,8 @@ version, both times, the least time the card could take for the same work
 where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
 K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
+the bf16-weight K4's holds its device time a step by part under
+``us_a_step`` and the cell's rate under ``cell_tflops`` at both shapes,
 and P3's holds its and ``index_select``'s times in turns under ``turns``;
 K1's holds, for the training store and each ingest and sweep run's store,
 its and ``index_select``'s device, host and event times under ``stores``,
@@ -659,16 +666,20 @@ STEP_PARTS = {
             ("head", ("argmax_embed_kernel",))),
     "seq": (_HW, _ATTN,
             ("cell (tile)", ("tile_kernel<4,", "tile_kernel_tma<4,"))),
+    "seq_bf16": (("h W2 (mma)", ("mma_tile_kernel<1,",)), _ATTN,
+                 ("cell (mma)", ("mma_tile_kernel<4,", "wgmma_cell_kernel"))),
 }
 
 
-def step_split(fn, what: str, steps: int, parts, card: str) -> None:
+def step_split(fn, what: str, steps: int, parts, card: str) -> dict:
     """Device time of one call of ``fn`` (a decode kernel's whole run of
     ``steps`` steps) by ``torch.profiler``, split by the part of a step
     each kernel does, in us a step. The call's kernels, in the order they
     ran, are matched to ``steps`` runs of ``parts`` (``STEP_PARTS``), each
     to the next part whose name it has, so that a kernel the profile lost
-    shifts no other; the count of such kernels is printed."""
+    shifts no other; the count of such kernels is printed. Returns the us
+    a step of each part, None for a part none of whose kernels the profile
+    kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -700,6 +711,8 @@ def step_split(fn, what: str, steps: int, parts, card: str) -> None:
           + f"; {total / steps:.2f} us a step in all"
           + (f" ({lost} of {steps * len(parts)} kernels not in the profile)"
              if lost else "") + f" [{card}]")
+    return {name: us / steps if n else None
+            for name, (us, n) in split.items()}
 
 
 # ---- CnnRnn serving ----
@@ -1292,8 +1305,12 @@ def fused_seq(data, device, card: str, with_profile: bool) -> dict:
     T, V = WIDTHS["max_length"], WIDTHS["vocab_size"]
     betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
     tokens = torch.randint(1, V, (BATCH, T), generator=gen, device=device)
-    k4 = check_seq_kernel(seq_inputs(model, betas, tokens), slope, card,
-                          "K4 (flagship)", with_profile)
+    inputs = seq_inputs(model, betas, tokens)
+    k4 = check_seq_kernel(inputs, slope, card, "K4 (flagship)",
+                          with_profile)
+    bf16_parts = {"flagship": split_seq_bf16(inputs, slope, card,
+                                             "bf16 K4 (flagship)")}
+    del inputs
     fs.fused_seq_forward.launches = 0
     check_seq_gradients(model, betas, tokens, card)
     launches = fs.fused_seq_forward.launches
@@ -1315,8 +1332,12 @@ def fused_seq(data, device, card: str, with_profile: bool) -> dict:
                              (batch, widths["max_length"]), generator=gen,
                              device=device)
         if check:
-            wide = check_seq_kernel(seq_inputs(dec, features, toks), slope,
-                                    card, f"K4 ({label})", with_profile)
+            inputs = seq_inputs(dec, features, toks)
+            wide = check_seq_kernel(inputs, slope, card, f"K4 ({label})",
+                                    with_profile)
+            bf16_parts["wide"] = split_seq_bf16(inputs, slope, card,
+                                                f"bf16 K4 ({label})")
+            del inputs
             k4["wide"] = {"shape": f"B {batch}, U {widths['units']}, A "
                           f"{widths['attn_units']}, D {widths['group_size']}"
                           f", E {widths['embedding_text']}, R {N_GROUPS}, T "
@@ -1347,7 +1368,7 @@ def fused_seq(data, device, card: str, with_profile: bool) -> dict:
           f"(epoch {logs['epoch_time']:.2f} s with validation) [{card}]")
     time_steps(cfg, state, trainer, train_pipe, device, card,
                "tpu.fused_seq train step", with_profile)
-    return {"launches": launches, **k4}
+    return {"launches": launches, **k4, "bf16_parts": bf16_parts}
 
 
 # ---- the gather probe (P1, P2, P3) ----
@@ -3925,6 +3946,31 @@ def check_seq_kernel_bf16(inputs, attn_slope: float, card: str,
             "fp32_ms": fp32_ms}
 
 
+@torch.inference_mode()
+def split_seq_bf16(inputs, attn_slope: float, card: str, label: str) -> dict:
+    """The bf16-weight K4's tensor-core products on their own: its device
+    time a step by part (h W2, attention, the cell) by ``torch.profiler``
+    on ``inputs`` (fp32; W2, Wx and Wh cast to bf16), and the cell's
+    TFLOP/s at its 2 B (D + E + U) 4U operations a step; None where the
+    profile kept no kernel of a part. The fused-sequence phase takes it:
+    late in a run the profiler has kept none of a call's kernels."""
+    from masters_thesis_tpu_torch.ops import fused_seq as fs
+
+    half = tuple(t.to(torch.bfloat16) if k in fs.BF16_ARGS else t
+                 for k, t in zip(fs.SEQ_ARGS, inputs))
+    B, T, E = half[2].shape
+    D, U = half[1].shape[2], half[3].shape[0]
+    split = step_split(lambda: fs.fused_seq_forward(*half, attn_slope),
+                       label, T, STEP_PARTS["seq_bf16"], card)
+    cell = split["cell (mma)"]
+    tflops = None if cell is None else 2 * B * (D + E + U) * 4 * U / cell / 1e6
+    print(f"{label}: the cell's launches "
+          + ("not measured (not in the profile)" if cell is None else
+             f"{cell:.2f} us a step by torch.profiler, {tflops:.1f} TFLOP/s "
+             f"of the 989 dense bf16") + f" [{card}]")
+    return {"us_a_step": split, "cell_tflops": tflops}
+
+
 def precision(device, card: str) -> dict:
     """The precision phase: ``precision_runs``, ``wide_memory``, the
     bf16-weight K4 against its plain version at the flagship and the wide
@@ -4077,6 +4123,7 @@ def main(argv=None) -> int:
 
     k1, train_data = train(device, card, args.profile)
     k4 = fused_seq(train_data, device, card, args.profile)
+    bf16_parts = k4.pop("bf16_parts")
     probes = gather_probe(train_data, device, card)
     del train_data
     release()
@@ -4093,6 +4140,7 @@ def main(argv=None) -> int:
     par = parallel(tok, device, card)
     release()
     prec = precision(device, card)
+    prec["K4"]["wide"].update(bf16_parts["wide"])
     release()
     k1["max_abs_err"] = max(k1["max_abs_err"], par["K1"]["max_abs_err"])
     k1["stores"] += par["K1"]["stores"]
@@ -4140,7 +4188,7 @@ def main(argv=None) -> int:
         "name": "fused_seq_forward_bf16", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204",
-        **prec["K4"]},
+        **prec["K4"], **bf16_parts["flagship"]},
         *probes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

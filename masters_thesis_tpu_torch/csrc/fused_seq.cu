@@ -50,8 +50,8 @@
 // cell on the same tiles with the same plans, so K4 on K2's words gives
 // K2's alphas. The attention's width is limited by its shared memory
 // (A + R + 288 floats); one that cannot fit fails in
-// cudaFuncSetAttribute. Tensor cores (wgmma, with bf16 or TF32 weights) and
-// a CUDA graph are later work.
+// cudaFuncSetAttribute. Tensor cores for fp32 weights (TF32 would change
+// its numbers) and a CUDA graph are later work.
 //
 // All math is fp32 with fp32 accumulation. The Python wrapper passes outputs
 // and scratch. Each launch is checked with cudaGetLastError, and the entry
@@ -63,20 +63,70 @@
 // and Wh are read as bf16, h and [ctx ; emb_t] are rounded to bf16 (round to
 // nearest even, as torch's .to(bfloat16)) before the products, and every
 // product is summed in fp32; b2, v, bv, b, ctx, the carries and every output
-// stay fp32. Its bound: the flagship forward reads its bf16 weights once
-// (~4.4 MB) beside the same fp32 activations as the fp32 kernel (~26 MB all
-// told, ~8 us at 3.35 TB/s) and does ~2.1 G multiply-adds (~4.3 us at the
-// card's 989 TFLOP/s dense bf16 tensor-core peak, NVIDIA's H100 SXM data
-// sheet), so bytes bound it. The design is the simple one: a step is
-// bfloat_rows_kernel for h W2, the same attention_kernel as the fp32 kernel's,
-// and bfloat_rows_kernel for the LSTM cell. A block of 256 threads owns 8 or
-// 32 batch rows (8 up to B 128, so that the flagship's 64 rows still make
-// 128 blocks of the cell) x 32 output units (x 4 gates for the cell); the
-// rounded rows and the weights, widened to fp32, pass through shared memory
-// 32 reduction rows at a time, and each thread sums 1 or 4 rows x its unit's
-// gates in fp32 on the CUDA cores and forms the cell in registers. The fp32 kernels
-// above (the tile kernel's instantiations) are untouched. wgmma and TMA for
-// bf16 are later work.
+// stay fp32.
+//
+// What bounds it. Counting each input byte once, the flagship forward reads
+// its bf16 weights (~4.4 MB) beside the fp32 activations (~26 MB all told,
+// ~8 us at 3.35 TB/s) and does ~2.1 G multiply-adds (~4.3 us at the card's
+// 989 TFLOP/s dense bf16 tensor-core peak, NVIDIA's H100 SXM data sheet), so
+// bytes bound it; the wide forward's 103 G multiply-adds (~0.21 ms) bound
+// it by operations. A step's cell is the one large product: at the wide
+// shape 13.4 GFLOP over 52.4 MB of Wx and Wh (more than the 50 MB L2 with
+// everything else a step touches); at flagship 0.28 GFLOP over 4.3 MB. The
+// steps are sequential, so at flagship the attention, L2 latency and launch
+// gaps set the pace, as for the fp32 kernel.
+//
+// What the design does about it. A step is three launches on the caller's
+// stream, with no host synchronisation: h W2 (mma_tile_kernel<1>), the
+// same attention_kernel as the fp32 kernel's, and the cell (wgmma_cell_kernel
+// at the wide shape, else mma_tile_kernel<4>). Every product runs on the
+// bf16 tensor cores with fp32 sums, and the weights stay bf16 from HBM to
+// the tensor cores: no widened copy, no per-element conversion. Each input
+// is rounded once a step where it is staged: h by the cell that makes it
+// (its epilogue writes h' twice, fp32 to hseq and bf16 to a (2, B, U)
+// ping-pong scratch that the next step's h W2 and cell read), emb once a
+// call by the wrapper into its time-major bf16 copy, and ctx, fp32 out of
+// the attention, as the cell stages it. Every gate of a (row, unit) lands
+// in one thread's accumulators, so the cell runs in registers, as the fp32
+// tile kernel's G = 4 epilogue does.
+//   - wgmma_cell_kernel, the cell of batches above 128 rows whose segment
+//     widths are multiples of 64 (ops/fused_seq.py's wgmma_cell): a block
+//     of 128 rows x 32 units (x 4 gates), two warpgroups each issuing
+//     wgmma.m64n128k16 on 64 rows, K in 64-k chunks through a ring of six
+//     stages that thread 0 fills by TMA in 128-byte swizzle, the layout
+//     wgmma reads, each stage completing on its mbarrier; one chunk's
+//     products stay in flight while the next chunk lands. x comes from
+//     maps of emb and the h scratch, W from a K-major (4U, K) copy of
+//     [Wx ; Wh] that the wrapper makes once a call (a block's four gate
+//     slices of a row of the row-major (K, 4U) W are 64-byte pieces, too
+//     narrow for the 128-byte swizzle; the copy makes each gate's 32 units
+//     x 64 k one box row), ctx is rounded and swizzled into the first
+//     stages by every thread. The
+//     wide cell's grid is 64 x 2 blocks, so its weights stream from HBM at
+//     most twice a step (the two row tiles of a column tile run side by
+//     side and share them through L2).
+//   - mma_tile_kernel, every other product: mma.sync.m16n8k16, operands
+//     loaded by ldmatrix (.trans for the row-major (K, G N) weights) from a
+//     ring of bf16 stages filled by cp.async, by 16-byte copies where every
+//     segment width, N and the bases allow them, else element by element
+//     (rows past B, units past N and K past its end zero-filled). A warp's
+//     n-tiles are the same 8 units of each of the G gates. The cell takes
+//     32 rows x 8 units, its K split over 8 warps, a k16 slice each per
+//     128-k chunk; the warps' sums meet in shared memory, where every
+//     thread of the block adds up one (row, unit)'s in warp order (a fixed
+//     order) and applies the cell, so that its transcendentals are spread
+//     over the block: the flagship's cell is a grid of 64 x 2 = 128
+//     blocks, each streaming 1/64 of the weights. h W2 (N = A) takes 16
+//     rows x 8 columns (B <= 128) or 32 x 16, K split the same way.
+// The fp32 kernels above (the tile kernel's instantiations and
+// attention_kernel) are untouched.
+//
+// What still bounds it. The wide cell's 128 x 128 block tiles read their
+// rows of x and their columns of W through L2, x 64 times and W twice:
+// ~210 MB a step for 13.4 GFLOP. TMA multicast across a cluster's blocks
+// (one L2 read for several tiles) would cut that. At flagship the step is
+// latency: the attention, L2 round trips and launch gaps, for which a
+// persistent kernel or a CUDA graph is later work.
 
 #include <cuda_bf16.h>
 
@@ -85,131 +135,579 @@
 
 namespace {
 
-constexpr int kBfUnits = 32;    // output units a block (one per lane)
-constexpr int kBfK = 32;        // reduction rows a stage
-constexpr int kBfThreads = 256; // 8 warps, each kRowsPer of the block's rows
-constexpr int kBfWarps = kBfThreads / kBfUnits;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// A bf16 tensor-core product's operands: x = [in0 | in1 | in2] (widths k0,
+// k1, k2; in0 fp32, rounded to bf16 as it is staged; in1 and in2 bf16),
+// rows contiguous, against W = [wa ; wb] bf16, W's rows [0, ka) in wa and
+// [ka, K) in wb, each of G N columns (gate g of unit n at column g N + n).
+struct MmaArgs {
+  const float* in0;
+  const bf16* in1;
+  const bf16* in2;
+  int k0, k1, k2;
+  const bf16* wa;
+  const bf16* wb;
+  int ka;
+  const float* bias;   // (G N,)
+  int B, N;
+  float* out;          // (B, N): the dense product, or the cell's h'
+  bf16* h_out;         // (B, N), LSTM: h' rounded to bf16
+  float* c_out;        // (B, N), LSTM
+  const float* c_in;   // (B, N), LSTM
+  float* z_out;        // (B, 4N), LSTM
+  int feed;            // kFeedX16 | kFeedW16: 16-byte copies (mma_launch)
+};
+
+__device__ __forceinline__ void cp_async16_any(void* dst, const void* src,
+                                               int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
 }
 
-// out = round(x) W + bias for the rows of x = [x0 | x1 | x2] (widths k0, k1,
-// k2, row-major, rows contiguous) against W = [w0 ; w1] bf16 ((k0 + k1, G N)
-// and (k2, G N); w1 may be null when k2 is 0), G = 4 gates [i | f | g | o]
-// of N units for the LSTM cell (kLstm), G = 1 for a dense product; a block
-// owns 8 x kRowsPer rows. The cell writes z, the new c (from c_prev) and h;
-// the dense product writes out.
-template <bool kLstm, int kRowsPer>
-__global__ void __launch_bounds__(kBfThreads) bfloat_rows_kernel(
-    const float* __restrict__ x0, const float* __restrict__ x1,
-    const float* __restrict__ x2, int k0, int k1, int k2,
-    const __nv_bfloat16* __restrict__ w0,
-    const __nv_bfloat16* __restrict__ w1, const float* __restrict__ bias,
-    int B, int N, const float* __restrict__ c_prev, float* __restrict__ out,
-    float* __restrict__ c_out, float* __restrict__ h_out) {
-  constexpr int G = kLstm ? 4 : 1;
-  constexpr int kBfRows = kBfWarps * kRowsPer;
-  __shared__ float sx[kBfRows][kBfK + 1];
-  __shared__ float sw[kBfK][G][kBfUnits];
-  const int lane = threadIdx.x % kBfUnits;
-  const int group = threadIdx.x / kBfUnits;
-  const int row0 = blockIdx.y * kBfRows;
-  const int unit0 = blockIdx.x * kBfUnits;
-  const int K = k0 + k1 + k2;
-  const int cols = G * N;
-
-  float acc[kRowsPer][G];
-#pragma unroll
-  for (int r = 0; r < kRowsPer; ++r)
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[r][g] = 0.f;
-
-  for (int kb = 0; kb < K; kb += kBfK) {
-    // the rounded inputs: the block's rows x 32 reduction rows
-    for (int e = threadIdx.x; e < kBfRows * kBfK; e += kBfThreads) {
-      const int r = e / kBfK, kk = e % kBfK, k = kb + kk, row = row0 + r;
-      float v = 0.f;
-      if (row < B && k < K) {
-        v = k < k0 ? x0[(size_t)row * k0 + k]
-            : k < k0 + k1 ? x1[(size_t)row * k1 + (k - k0)]
-                          : x2[(size_t)row * k2 + (k - k0 - k1)];
-      }
-      sx[r][kk] = round_bf16(v);
-    }
-    // the weights, widened: 32 reduction rows x G gates x 32 units
-    for (int e = threadIdx.x; e < kBfK * G * kBfUnits; e += kBfThreads) {
-      const int j = e % kBfUnits, g = (e / kBfUnits) % G,
-                kk = e / (kBfUnits * G), k = kb + kk, unit = unit0 + j;
-      float v = 0.f;
-      if (k < K && unit < N) {
-        const size_t col = (size_t)g * N + unit;
-        v = __bfloat162float(k < k0 + k1 ? w0[(size_t)k * cols + col]
-                                         : w1[(size_t)(k - k0 - k1) * cols +
-                                              col]);
-      }
-      sw[kk][g][j] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBfK; ++kk) {
-      float w[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) w[g] = sw[kk][g][lane];
-#pragma unroll
-      for (int r = 0; r < kRowsPer; ++r) {
-        const float xv = sx[group * kRowsPer + r][kk];
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[r][g] = fmaf(xv, w[g], acc[r][g]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int unit = unit0 + lane;
-  if (unit >= N) return;
-#pragma unroll
-  for (int r = 0; r < kRowsPer; ++r) {
-    const int row = row0 + group * kRowsPer + r;
-    if (row >= B) continue;
-    if constexpr (kLstm) {
-      float z[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        z[g] = acc[r][g] + bias[g * N + unit];
-        out[(size_t)row * cols + g * N + unit] = z[g];
-      }
-      const size_t at = (size_t)row * N + unit;
-      const float c = sigmoid(z[1]) * c_prev[at] + sigmoid(z[0]) * tanhf(z[2]);
-      c_out[at] = c;
-      h_out[at] = sigmoid(z[3]) * tanhf(c);
-    } else {
-      out[(size_t)row * N + unit] = acc[r][0] + bias[unit];
-    }
-  }
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-// bfloat_rows_kernel on B rows and N units: 8 rows a block up to B 128,
-// else 32.
-template <bool kLstm>
-cudaError_t launch_bfloat_rows(
-    const float* x0, const float* x1, const float* x2, int k0, int k1, int k2,
-    const __nv_bfloat16* w0, const __nv_bfloat16* w1, const float* bias,
-    int B, int N, const float* c_prev, float* out, float* c_out,
-    float* h_out, cudaStream_t stream) {
-  const int units = (N + kBfUnits - 1) / kBfUnits;
-  if (B <= 128) {
-    const dim3 grid(units, (B + kBfWarps - 1) / kBfWarps);
-    bfloat_rows_kernel<kLstm, 1><<<grid, kBfThreads, 0, stream>>>(
-        x0, x1, x2, k0, k1, k2, w0, w1, bias, B, N, c_prev, out, c_out,
-        h_out);
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&b0)[2],
+                                              uint32_t (&b1)[2],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&b)[2],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b for one m16n8k16 tile: bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x[m, k] of the bf16 segments (k >= k0)
+__device__ __forceinline__ const bf16* xb_at(const MmaArgs& a, int m,
+                                             int k) {
+  k -= a.k0;
+  if (k < a.k1) return a.in1 + (size_t)m * a.k1 + k;
+  return a.in2 + (size_t)m * a.k2 + (k - a.k1);
+}
+
+// W's row k
+__device__ __forceinline__ const bf16* wb_row(const MmaArgs& a, int k,
+                                              size_t ld) {
+  return k < a.ka ? a.wa + (size_t)k * ld : a.wb + (size_t)(k - a.ka) * ld;
+}
+
+// a stage row of c bf16, padded so that its 16-byte units are odd: the 8
+// rows an ldmatrix reads then fall in 8 different banks
+constexpr int padded(int c) { return (c / 8) % 2 ? c : c + 8; }
+
+// The epilogue of row m and unit n given their G pre-activations z (bias
+// added) and, for the cell, the cell state c: the cell writes z, c', h'
+// and h' rounded to bf16; a dense product writes z.
+template <int G>
+__device__ __forceinline__ void mma_store(const MmaArgs& a, int m, int n,
+                                          const float* z, float c) {
+  const size_t o = (size_t)m * a.N + n;
+  if constexpr (G == 4) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      a.z_out[(size_t)m * 4 * a.N + (size_t)g * a.N + n] = z[g];
+    const float cn = sigmoid(z[1]) * c + sigmoid(z[0]) * tanhf(z[2]);
+    const float h = sigmoid(z[3]) * tanhf(cn);
+    a.c_out[o] = cn;
+    a.out[o] = h;
+    a.h_out[o] = __float2bfloat16_rn(h);
   } else {
-    const dim3 grid(units, (B + 4 * kBfWarps - 1) / (4 * kBfWarps));
-    bfloat_rows_kernel<kLstm, 4><<<grid, kBfThreads, 0, stream>>>(
-        x0, x1, x2, k0, k1, k2, w0, w1, bias, B, N, c_prev, out, c_out,
-        h_out);
+    a.out[o] = z[0];
   }
-  return cudaGetLastError();
+}
+
+// The bf16 tensor-core tile: G gates (4: the LSTM cell, 1: a dense product
+// out = x W + bias), a block of BM = 16 MT rows x BU = 8 NU units of each
+// gate. Each of its KS warps takes the whole tile, MT m16 tiles x NU n8
+// tiles of each gate, on one k16 slice in KS of each chunk of BK k; the
+// warps' sums meet in shared memory and are added in warp order, from warp
+// 0's, before the epilogue. Grid (ceil(N / BU), ceil(B / BM)).
+template <int G, int MT, int NU, int KS, int BK, int STAGES>
+struct MmaTile {
+  static constexpr int kThreads = 32 * KS;
+  static constexpr int BM = 16 * MT, BU = 8 * NU, WC = G * BU;
+  static constexpr int XS = padded(BK), WS = padded(WC);
+  static constexpr int STAGE = BM * XS + BK * WS;      // bf16 a stage
+  static constexpr int ACC = MT * G * NU * 4;          // sums a thread
+  static constexpr size_t kRing = sizeof(bf16) * STAGES * STAGE;
+  static constexpr size_t kRed = sizeof(float) * KS * ACC * 32;
+  static constexpr size_t kSmem = kRing > kRed ? kRing : kRed;
+  static_assert(BK % (16 * KS) == 0 && STAGES >= 2, "tile shape");
+};
+
+template <int G, int MT, int NU, int KS, int BK, int STAGES>
+__global__ void __launch_bounds__(32 * KS)
+mma_tile_kernel(MmaArgs a) {
+  using T = MmaTile<G, MT, NU, KS, BK, STAGES>;
+  constexpr int BM = T::BM, BU = T::BU, WC = T::WC, XS = T::XS, WS = T::WS;
+  constexpr int NT = G * NU;                 // n8 tiles a warp
+  extern __shared__ __align__(16) uint4 mma_sm[];
+  bf16* ring = reinterpret_cast<bf16*>(mma_sm);
+  const int tid = threadIdx.x, lane = tid % 32, ks = tid / 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BU;
+  const int K = a.k0 + a.k1 + a.k2;
+  const int chunks = (K + BK - 1) / BK;
+  const size_t ld = (size_t)G * a.N;
+
+  // chunk c's X (the block's rows, rounded to bf16) and W (its rows of the
+  // G x BU columns of the block's units) into stage c % STAGES
+  auto load = [&](int c) {
+    bf16* xs = ring + (c % STAGES) * T::STAGE;
+    bf16* ws = xs + BM * XS;
+    const int kc = c * BK;
+    if (a.feed & kFeedX16) {
+      for (int i = tid; i < BM * (BK / 8); i += T::kThreads) {
+        const int r = i / (BK / 8), q = i % (BK / 8) * 8;
+        const int m = m0 + r, k = kc + q;
+        bf16* dst = xs + r * XS + q;
+        if (m < a.B && k < a.k0) {           // fp32: rounded here
+          const float4* src =
+              reinterpret_cast<const float4*>(a.in0 + (size_t)m * a.k0 + k);
+          const float4 u = src[0], v = src[1];
+          union {
+            __nv_bfloat162 h[4];
+            uint4 all;
+          } pack;
+          pack.h[0] = __floats2bfloat162_rn(u.x, u.y);
+          pack.h[1] = __floats2bfloat162_rn(u.z, u.w);
+          pack.h[2] = __floats2bfloat162_rn(v.x, v.y);
+          pack.h[3] = __floats2bfloat162_rn(v.z, v.w);
+          *reinterpret_cast<uint4*>(dst) = pack.all;
+        } else {
+          const bool in = m < a.B && k < K;
+          cp_async16_any(dst, in ? xb_at(a, m, k) : a.wa, in ? 16 : 0);
+        }
+      }
+    } else {
+      for (int i = tid; i < BM * BK; i += T::kThreads) {
+        const int r = i / BK, q = i % BK, m = m0 + r, k = kc + q;
+        bf16 v = __float2bfloat16_rn(0.f);
+        if (m < a.B && k < K)
+          v = k < a.k0 ? __float2bfloat16_rn(a.in0[(size_t)m * a.k0 + k])
+                       : *xb_at(a, m, k);
+        xs[r * XS + q] = v;
+      }
+    }
+    if (a.feed & kFeedW16) {
+      for (int i = tid; i < BK * (WC / 8); i += T::kThreads) {
+        const int kr = i / (WC / 8), col = i % (WC / 8) * 8;
+        const int g = col / BU, n = n0 + col % BU, k = kc + kr;
+        const bool in = k < K && n < a.N;
+        cp_async16_any(ws + kr * WS + col,
+                       in ? wb_row(a, k, ld) + (size_t)g * a.N + n : a.wa,
+                       in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < BK * WC; i += T::kThreads) {
+        const int kr = i / WC, col = i % WC;
+        const int g = col / BU, n = n0 + col % BU, k = kc + kr;
+        ws[kr * WS + col] = k < K && n < a.N
+                                ? wb_row(a, k, ld)[(size_t)g * a.N + n]
+                                : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // the stage column of n-tile j: gate j / NU, units 8 (j % NU) on
+  auto tile_col = [&](int j) { return j / NU * BU + j % NU * 8; };
+  // ldmatrix's row and column of this lane: A rows 0-15 at k 0 then 8;
+  // B (.trans) k rows 0-15 of one n-tile, then of the next
+  const int a_row = lane % 16, a_col = lane / 16 * 8;
+  const int b_row = lane % 16, b_tile = lane / 16;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < chunks) load(s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();   // chunk c has landed
+    __syncthreads();               // ... for every thread; chunk c - 1 done
+    if (c + STAGES - 1 < chunks) load(c + STAGES - 1);
+    cp_async_commit();             // (an empty group keeps the count)
+
+    const bf16* xs = ring + (c % STAGES) * T::STAGE;
+    const bf16* ws = ring + (c % STAGES) * T::STAGE + BM * XS;
+#pragma unroll
+    for (int step = 0; step < BK / 16 / KS; ++step) {
+      const int k16 = (step * KS + ks) * 16;
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldsm_x4(af[i], xs + (i * 16 + a_row) * XS + k16 + a_col);
+      uint32_t bfr[NT][2];
+      const bf16* wk = ws + (k16 + b_row) * WS;
+#pragma unroll
+      for (int j = 0; j + 1 < NT; j += 2)
+        ldsm_x4_trans(bfr[j], bfr[j + 1], wk + tile_col(j + b_tile));
+      if constexpr (NT % 2) ldsm_x2_trans(bfr[NT - 1], wk + tile_col(NT - 1));
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // The warps' sums meet in shared memory, (KS, MT, NT, 4, 32); every
+  // thread of the block then takes (row, unit) pairs, adds up their warps'
+  // sums in warp order and applies the epilogue, so that the cell's
+  // transcendentals are spread over the whole block. Accumulator e of an
+  // m16n8 tile is its row lane / 4 (+ 8 for e >= 2) and column
+  // lane % 4 * 2 + e % 2.
+  __syncthreads();                 // the ring is no longer read
+  float* red = reinterpret_cast<float*>(mma_sm);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(((ks * MT + i) * NT + j) * 4 + e) * 32 + lane] = acc[i][j][e];
+  __syncthreads();
+  for (int p = tid; p < 32 * MT * NU * 4; p += T::kThreads) {
+    const int l = p % 32, e = p / 32 % 4, u = p / 128 % NU, i = p / 128 / NU;
+    const int m = m0 + i * 16 + l / 4 + e / 2 * 8;
+    const int n = n0 + u * 8 + l % 4 * 2 + e % 2;
+    if (m >= a.B || n >= a.N) continue;
+    float z[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      z[g] = 0.f;
+      for (int q = 0; q < KS; ++q)
+        z[g] += red[(((q * MT + i) * NT + g * NU + u) * 4 + e) * 32 + l];
+      z[g] += a.bias[(size_t)g * a.N + n];
+    }
+    mma_store<G>(a, m, n, z, G == 4 ? a.c_in[(size_t)m * a.N + n] : 0.f);
+  }
+}
+
+struct MmaConfig {
+  int bm, bu, threads;
+  size_t smem;
+  void (*kernel)(MmaArgs);
+};
+
+template <int G, int MT, int NU, int KS, int BK, int STAGES>
+MmaConfig mma_tile() {
+  using T = MmaTile<G, MT, NU, KS, BK, STAGES>;
+  return {T::BM, T::BU, T::kThreads, T::kSmem,
+          mma_tile_kernel<G, MT, NU, KS, BK, STAGES>};
+}
+
+// <G, MT, NU, KS, BK, STAGES>
+const MmaConfig kMmaTiles[] = {
+    mma_tile<4, 2, 1, 8, 128, 4>(),   // the cell: 32 rows x 8 units
+    mma_tile<1, 1, 1, 8, 128, 4>(),   // h W2, B <= 128: 16 x 8
+    mma_tile<1, 2, 2, 8, 128, 4>(),   // h W2, B > 128: 32 x 16
+};
+
+// Let tile t's kernel have its shared memory. Call once before launching.
+cudaError_t mma_prepare(const MmaConfig& t) {
+  return cudaFuncSetAttribute(t.kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)t.smem);
+}
+
+// Launch tile t on a, with 16-byte copies of X where every segment width is
+// a multiple of 8 and the bases are 16-byte aligned, and of W where N is a
+// multiple of 8 and wa and wb are; else element by element.
+cudaError_t mma_launch(const MmaConfig& t, MmaArgs a, cudaStream_t stream) {
+  const bool x16 = a.k0 % 8 == 0 && a.k1 % 8 == 0 && a.k2 % 8 == 0 &&
+                   (a.k0 == 0 || aligned16(a.in0)) &&
+                   (a.k1 == 0 || aligned16(a.in1)) &&
+                   (a.k2 == 0 || aligned16(a.in2));
+  const bool w16 = a.N % 8 == 0 && aligned16(a.wa) &&
+                   (a.wb == nullptr || aligned16(a.wb));
+  a.feed = (x16 ? kFeedX16 : 0) | (w16 ? kFeedW16 : 0);
+  const dim3 grid(ceil_div(a.N, t.bu), ceil_div(a.B, t.bm));
+  void* args[] = {&a};
+  const cudaError_t err =
+      cudaLaunchKernel(reinterpret_cast<const void*>(t.kernel), grid,
+                       dim3(t.threads), args, t.smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// ---- the wide cell on wgmma, fed by TMA ----
+
+constexpr int kWgRows = 128;     // rows a block: two warpgroups of 64
+constexpr int kWgUnits = 32;     // units a block, x 4 gates: 128 columns
+constexpr int kWgK = 64;         // k a chunk: one 128-byte swizzled row
+constexpr int kWgStages = 6;
+constexpr int kWgTile = kWgRows * kWgK;  // bf16 of a stage's x, or its W^T
+constexpr size_t kWgSmem = 1024 + sizeof(bf16) * kWgStages * 2 * kWgTile +
+                           sizeof(uint64_t) * kWgStages;
+
+// the maps of x's bf16 segments (emb, h) as (k_s, B), and of W^T (4U, K)
+// as (K, U, 4), each box one 128-byte-swizzled stage
+struct WgMaps {
+  CUtensorMap x[2];
+  CUtensorMap w;
+};
+
+// A wgmma operand in shared memory: K-major rows of 128 bytes in 128-byte
+// swizzle, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t wg_desc(const bf16* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// d += a b for a warpgroup: a 64 x 16 (a), b 128 x 16 (b), both K-major
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The LSTM cell of 128 rows x 32 units (x 4 gates) on the bf16 tensor
+// cores by wgmma: x = [in0 | in1 | in2] against W^T = wt (4N, K), K-major,
+// every segment width a multiple of 64. Thread 0 feeds a ring of stages by
+// TMA, 128-byte swizzled as wgmma reads them, each completing on its
+// mbarrier; the fp32 segment (ctx) is rounded and swizzled into the first
+// stages by every thread before the ring starts. Each warpgroup takes 64
+// rows x the block's 128 columns (gate g of unit u at column 32 g + u), so
+// that every gate of a (row, unit) is in one thread's accumulators. Grid
+// (ceil(N / 32), ceil(B / 128)).
+__global__ void __launch_bounds__(256, 1)
+wgmma_cell_kernel(MmaArgs a, const __grid_constant__ WgMaps maps) {
+  extern __shared__ __align__(1024) uint8_t wg_sm[];
+  uint8_t* base = wg_sm + ((1024 - (smem_u32(wg_sm) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      base + sizeof(bf16) * kWgStages * 2 * kWgTile);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int m0 = blockIdx.y * kWgRows, n0 = blockIdx.x * kWgUnits;
+  const int chunks = (a.k0 + a.k1 + a.k2) / kWgK, ctx_chunks = a.k0 / kWgK;
+
+  // the fp32 segment, rounded: 16-byte group q of row r lands at q ^ r % 8
+  for (int c = 0; c < ctx_chunks; ++c) {
+    bf16* xs = ring + c * 2 * kWgTile;
+    for (int i = tid; i < kWgRows * 8; i += 256) {
+      const int r = i / 8, q = i % 8, m = m0 + r;
+      union {
+        __nv_bfloat162 h[4];
+        uint4 all;
+      } pack;
+      pack.all = make_uint4(0, 0, 0, 0);
+      if (m < a.B) {
+        const float4* src = reinterpret_cast<const float4*>(
+            a.in0 + (size_t)m * a.k0 + c * kWgK + q * 8);
+        const float4 u = src[0], v = src[1];
+        pack.h[0] = __floats2bfloat162_rn(u.x, u.y);
+        pack.h[1] = __floats2bfloat162_rn(u.z, u.w);
+        pack.h[2] = __floats2bfloat162_rn(v.x, v.y);
+        pack.h[3] = __floats2bfloat162_rn(v.z, v.w);
+      }
+      *reinterpret_cast<uint4*>(xs + r * kWgK + (q ^ r % 8) * 8) = pack.all;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+
+  auto issue = [&](int c) {        // thread 0
+    bf16* xs = ring + (c % kWgStages) * 2 * kWgTile;
+    const uint32_t bar = smem_u32(&full[c % kWgStages]);
+    const bool x_tma = c >= ctx_chunks;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     bar), "r"((int)sizeof(bf16) * kWgTile * (x_tma ? 2 : 1))
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
+            smem_u32(xs + kWgTile)),
+        "l"(reinterpret_cast<uint64_t>(&maps.w)), "r"(c * kWgK), "r"(n0),
+        "r"(0), "r"(bar) : "memory");
+    if (x_tma) {
+      const int k = c * kWgK - a.k0, seg = k >= a.k1;
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+          "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(
+              smem_u32(xs)),
+          "l"(reinterpret_cast<uint64_t>(&maps.x[seg])),
+          "r"(seg ? k - a.k1 : k), "r"(m0), "r"(bar) : "memory");
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       smem_u32(&full[s])), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < kWgStages - 1 && s < chunks; ++s) issue(s);
+  }
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  const int wg = warp / 4;
+  __syncthreads();                 // the barriers and ctx's stages are set
+  for (int c = 0; c < chunks; ++c) {
+    mbar_wait(&full[c % kWgStages], (uint32_t)((c / kWgStages) & 1));
+    const bf16* xs = ring + (c % kWgStages) * 2 * kWgTile + wg * 64 * kWgK;
+    const bf16* ws = ring + (c % kWgStages) * 2 * kWgTile + kWgTile;
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < kWgK / 16; ++k)
+      wgmma_m64n128k16(d, wg_desc(xs + k * 16), wg_desc(ws + k * 16));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // chunk c's products stay in flight; chunk c - 1's are done, in every
+    // warpgroup once all have passed the barrier, so its stage is free
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    __syncthreads();
+    if (tid == 0 && c + kWgStages - 1 < chunks) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue(c + kWgStages - 1);
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+
+  // accumulator 4 j + e: row 16 (warp % 4) + lane / 4 (+ 8 for e >= 2) of
+  // the warpgroup's 64, column 8 j + lane % 4 * 2 + e % 2: gate j / 4 of
+  // unit 8 (j % 4) + lane % 4 * 2 + e % 2
+  float bias[4][2][4], c_in[2][4][2];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + u * 8 + lane % 4 * 2 + e;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        bias[u][e][g] = n < a.N ? a.bias[(size_t)g * a.N + n] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wg * 64 + warp % 4 * 16 + lane / 4 + h * 8;
+        c_in[h][u][e] =
+            m < a.B && n < a.N ? a.c_in[(size_t)m * a.N + n] : 0.f;
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + wg * 64 + warp % 4 * 16 + lane / 4 + h * 8;
+        const int n = n0 + u * 8 + lane % 4 * 2 + e;
+        if (m >= a.B || n >= a.N) continue;
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          z[g] = d[4 * (4 * g + u) + 2 * h + e] + bias[u][e][g];
+        mma_store<4>(a, m, n, z, c_in[h][u][e]);
+      }
+}
+
+// A row-major bf16 tensor of dims[0] innermost (strides in bytes, of dims
+// 1 and 2) as a map of box boxes in 128-byte swizzle; rows outside dims
+// read as zeros.
+bool encode_bf16_map(CUtensorMap* map, const bf16* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<bf16*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch wgmma_cell_kernel (prepared) on the cell's a, with wt the (4N, K)
+// transpose of [wa ; wb]. Returns cudaErrorInvalidValue, launching
+// nothing, where a segment width is not a multiple of 64, the fp32 segment
+// does not fit the ring's first stages, a base is not 16-byte aligned or
+// the maps cannot be encoded; else the launch's error.
+cudaError_t wgmma_cell_launch(MmaArgs a, const bf16* wt,
+                              cudaStream_t stream) {
+  const int K = a.k0 + a.k1 + a.k2;
+  if (a.k0 % kWgK || a.k1 % kWgK || a.k2 % kWgK || a.k1 == 0 ||
+      a.k2 == 0 || a.k0 / kWgK > kWgStages - 1 ||
+      (a.k0 && !aligned16(a.in0)) || !aligned16(a.in1) ||
+      !aligned16(a.in2) || !aligned16(wt) || encode_tiled() == nullptr)
+    return cudaErrorInvalidValue;
+  WgMaps maps;
+  const bf16* x[2] = {a.in1, a.in2};
+  const int ks[2] = {a.k1, a.k2};
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)ks[i], (cuuint64_t)a.B};
+    const cuuint64_t strides[1] = {(cuuint64_t)ks[i] * sizeof(bf16)};
+    const cuuint32_t box[2] = {kWgK, kWgRows};
+    if (!encode_bf16_map(&maps.x[i], x[i], 2, dims, strides, box))
+      return cudaErrorInvalidValue;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)a.N, 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * sizeof(bf16),
+                                 (cuuint64_t)K * a.N * sizeof(bf16)};
+  const cuuint32_t box[3] = {kWgK, kWgUnits, 4};
+  if (!encode_bf16_map(&maps.w, wt, 3, dims, strides, box))
+    return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(a.N, kWgUnits), ceil_div(a.B, kWgRows));
+  void* args[] = {&a, &maps};
+  const cudaError_t err =
+      cudaLaunchKernel(reinterpret_cast<const void*>(wgmma_cell_kernel),
+                       grid, dim3(256), args, kWgSmem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -269,44 +767,62 @@ int mtt_fused_seq_forward(
   return 0;
 }
 
-// K4 with bf16 W2, Wx and Wh (the arguments of mtt_fused_seq_forward less
-// the plans; w2, wx and wh point to bf16). Returns 0 on success, else the
-// first CUDA error.
+// K4 with bf16 W2, Wx and Wh: the arguments of mtt_fused_seq_forward less
+// the plans, but emb (T, B, E) is bf16 (rounded by the caller), w2, wx and
+// wh point to bf16, and in h0's place hbuf is a (2, B, U) bf16 scratch
+// whose first half is zeros (h0 rounded): step t reads h_{t-1} rounded from
+// half t % 2 and its cell writes h_t rounded to the other. wt, where not
+// null, is the (4U, D + E + U) transpose of [wx ; wh]: the cell then runs
+// on wgmma_cell_kernel, which needs D, E and U to be multiples of 64 and D
+// at most 320. Returns 0 on success, else the first CUDA error.
 int mtt_fused_seq_forward_bf16(
-    const float* pre, const float* features, const float* emb,
-    const __nv_bfloat16* w2, const float* b2, const float* v, const float* bv,
-    const __nv_bfloat16* wx, const __nv_bfloat16* wh, const float* b,
-    const float* h0, const float* c0, float* ctx, float* hseq, float* cseq,
-    float* alphas, float* zs, float* hwps, int B, int R, int A, int D, int E,
-    int U, int T, float attn_slope, int device, void* stream_ptr) {
+    const float* pre, const float* features, const bf16* emb,
+    const bf16* w2, const float* b2, const float* v, const float* bv,
+    const bf16* wx, const bf16* wh, const float* b, bf16* hbuf,
+    const float* c0, float* ctx, float* hseq, float* cseq, float* alphas,
+    float* zs, float* hwps, const bf16* wt, int B, int R, int A, int D,
+    int E, int U, int T, float attn_slope, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 
+  const MmaConfig& cell = kMmaTiles[0];
+  const MmaConfig& dense = kMmaTiles[B > 128 ? 2 : 1];
   const size_t attn_smem = attention_smem_bytes(A, R);
-  if ((err = cudaFuncSetAttribute(attention_kernel,
+  if ((err = wt != nullptr
+                 ? cudaFuncSetAttribute(
+                       wgmma_cell_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kWgSmem)
+                 : mma_prepare(cell)) != cudaSuccess ||
+      (err = mma_prepare(dense)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)attn_smem)) != cudaSuccess)
     return (int)err;
 
   const size_t bu = (size_t)B * U;
   for (int t = 0; t < T; ++t) {
-    const float* h = t == 0 ? h0 : hseq + (t - 1) * bu;
+    const bf16* h = hbuf + (t % 2) * bu;
     const float* c = t == 0 ? c0 : cseq + (t - 1) * bu;
     float* hw = hwps + (size_t)t * B * A;
-    if ((err = launch_bfloat_rows<false>(h, nullptr, nullptr, U, 0, 0, w2,
-                                         nullptr, b2, B, A, nullptr, hw,
-                                         nullptr, nullptr, stream)) !=
-        cudaSuccess)
+    // h W2 + b2 for the whole batch
+    if ((err = mma_launch(dense,
+                          {nullptr, nullptr, h, 0, 0, U, w2, nullptr, U, b2,
+                           B, A, hw, nullptr, nullptr, nullptr, nullptr, 0},
+                          stream)) != cudaSuccess)
       return (int)err;
     attention_kernel<<<B, kThreads, attn_smem, stream>>>(
         pre, features, v, bv, ctx, alphas + (size_t)t * B * R, hw, R, A, D,
         attn_slope, 1, 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = launch_bfloat_rows<true>(
-             ctx, emb + (size_t)t * B * E, h, D, E, U, wx, wh, b, B, U, c,
-             zs + (size_t)t * 4 * bu, cseq + t * bu, hseq + t * bu,
-             stream)) != cudaSuccess)
+    const MmaArgs cell_args = {ctx, emb + (size_t)t * B * E, h, D, E, U,
+                               wx, wh, D + E, b, B, U, hseq + t * bu,
+                               hbuf + ((t + 1) % 2) * bu, cseq + t * bu, c,
+                               zs + (size_t)t * 4 * bu, 0};
+    if ((err = wt != nullptr ? wgmma_cell_launch(cell_args, wt, stream)
+                             : mma_launch(cell, cell_args, stream)) !=
+        cudaSuccess)
       return (int)err;
   }
   return 0;

@@ -35,6 +35,8 @@ import zipfile
 import numpy as np
 import torch
 
+from masters_thesis_tpu_torch.device import resolve_device
+
 ARTIFACT_VERSION = 1
 _META = "meta.json"
 _TOKENIZER = "tokenizer.json"
@@ -222,16 +224,17 @@ def export_run(run_path: str, out_path: str, decoder: str = "greedy",
 class ExportedCaptioner:
     """Serve captions from an exported artifact — no model code needed.
 
-    ``program(rows) -> words`` runs one padded batch on ``device``. Same
-    padding contract as ``serve.Captioner``: any request size runs through
-    the one exported batch shape.
+    ``program(rows) -> words`` runs one padded batch on ``device`` (by
+    default ``cuda``; raises without a card unless ``device="cpu"``, as
+    ``load_exported``). Same padding contract as ``serve.Captioner``: any
+    request size runs through the one exported batch shape.
     """
 
-    def __init__(self, program, tokenizer, meta: dict, device="cpu"):
+    def __init__(self, program, tokenizer, meta: dict, device=None):
         self._program = program
         self.tokenizer = tokenizer
         self.meta = meta
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.batch_size = meta["batch_size"]
         self.input_width = meta["input_width"]
         self.input_row_shape = tuple(
@@ -274,7 +277,6 @@ def load_exported(path: str, device=None) -> ExportedCaptioner:
     version, one with no program for ``device``'s platform, and one the
     JAX package exported (StableHLO, not a torch program)."""
     from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
-    from masters_thesis_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
     with zipfile.ZipFile(path) as z:

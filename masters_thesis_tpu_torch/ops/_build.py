@@ -34,7 +34,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # stream; mtt_fused_greedy_decode_gru: 24 pointers, 9 sizes, the zero-state
 # flag, h W2's plan, then as K2; mtt_fused_seq_forward: 18 pointers, 7
 # sizes, the attention's slope, the cell's and h W2's plans, the device and
-# the stream; mtt_fused_seq_forward_bf16: the same less the plans;
+# the stream; mtt_fused_seq_forward_bf16: the same less the plans, with a
+# 19th pointer, the weights' transpose for the wgmma cell, or null;
 # mtt_gather_rows: store, ids, out, the launch record (sizes,
 # device and plan: ops/gather.py::_pack), stream; mtt_gather_rows_chunked: store, ids, out, 4 byte
 # sizes, the chunk's bytes, rows, id width, device, stream;
@@ -46,7 +47,7 @@ _SIGNATURES = {
                                     ctypes.c_int),
     "mtt_fused_seq_forward": ([_P] * 18 + [_I] * 7 + [_F] + [_I] * 7 + [_P],
                               ctypes.c_int),
-    "mtt_fused_seq_forward_bf16": ([_P] * 18 + [_I] * 7 + [_F, _I, _P],
+    "mtt_fused_seq_forward_bf16": ([_P] * 19 + [_I] * 7 + [_F, _I, _P],
                                    ctypes.c_int),
     "mtt_gather_rows": ([_P] * 5, ctypes.c_int),
     "mtt_gather_rows_chunked": ([_P] * 3 + [_L] * 5 + [_I] * 3 + [_P],

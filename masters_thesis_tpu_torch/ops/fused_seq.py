@@ -40,10 +40,17 @@ would round to bf16); carries, residuals and gradients stay fp32. The
 TPU kernel's bf16 weights, ``fused_seq.py:228``): it rounds ``h`` and the
 cell input ``[ctx ; emb]`` to bf16, accumulates in fp32, and keeps ``ctx``
 in fp32, where the step loop's ``_ein`` rounds alpha and the features; each
-forward keeps its own rule. ``make_train_forward_loss`` follows the JAX
-train route at bf16 (``fused_seq.py:525-560``): bf16 parameters and betas
-into the encoder, fp32 features, ``pre``, embeddings and logits, the
-head's products through the same rounding.
+forward keeps its own rule. That K4 runs its products on the bf16 tensor
+cores (the wide cell on ``wgmma`` fed by TMA, ``wgmma_cell``, the rest on
+``mma.sync``; ``csrc/fused_seq.cu``'s header says what bounds it: the wide
+cell's 13.4 GFLOP a step read through L2, and at flagship the attention
+and L2 latency, as for the fp32 K4), each input rounded once a step where
+it is staged: ``emb`` by ``_launch`` into its time-major copy, ``h`` by the
+cell that makes it, ``ctx`` as the cell stages it.
+``make_train_forward_loss`` follows the JAX train route at bf16
+(``fused_seq.py:525-560``): bf16 parameters and betas into the encoder,
+fp32 features, ``pre``, embeddings and logits, the head's products through
+the same rounding.
 """
 
 from __future__ import annotations
@@ -251,10 +258,26 @@ def seq_plans(args, force: tuple[int, int] | None = None):
             tiles.plan(B, A, (U,), 1, aligned, hw))
 
 
+def wgmma_cell(B: int, D: int, E: int, U: int) -> bool:
+    """Whether the bf16-weight K4 runs its cell on wgmma, fed by TMA from a
+    K-major copy of [wx ; wh] that ``_launch`` makes once a call: batches
+    above 128 rows (the wide shape) whose segment widths D, E and U are
+    multiples of the kernel's 64-k chunk, with ctx (D) in the ring's first
+    five stages. Other shapes take the mma.sync tiles."""
+    return (B > 128 and D % 64 == 0 and E % 64 == 0 and U % 64 == 0
+            and D <= 320)
+
+
 def _launch(args, attn_slope: float, plans=None):
     """Launch K4 on ``plans`` (cell, h W2), by default ``seq_plans``'s; the
-    bf16-weight K4 when ``w2``, ``wx`` and ``wh`` are bf16 (it has no
-    plans: the simple kernel of ``csrc/fused_seq.cu``)."""
+    bf16-weight K4 when ``w2``, ``wx`` and ``wh`` are bf16. That one has no
+    plans: its tensor-core tiles of ``csrc/fused_seq.cu`` are picked there
+    by B, and its wide cell runs on wgmma where ``wgmma_cell`` holds, from
+    the K-major weights made here. It takes ``emb`` rounded to bf16 here,
+    once a call,
+    into the time-major copy, and a (2, B, U) bf16 scratch in h0's place,
+    zeros at first, into which each step's cell writes its h rounded for the
+    next step's products."""
     from masters_thesis_tpu_torch.ops import _build
 
     a = dict(zip(SEQ_ARGS, args))
@@ -282,20 +305,32 @@ def _launch(args, attn_slope: float, plans=None):
     # hands their memory only to work queued after the kernel on the same
     # stream.
     inputs = [t.contiguous() for t in args]
-    inputs[2] = a["emb"].transpose(0, 1).contiguous()         # (T, B, E)
+    emb = a["emb"].transpose(0, 1)                              # (T, B, E)
+    # at bf16 rounded as torch rounds (to nearest even), in the one copy
+    inputs[2] = (emb.to(torch.bfloat16, memory_format=torch.contiguous_format)
+                 if bf16 else emb.contiguous())
     empty = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
     zeros = torch.zeros(B, U, device=device)                  # h0 and c0
+    h0 = (torch.zeros(2, B, U, dtype=torch.bfloat16, device=device) if bf16
+          else zeros)
     out = (empty(T, B, U), empty(T, B, U), empty(T, B, R),
            empty(T, B, 4 * U), empty(T, B, A))
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    pointers = (t.data_ptr() for t in (*inputs, zeros, zeros, empty(B, D),
+    pointers = (t.data_ptr() for t in (*inputs, h0, zeros, empty(B, D),
                                        *out))
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = _build.load_library()
     if bf16:
+        wt = None                  # the wgmma cell's K-major weights
+        if wgmma_cell(B, D, E, U):
+            wt = torch.empty(4 * U, D + E + U, dtype=torch.bfloat16,
+                             device=device)
+            wt[:, :D + E] = inputs[7].t()
+            wt[:, D + E:] = inputs[8].t()
         code = lib.mtt_fused_seq_forward_bf16(
-            *pointers, B, R, A, D, E, U, T, attn_slope, index, stream)
+            *pointers, None if wt is None else wt.data_ptr(), B, R, A, D, E,
+            U, T, attn_slope, index, stream)
     else:
         cell, hw = plans if plans is not None else seq_plans(inputs)
         code = lib.mtt_fused_seq_forward(

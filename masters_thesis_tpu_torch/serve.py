@@ -33,7 +33,9 @@ dimension, as in the JAX ``Captioner`` and server.
 
 ``shard=N`` serves N replicas of the model, one a device (the JAX
 ``Captioner``'s data-parallel ``mesh``): each decodes an equal share of
-every chunk with the single-device decoders.
+every chunk with the single-device decoders, and a sampling replica draws
+the whole chunk's uniforms and keeps its rows, so that every decoder gives
+one device's words at the same service batch.
 
 ``from_run_dir`` rebuilds the model of a run directory that the port's
 ``experiment.run_training`` wrote (``config.yaml``, ``tokenizer.json``,
@@ -174,8 +176,9 @@ class Captioner:
         batch is rounded up to a multiple of N and each replica decodes an
         equal share of each chunk through the single-device decoders (K2 or
         K3 on the card), so greedy and beam give the words of one device;
-        replica r > 0 samples from its own stream, seeded by (seed + r,
-        call). Fewer than N devices raise."""
+        every replica draws the whole chunk's uniforms from the stream of
+        (seed, call) and keeps its own rows, so sampling gives the words of
+        one device at the same service batch. Fewer than N devices raise."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.shard = int(shard)
@@ -273,15 +276,17 @@ class Captioner:
         if kind not in _DECODERS:
             raise ValueError(f"unknown decoder {kind!r}: expected one of "
                              f"{_DECODERS}")
-        decoders = [self._replica_decoder(kind, model, r)
-                    for r, model in enumerate(self.replicas)]
+        decoders = [self._replica_decoder(kind, model)
+                    for model in self.replicas]
 
         def decode(rows):
             if len(decoders) == 1:
-                return decoders[0](rows)
-            shares = rows.chunk(len(decoders))
-            words = [dec(share.to(dev)) for dec, share, dev in
-                     zip(decoders, shares, self.replica_devices)]
+                return decoders[0](rows, None)
+            words, offset = [], 0
+            for dec, share, dev in zip(decoders, rows.chunk(len(decoders)),
+                                       self.replica_devices):
+                words.append(dec(share.to(dev), (offset, len(rows))))
+                offset += len(share)
             return torch.cat([w.to(rows.device) for w in words])
 
         if kind == "sample":
@@ -295,25 +300,28 @@ class Captioner:
         self._decoders[kind] = decode
         return decode
 
-    def _replica_decoder(self, kind: str, model, replica: int):
+    def _replica_decoder(self, kind: str, model):
+        """decode(rows, window) -> words: ``window`` (offset, total) places
+        a replica's share in its chunk, None for a whole chunk; only the
+        sampler reads it."""
         start, end = self.tokenizer.start_id, self.tokenizer.end_id
         if kind == "greedy":
             greedy = (make_whole_fused_greedy_decoder
                       if self.use_fused and isinstance(model, NIC)
                       else make_greedy_decoder)(model, self.max_length)
-            return lambda rows: greedy(rows, start)[0]
+            return lambda rows, window: greedy(rows, start)[0]
         if kind == "beam":
             beam = make_beam_decoder(model, self.max_length,
                                      beam_width=self.beam_width)
-            return lambda rows: beam(rows, start, end)[0]
+            return lambda rows, window: beam(rows, start, end)[0]
         sample = make_sampling_decoder(
             model, self.max_length, temperature=self.temperature,
             top_k=self.sample_top_k)
 
-        def decode(rows):
+        def decode(rows, window):
             gen = torch.Generator(device=rows.device).manual_seed(
-                sample_seed(self.seed + replica, self._sample_calls))
-            return sample(rows, start, gen)
+                sample_seed(self.seed, self._sample_calls))
+            return sample(rows, start, gen, window)
 
         return decode
 

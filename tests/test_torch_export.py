@@ -334,7 +334,7 @@ def test_port_export_showtell_run(tmp_path):
 def test_port_exported_decoder_guard_unit():
     exp = ExportedCaptioner(program=None, tokenizer=None,
                             meta={"batch_size": 4, "input_width": 5,
-                                  "decoder": "greedy"})
+                                  "decoder": "greedy"}, device="cpu")
     with pytest.raises(ValueError, match="freezes"):
         exp.caption_ids(np.zeros((1, 5), np.float32), decoder="beam")
 
@@ -347,11 +347,26 @@ def test_port_exported_captioner_padding_unit():
 
     meta = {"batch_size": 4, "input_width": 5, "max_length": 2,
             "decoder": "greedy"}
-    exp = ExportedCaptioner(program, tokenizer=None, meta=meta)
+    exp = ExportedCaptioner(program, tokenizer=None, meta=meta, device="cpu")
     x = np.arange(7 * 5, dtype=np.float32).reshape(7, 5)
     ids = exp.caption_ids(x)
     assert ids.shape == (7, 2)
     np.testing.assert_array_equal(ids, x[:, :2].astype(np.int32))
+
+
+def test_port_exported_captioner_defaults_to_the_card(monkeypatch):
+    """With no ``device`` the captioner asks for CUDA, as ``load_exported``
+    does: without a card it raises, and nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    meta = {"batch_size": 4, "input_width": 5, "max_length": 2,
+            "decoder": "greedy"}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExportedCaptioner(program=None, tokenizer=None, meta=meta)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_exported("never-read.mttx")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    exp = ExportedCaptioner(program=None, tokenizer=None, meta=meta)
+    assert exp.device == torch.device("cuda")
 
 
 def test_port_export_cli_prints_the_jax_cli_keys(runs, tmp_path, capsys):

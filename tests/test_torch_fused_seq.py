@@ -136,6 +136,22 @@ def test_wrapper_takes_the_plain_version_on_cpu_tensors():
         assert torch.equal(g, want)
 
 
+@pytest.mark.parametrize("shape, wgmma", [
+    ((256, 128, 1024, 2048), True),    # the wide shape's cell
+    ((64, 32, 512, 512), False),       # flagship: B <= 128, D of 32
+    ((130, 64, 64, 128), True),
+    ((200, 320, 64, 64), True),        # ctx fills the ring's first stages
+    ((200, 384, 64, 64), False),       # ... and would overrun them
+    ((130, 64, 32, 96), False),        # E and U not multiples of 64
+    ((128, 128, 1024, 2048), False),   # 128 rows: the mma.sync tile
+])
+def test_wgmma_cell_takes_wide_batches_of_64_k_segments(shape, wgmma):
+    """The bf16 K4's cell runs on wgmma for batches above 128 rows whose
+    widths D, E, U are whole 64-k chunks with ctx in the ring's first five
+    stages (the C side refuses anything else), on mma.sync otherwise."""
+    assert fused_seq.wgmma_cell(*shape) is wgmma
+
+
 # ---- the loss and its gradients in eval mode ----
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,9 @@ widths and through three train steps; the teacher-forced sequence forward
 (K4) at odd and flagship widths, through the custom backward, and against
 K2 on K2's own words, and with every tile of its tile kernel forced at
 shapes that cross the tiles' edges; and K4's bf16-weight variant at every
-K4 shape, step by step, and through the bf16 sequence's backward. A CUDA kernel has no CPU mode, so every
+K4 shape, step by step, its rounding of h, emb and ctx against torch's on
+values at ties, and through the bf16 sequence's backward. A CUDA kernel has
+no CPU mode, so every
 test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -689,7 +691,9 @@ def test_scanned_steps_through_the_kernel_follow_the_plain_gather(cuda):
 # chunk), widths that are not a multiple of 4 (4-byte copies in place of
 # 16-byte ones), segment widths that are multiples of 32 at 130 rows (the
 # TMA tile, forced, with rows past B), and the wide shape of
-# scripts/fused_seq_probe.py at T 2
+# scripts/fused_seq_probe.py at T 2; then two shapes on which the bf16
+# K4's cell runs on wgmma (ops/fused_seq.py's wgmma_cell): rows past B in
+# the second 128-row tile, and ctx filling the ring's first five stages
 SEQ_SHAPES = {
     "small-odd": (6, 7, 8, 4, 16, 24, 7),
     "wide": (11, 13, 300, 260, 24, 40, 5),
@@ -699,6 +703,8 @@ SEQ_SHAPES = {
     "unaligned": (9, 5, 7, 5, 3, 13, 3),
     "b130-tma": (130, 9, 40, 64, 32, 96, 3),
     "wide-t2": (256, 360, 256, 128, 1024, 2048, 2),
+    "b130-wgmma": (130, 9, 40, 64, 64, 128, 3),
+    "d320-wgmma": (200, 5, 16, 320, 64, 64, 2),
 }
 # the shapes at which every pair of tiles is forced
 TILE_EDGE_SHAPES = ("b70-u40", "b130-u300", "unaligned", "b130-tma")
@@ -1027,6 +1033,73 @@ def test_bf16_seq_kernel_refuses_mixed_weight_dtypes(cuda):
     with pytest.raises(ValueError, match="no tile plans"):
         fused_seq._launch(tuple(half), 0.2, fused_seq.seq_plans(inputs))
     assert fused_seq.fused_seq_forward.launches_bf16 == before
+
+
+def test_bf16_seq_kernel_refuses_weights_of_another_dtype(cuda):
+    """W2, Wx and Wh all in a dtype other than bf16 and fp32 (fp16) are
+    refused before a launch: the kernel reads bf16 weights only."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    inputs = _seq_inputs(cuda, *SEQ_SHAPES["small-odd"])
+    other = tuple(t.half() if k in fused_seq.BF16_ARGS else t
+                  for k, t in zip(fused_seq.SEQ_ARGS, inputs))
+    before = (fused_seq.fused_seq_forward.launches,
+              fused_seq.fused_seq_forward.launches_bf16)
+    with pytest.raises(ValueError, match="float32, or w2, wx and wh"):
+        fused_seq.fused_seq_forward(*other, 0.2)
+    assert (fused_seq.fused_seq_forward.launches,
+            fused_seq.fused_seq_forward.launches_bf16) == before
+
+
+def _ties(x: torch.Tensor) -> torch.Tensor:
+    """Each entry moved to the midpoint between its bf16 rounding and the
+    next bf16 away from zero: a tie, which rounds to the even neighbour."""
+    bits = x.to(torch.bfloat16).float().view(torch.int32)
+    return (bits | 0x8000).view(torch.float32)
+
+
+@pytest.mark.parametrize("shape", ["aligned", "odd"])
+def test_bf16_seq_kernel_rounds_its_inputs_as_torch_does(cuda, shape):
+    """The bf16 K4 rounds ctx, emb and h to bf16 as ``.to(torch.bfloat16)``
+    does, bit for bit, on values at rounding ties. One region makes alpha
+    exactly 1 and ctx the features; Wx and Wh copy ctx, emb and h into
+    columns of z one each (weights 0 or 1, biases 0), so that z shows the
+    rounded inputs exactly: ctx and emb are ties, h is the kernel's own
+    h of the step before. ``odd`` widths take the element-by-element
+    staging, ``aligned`` the 16-byte copies."""
+    from masters_thesis_tpu_torch.ops import fused_seq
+
+    B, A, D, E, U, T = ((16, 8, 16, 32, 24, 3) if shape == "aligned"
+                        else (9, 7, 5, 11, 17, 3))
+    gen = torch.Generator().manual_seed(3)
+    rand = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    features = _ties(rand(B, 1, D))
+    emb = _ties(rand(B, T, E))
+    emb[:, :, 0] = 1 + 2 ** -8         # rounds down, to even 1
+    emb[:, :, 1] = 1 + 3 * 2 ** -8     # rounds up, to even 1 + 2^-6
+    wx = torch.zeros(D + E, 4 * U)
+    wh = torch.zeros(U, 4 * U)
+    wx[torch.arange(D + E), torch.arange(D + E)] = 1
+    wh[torch.arange(U), D + E + torch.arange(U)] = 1
+    assert D + E + U <= 4 * U
+    inputs = [t.to(cuda) for t in (
+        rand(B, 1, A), features, emb, rand(U, A) / U ** 0.5, rand(A),
+        rand(A), rand(1), wx, wh, torch.zeros(4 * U))]
+    half = _bf16_weights(inputs)
+    hseq, _, alphas, zs, _ = fused_seq.fused_seq_forward(*half, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, torch.ones_like(alphas))
+    h_prev = torch.cat([torch.zeros_like(hseq[:, :1]), hseq[:, :-1]], 1)
+    want = torch.cat([features.to(cuda).expand(B, T, D), emb.to(cuda),
+                      h_prev], -1).to(torch.bfloat16).float()
+    got = zs[..., :D + E + U]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        (got != want).nonzero()[:5].tolist())
+    # the ties really were ties, and both ways of rounding were taken
+    assert not torch.equal(want[..., :D + E], torch.cat(
+        [features.to(cuda).expand(B, T, D), emb.to(cuda)], -1))
+    assert bool((want[..., D] == 1).all()) and bool(
+        (want[..., D + 1] == 1 + 2 ** -6).all())
 
 
 def test_bf16_sequence_through_the_kernel_matches_the_scan_forward(cuda):

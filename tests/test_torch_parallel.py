@@ -45,11 +45,12 @@ from masters_thesis_tpu.parallel import sharding as jsharding
 from masters_thesis_tpu_torch import cli
 from masters_thesis_tpu_torch.config import Config
 from masters_thesis_tpu_torch.data.synthetic import synthetic_groups
+from masters_thesis_tpu_torch.decode.sampling import make_sampling_decoder
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.parallel import multiprocess as mp
 from masters_thesis_tpu_torch.parallel import sharding
 from masters_thesis_tpu_torch.parallel.dryrun import flagship_census
-from masters_thesis_tpu_torch.serve import Captioner, _replicas
+from masters_thesis_tpu_torch.serve import Captioner, _replicas, sample_seed
 from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
 from masters_thesis_tpu_torch.train.state import (
     LAYOUT_MODELS,
@@ -563,25 +564,52 @@ def test_caption_shard_two_cpu_replicas_gives_one_devices_words(runs,
                                                                 tmp_path):
     """``caption --shard 2``: two replicas decode the halves of each batch
     (the service batch rounded up to even); greedy and beam give the words
-    of one device."""
+    of one device, and sampling those of one device at the same service
+    batch (8), since each replica draws the whole chunk's uniforms and keeps
+    its rows, as JAX's draw over the padded, sharded batch."""
     run = runs["single"]["run_path"]
     rows = np.random.default_rng(0).standard_normal((11, 256)).astype(
         np.float32)
     one = Captioner.from_run_dir(run, device="cpu", batch_size=7)
+    one8 = Captioner.from_run_dir(run, device="cpu", batch_size=8)
     two = Captioner.from_run_dir(run, device="cpu", batch_size=7, shard=2)
     assert two.batch_size == 8 and len(two.replicas) == 2
-    for decoder in ("greedy", "beam"):
-        np.testing.assert_array_equal(two.caption_ids(rows, decoder),
-                                      one.caption_ids(rows, decoder))
+    for decoder in ("greedy", "beam", "sample"):
+        want = (one8 if decoder == "sample" else one).caption_ids(rows,
+                                                                  decoder)
+        np.testing.assert_array_equal(two.caption_ids(rows, decoder), want)
     np.save(tmp_path / "rows.npy", rows)
-    outs = {}
-    for shard in ("0", "2"):
-        out = tmp_path / f"c{shard}.txt"
-        cli.main(["caption", "--run", run, "--betas",
-                  str(tmp_path / "rows.npy"), "--shard", shard, "--device",
-                  "cpu", "--out", str(out)])
-        outs[shard] = out.read_text()
-    assert outs["2"] == outs["0"]
+    for decoder in ("greedy", "sample"):
+        outs = {}
+        for shard in ("0", "2"):
+            out = tmp_path / f"{decoder}{shard}.txt"
+            cli.main(["caption", "--run", run, "--betas",
+                      str(tmp_path / "rows.npy"), "--shard", shard,
+                      "--decoder", decoder, "--device", "cpu", "--out",
+                      str(out)])
+            outs[shard] = out.read_text()
+        assert outs["2"] == outs["0"], decoder
+
+
+def test_unsharded_sampling_draws_from_the_seed_and_call_alone(runs):
+    """One device's sampled words are ``make_sampling_decoder``'s with a
+    generator seeded by ``sample_seed(seed, call)`` on each padded chunk,
+    call by call: a row window is drawn only under ``shard``."""
+    run = runs["single"]["run_path"]
+    rows = np.random.default_rng(1).standard_normal((11, 256)).astype(
+        np.float32)
+    cap = Captioner.from_run_dir(run, device="cpu", batch_size=8, seed=5,
+                                 temperature=0.8)
+    got = cap.caption_ids(rows, "sample")
+    sample = make_sampling_decoder(cap.model, cap.max_length,
+                                   temperature=0.8)
+    padded = np.concatenate([rows, np.repeat(rows[-1:], 5, 0)])
+    want = [sample(torch.from_numpy(padded[i:i + 8]),
+                   cap.tokenizer.start_id,
+                   torch.Generator().manual_seed(sample_seed(5, call)))
+            for call, i in enumerate((0, 8))]
+    np.testing.assert_array_equal(got, torch.cat(want).numpy()[:11])
+    assert cap._sample_calls == 2
 
 
 def test_shard_needs_that_many_cards(monkeypatch):

@@ -65,6 +65,10 @@ CASES = {
     "seq-unaligned-hw": (9, 7, (13,), 1, None),
     "seq-b130-tma-cell": (130, 96, (64, 32, 96), 4, None),
     "seq-b130-tma-hw": (130, 40, (96,), 1, None),
+    "seq-b130-wgmma-cell": (130, 128, (64, 64, 128), 4, None),
+    "seq-b130-wgmma-hw": (130, 40, (128,), 1, None),
+    "seq-d320-wgmma-cell": (200, 64, (320, 64, 64), 4, None),
+    "seq-d320-wgmma-hw": (200, 16, (64,), 1, None),
     "lcnic-small-cell": (6, 16, (4, 8, 16), 4, "l32x8"),
     "lcnic-small-hw": (6, 8, (16,), 1, None),
     "gru-small-hw": (32, 16, (16,), 1, None),
