@@ -164,7 +164,19 @@ width of its model or at its probe's own sizes:
   device time a step by part is taken in the fused-sequence phase); then,
   its count set to 0, the bf16 sequence's forward
   and custom backward through ``make_fused_sequence(backend="kernel",
-  compute_dtype=bfloat16)``, which must launch it.
+  compute_dtype=bfloat16)``, which must launch it;
+- the plain-route phase (``tpu.use_pallas: false``, the scanned
+  decoders): ``run_training`` of ``configs/flagship_synth.yaml`` (1 epoch
+  at 256 keys) and ``run_eval`` greedy, once with ``use_pallas: true`` and
+  once with ``false``, from one seed: K1 and K2 launched in the first, K1,
+  K2 and K3 never in the second; the epoch and val losses equal bit for
+  bit (or, should a second true run differ from the first, the false run
+  within that spread); the eval words equal K2's but at near-ties
+  (counted); steps/s and eval captions/s of both routes; ``false`` again on
+  a mesh of one rank (NCCL), no launch there either; then the scanned
+  greedy decoder (16 stacked batches of 64) and beam-5 (4 of 64) on the
+  flagship LcNIC, each slice equal to a single unfused call bit for bit,
+  their captions/s beside K2's on the same greedy rows.
 
 Every number is printed beside the card's name and power limit.
 The device time of a train step, the sum of its kernels' times by
@@ -192,8 +204,11 @@ phase's runs, K1 and K2 under ``launches_sweep``, theirs in the sweep
 phase's runs, summed over its processes, under ``launches_deploy``,
 theirs in the deploy phase's profiled run, and under
 ``launches_parallel``, theirs in the parallel phase, summed over its
-ranks; the bf16-weight K4 through the bf16 sequence of the precision
-phase), its
+ranks, and under ``launches_plain_route`` (K1, K2 and K3), theirs in the
+plain-route phase's ``use_pallas: false`` run, which must be 0, with
+K1's and K2's in its ``use_pallas: true`` twin under
+``launches_plain_twin``; the bf16-weight K4 through the bf16 sequence of
+the precision phase), its
 error against the plain
 version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
@@ -4043,6 +4058,234 @@ def precision(device, card: str) -> dict:
             "wide_memory": memory}
 
 
+# ---- the plain-route phase: tpu.use_pallas false and the scanned decoders
+
+PLAIN_KEYS = 256                    # 13 train steps of one epoch at 64
+SCANNED_GREEDY = (16, 64)           # K stacked batches of B rows
+SCANNED_BEAM = (4, 64)
+SCANNED_BEAM_WIDTH = 5
+SCANNED_REPS = 3
+
+
+def plain_route_run(root: Path, use_pallas: bool, device, card: str,
+                    mesh: bool = False) -> dict:
+    """``run_training`` of ``configs/flagship_synth.yaml`` (1 epoch at
+    PLAIN_KEYS keys) and ``run_eval`` greedy with ``tpu.use_pallas`` as
+    given (with ``mesh``, on a mesh of one rank, NCCL, and no eval): the
+    epoch and val losses, steps/s, eval captions/s, the words by test key,
+    and K1's, K2's and K3's launches in each part, K1's also as the rank
+    report counts them."""
+    import torch.distributed as dist
+
+    from masters_thesis_tpu_torch import experiment
+    from masters_thesis_tpu_torch.config import Config
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+    from masters_thesis_tpu_torch.parallel import multiprocess as mp
+
+    kernels = {"K1": gather_rows, "K2": fd.fused_greedy_decode,
+               "K3": fd.fused_greedy_decode_gru}
+    label = f"use_pallas {use_pallas}" + (", a 1-rank mesh" if mesh else "")
+    cfg = Config.load(EXPERIMENT_CONFIG)
+    cfg.log, cfg.epochs = str(root / label.replace(" ", "_")), 1
+    cfg.tpu.use_pallas = use_pallas
+    if mesh:
+        cfg.tpu.mesh_data = 0
+    for k in kernels.values():
+        k.launches = 0
+    run_path, logs, bundle = experiment.run_training(
+        cfg, smoke_keys=PLAIN_KEYS, device=device)
+    torch.cuda.synchronize()
+    train = {n: k.launches for n, k in kernels.items()}
+    report = mp._training_report(run_path, bundle, logs)
+    if mesh:
+        dist.destroy_process_group()
+        r = {"loss": report["epoch_losses"][0],
+             "val_loss": report["epoch_val_losses"][0],
+             "steps_per_s": report["steps_per_sec"][0], "train": train,
+             "by_rank": report["launches_by_rank"]["gather_rows"]}
+        print(f"plain route: {label}: mesh {report['mesh']}, epoch loss "
+              f"{r['loss']!r}, val loss {r['val_loss']!r}, steps/s "
+              f"{r['steps_per_s']:.2f}; launches {train}, K1 by rank "
+              f"{r['by_rank']} [{card}]")
+        return r
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = experiment.run_eval(bundle, run_path)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    evals = {n: k.launches for n, k in kernels.items()}
+    batches = (len(bundle["pairs"]["train"]) // cfg.batch_size
+               + len(bundle["pairs"]["val"]) // cfg.batch_size)
+    n = len(out["texts"])
+    r = {"loss": report["epoch_losses"][0],
+         "val_loss": report["epoch_val_losses"][0],
+         "steps_per_s": report["steps_per_sec"][0],
+         "eval_captions_per_s": n / eval_s, "train": train, "eval": evals,
+         "words": out["words"], "keys": out["keys"], "bundle": bundle,
+         "test_batches": -(-n // min(cfg.batch_size, n)),
+         "train_batches": batches}
+    print(f"plain route: {label}: epoch loss {r['loss']!r}, "
+          f"val loss {r['val_loss']!r}, steps/s {r['steps_per_s']:.2f}; "
+          f"run_eval {n} captions in {eval_s:.3f} s, "
+          f"{r['eval_captions_per_s']:.1f} captions/s (host clock); launches "
+          f"in run_training {train} ({batches} train and val batches), in "
+          f"run_eval {evals} ({r['test_batches']} test batches) [{card}]")
+    return r
+
+
+def check_plain_words(off: dict, on: dict, start_id: int, card: str) -> int:
+    """The knob-off run's eval words (the step loop) against the knob-on
+    run's (K2), one row a test key: equal but at near-ties of the plain
+    greedy decode (top-2 margin < TIE_MARGIN), which are counted."""
+    if not np.array_equal(off["keys"], on["keys"]):
+        raise RuntimeError("the two routes decoded other test pairs")
+    bundle = on["bundle"]
+    store, model = bundle["store"], bundle["model"]
+    _, first = np.unique(on["keys"], return_index=True)
+    first = np.sort(first)
+    idx = torch.as_tensor(store.indices_for(on["keys"][first]),
+                          device=store.device)
+    rows = store.device_array().index_select(0, idx.long()).float()
+    was_training = model.training
+    model.eval()
+    try:
+        return near_tie_rows(model, rows.cpu().numpy(), off["words"][first],
+                             on["words"][first], start_id,
+                             bundle["cfg"].max_length,
+                             "plain route: use_pallas false words (step "
+                             "loop) vs use_pallas true (K2), a row a test "
+                             "key", card)
+    finally:
+        model.train(was_training)
+
+
+def plain_runs(root: Path, device, card: str) -> dict:
+    """The knob twice from one seed, true then false: K1 and K2 launched
+    in the first run, K1, K2 and K3 never in the second; the epoch and val
+    losses equal bit for bit (a gather is a copy), or, if a second true run
+    shows that the card's reductions are not deterministic, the false run
+    within that spread; the words equal but at near-ties. Then false on a
+    mesh of one rank: no launch, K1's count by rank 0, the losses within
+    PARALLEL_LOSS_ATOL of the false run's."""
+    on = plain_route_run(root, True, device, card)
+    off = plain_route_run(root, False, device, card)
+    meshed = plain_route_run(root, False, device, card, mesh=True)
+    if (on["train"]["K1"] < on["train_batches"]
+            or on["eval"]["K2"] < on["test_batches"]):
+        raise RuntimeError(f"use_pallas true: K1 {on['train']['K1']} for "
+                           f"{on['train_batches']} batches, K2 "
+                           f"{on['eval']['K2']} for {on['test_batches']}")
+    if (any(off["train"].values()) or any(off["eval"].values())
+            or any(meshed["train"].values()) or any(meshed["by_rank"])):
+        raise RuntimeError(f"use_pallas false launched a kernel: "
+                           f"{off['train']}, {off['eval']}, on the mesh "
+                           f"{meshed['train']}, {meshed['by_rank']}")
+    apart = max(abs(meshed[k] - off[k]) for k in ("loss", "val_loss"))
+    print(f"plain route: the 1-rank mesh's losses {apart:.3e} from the "
+          f"false run's (limit {PARALLEL_LOSS_ATOL}) [{card}]")
+    if apart > PARALLEL_LOSS_ATOL:
+        raise RuntimeError("use_pallas false on a 1-rank mesh trained "
+                           "another model")
+    keys = ("loss", "val_loss")
+    if all(off[k] == on[k] for k in keys):
+        print(f"plain route: epoch and val losses of the two routes equal "
+              f"bit for bit [{card}]")
+    else:
+        again = plain_route_run(root, True, device, card)
+        spread = max(abs(again[k] - on[k]) for k in keys)
+        apart = max(abs(off[k] - on[k]) for k in keys)
+        print(f"plain route: the losses differ by {apart!r}; held to the "
+              f"true route's own spread over two runs, {spread!r} [{card}]")
+        if spread == 0.0 or apart > spread:
+            raise RuntimeError("use_pallas false trained another model")
+        del again
+    check_plain_words(off, on, on["bundle"]["tokenizer"].start_id, card)
+    print(f"plain route: steps/s {off['steps_per_s']:.2f} (library take) vs "
+          f"{on['steps_per_s']:.2f} (K1); eval captions/s "
+          f"{off['eval_captions_per_s']:.1f} (step loop) vs "
+          f"{on['eval_captions_per_s']:.1f} (K2) [{card}]")
+    return {"twin": {n: on["train"][n] + on["eval"][n] for n in on["train"]},
+            "route": {n: off["train"][n] + off["eval"][n]
+                      + meshed["train"][n] for n in off["train"]}}
+
+
+@torch.inference_mode()
+def check_scanned(device, tok, card: str) -> None:
+    """The scanned greedy and beam decoders on the flagship LcNIC (fp32,
+    TF32 off): each slice of K stacked batches equals a single call of the
+    unfused decoder bit for bit; captions/s of each scanned call, and of
+    K2 over the same greedy rows batch by batch (CUDA events)."""
+    from masters_thesis_tpu_torch.decode import (
+        make_beam_decoder,
+        make_greedy_decoder,
+        make_scanned_beam_decoder,
+        make_scanned_greedy_decoder,
+    )
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+
+    model = flagship_model(device)
+    T, start, end = model.max_length, tok.start_id, tok.end_id
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    rates = {}
+    K, B = SCANNED_GREEDY
+    betas = torch.randn(K, B, N_VOXELS, generator=gen, device=device)
+    scanned = make_scanned_greedy_decoder(model, T)
+    words = scanned(betas, start)
+    single = make_greedy_decoder(model, T)
+    same = all(torch.equal(words[k], single(betas[k], start)[0])
+               for k in range(K))
+    rates["greedy"] = K * B / cuda_ms(lambda: scanned(betas, start),
+                                      reps=SCANNED_REPS, warmup=1) * 1e3
+    fused = fd.make_whole_fused_greedy_decoder(model, T)
+    rates["K2"] = K * B / cuda_ms(lambda: [fused(b, start) for b in betas],
+                                  reps=SCANNED_REPS, warmup=1) * 1e3
+    print(f"scanned greedy, K {K} x B {B}: each slice equals a single "
+          f"unfused call bit for bit: {same}; {rates['greedy']:.1f} "
+          f"captions/s, K2 batch by batch on the same rows "
+          f"{rates['K2']:.1f} captions/s (CUDA events, {SCANNED_REPS} calls) "
+          f"[{card}]")
+    if not same:
+        raise RuntimeError("a slice of the scanned greedy decoder differs "
+                           "from its single call")
+    if len(torch.unique(words)) < MIN_DISTINCT_WORDS:
+        raise RuntimeError("the scanned greedy words are degenerate")
+    del betas, words
+    K, B = SCANNED_BEAM
+    betas = torch.randn(K, B, N_VOXELS, generator=gen, device=device)
+    scanned = make_scanned_beam_decoder(model, T,
+                                        beam_width=SCANNED_BEAM_WIDTH)
+    words = scanned(betas, start, end)
+    single = make_beam_decoder(model, T, beam_width=SCANNED_BEAM_WIDTH)
+    same = all(torch.equal(words[k], single(betas[k], start, end)[0])
+               for k in range(K))
+    rates[f"beam-{SCANNED_BEAM_WIDTH}"] = K * B / cuda_ms(
+        lambda: scanned(betas, start, end), reps=SCANNED_REPS,
+        warmup=1) * 1e3
+    print(f"scanned beam-{SCANNED_BEAM_WIDTH}, K {K} x B {B}: each slice "
+          f"equals a single call bit for bit: {same}; "
+          f"{rates[f'beam-{SCANNED_BEAM_WIDTH}']:.1f} captions/s (CUDA "
+          f"events, {SCANNED_REPS} calls) [{card}]")
+    if not same:
+        raise RuntimeError("a slice of the scanned beam decoder differs "
+                           "from its single call")
+
+
+def plain_route(device, tok, card: str) -> dict:
+    """The plain-route phase: ``plain_runs``, then ``check_scanned``.
+    Returns K1's, K2's and K3's launches on the true route ("twin") and on
+    the false one ("route")."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtt_plain_") as tmp:
+        launches = plain_runs(Path(tmp), device, card)
+    release()
+    check_scanned(device, tok, card)
+    print(f"plain route: the phase in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4142,6 +4385,8 @@ def main(argv=None) -> int:
     prec = precision(device, card)
     prec["K4"]["wide"].update(bf16_parts["wide"])
     release()
+    plain = plain_route(device, tok, card)
+    release()
     k1["max_abs_err"] = max(k1["max_abs_err"], par["K1"]["max_abs_err"])
     k1["stores"] += par["K1"]["stores"]
     k2["max_abs_err"] = max(k2["max_abs_err"], par["K2"]["max_abs_err"])
@@ -4167,12 +4412,15 @@ def main(argv=None) -> int:
         "launches_ingest": ing["fused_greedy_decode"],
         "launches_sweep": swp["fused_greedy_decode"],
         "launches_parallel": par["launches"]["fused_greedy_decode"],
+        "launches_plain_twin": plain["twin"]["K2"],
+        "launches_plain_route": plain["route"]["K2"],
         **k2}, {
         "name": "fused_greedy_decode_gru", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276",
         "launches_families": counts["fused_greedy_decode_gru"],
-        "launches_ingest": ing["fused_greedy_decode_gru"], **k3}, {
+        "launches_ingest": ing["fused_greedy_decode_gru"],
+        "launches_plain_route": plain["route"]["K3"], **k3}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
         "replaces": "masters_thesis_tpu/ops/gather.py:49",
@@ -4181,7 +4429,9 @@ def main(argv=None) -> int:
         "launches_families": counts["gather_rows"],
         "launches_ingest": ing["gather_rows"],
         "launches_sweep": swp["gather_rows"],
-        "launches_parallel": par["launches"]["gather_rows"], **k1}, {
+        "launches_parallel": par["launches"]["gather_rows"],
+        "launches_plain_twin": plain["twin"]["K1"],
+        "launches_plain_route": plain["route"]["K1"], **k1}, {
         "name": "fused_seq_forward", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/fused_seq.cu",
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204", **k4}, {

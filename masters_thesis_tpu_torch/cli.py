@@ -50,8 +50,9 @@ each of ``--platforms``, by default the platform of ``--device``).
 ``train --processes`` starts one process a rank (``parallel.multiprocess``;
 ranks on one card share it under gloo), ``caption``/``serve --shard N``
 serve N replicas, one a device, and ``dryrun`` runs one sharded step over
-N ranks (``parallel.dryrun``). ``tpu.use_pallas: false`` makes a run on
-the card exit non-zero (``config.unsupported_knobs``).
+N ranks (``parallel.dryrun``). A config with ``tpu.use_pallas: false``
+trains, evaluates and scores on the card through the library take and the
+step-loop greedy decoder, with no launch of K1, K2 or K3.
 """
 
 from __future__ import annotations

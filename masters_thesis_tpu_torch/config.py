@@ -17,9 +17,8 @@ mappings, several documents, a tab in the indentation) raises ``ValueError``
 naming its line. ``save`` writes YAML that PyYAML reads back to the same
 dict.
 
-Every knob of the JAX package's schema is honoured.
-``experiment.run_training`` refuses ``use_pallas: false`` on the card
-(``unsupported_knobs``); ``prng_impl`` is recorded and changes nothing,
+Every knob of the JAX package's schema is honoured, on the card as on
+the CPU; ``prng_impl`` is recorded and changes nothing,
 because torch's generators draw every mask, and ``param_dtype`` changes
 nothing, as in the JAX package.
 """
@@ -64,12 +63,14 @@ class InputConfig:
 @dataclass
 class TPUConfig:
     """The JAX package's ``tpu:`` knobs, by the same names. On the card:
-    ``use_pallas`` must stay true (``unsupported_knobs``), ``scan_steps``
-    > 0 trains from the device store through K1, and ``store_dtype``,
-    ``fused_seq``, ``ckpt_every``, the mesh, vocab-padding and profiling
-    knobs mean what they mean there. ``compute_dtype: bfloat16`` trains in
-    bf16 on fp32 masters on a CUDA device and in fp32 on the CPU, as the
-    JAX package does only on its TPU (``train.steps._compute_dtype``);
+    ``use_pallas: false`` takes the JAX package's plain paths, every gather
+    through the library take and every greedy decode through the step
+    loop, so that K1, K2 and K3 make no launch; ``scan_steps`` > 0 trains
+    from the device store; ``store_dtype``, ``fused_seq``, ``ckpt_every``,
+    the mesh, vocab-padding and profiling knobs mean what they mean there.
+    ``compute_dtype: bfloat16`` trains in bf16 on fp32 masters on a CUDA
+    device and in fp32 on the CPU, as the JAX package does only on its TPU
+    (``train.steps._compute_dtype``);
     ``remat`` recomputes each decoder step in the backward
     (``models.nic.NIC``). ``prng_impl``, ``donate_state``,
     ``prefetch_depth`` and ``compile_cache_dir`` are XLA's and change
@@ -82,7 +83,9 @@ class TPUConfig:
     compute_dtype: str = "float32"
     donate_state: bool = True
     prefetch_depth: int = 2
-    use_pallas: bool = True          # the hand-written kernels (K1, K2)
+    use_pallas: bool = True          # the hand-written kernels (K1, K2,
+    #                                  K3); false: the library take and
+    #                                  the step-loop greedy decoder
     fused_seq: bool = False          # train the decoder through the fused
     #                                  sequence's custom backward
     #                                  (ops/fused_seq.py)
@@ -221,19 +224,6 @@ class Config:
 
 def load_config(path: str | os.PathLike) -> Config:
     return Config.load(path)
-
-
-def unsupported_knobs(cfg: Config, device=None) -> None:
-    """Raise ``ValueError`` for ``use_pallas: false`` on a CUDA ``device``
-    (a ``torch.device``): the one setting the port cannot honour."""
-    if (device is not None and device.type == "cuda"
-            and not cfg.tpu.use_pallas):
-        raise ValueError(
-            "tpu.use_pallas: false has no route on the card: every train, "
-            "val and decode batch there runs the hand-written kernels (K1, "
-            "K2), and their plain PyTorch versions run only on CPU tensors, "
-            "as the oracles the kernels are checked against; set it true, "
-            "or run on the CPU")
 
 
 # ---------------------------------------------------------------- YAML subset

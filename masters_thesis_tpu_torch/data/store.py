@@ -3,8 +3,11 @@
 Counterpart of ``masters_thesis_tpu/data/store.py::ArrayStore``. A
 device-resident store keeps the whole (N, W) beta matrix on one device; the
 shared ``BatchPipeline`` hands out int32 row ids, and each batch is gathered
-on the device by K1 (``ops.gather.gather_rows``). The surface is the one the
-pipeline and the trainer read: ``keys``, ``key_to_idx``, ``indices_for``,
+on the device by K1 (``ops.gather.gather_rows``), or by the library take
+(``ops.gather.take_rows``) for a store made with ``kernel=False``, as
+``run_training`` makes it under ``tpu.use_pallas: false`` (the JAX
+package's unpacked store, gathered by ``jnp.take``). The surface is the one
+the pipeline and the trainer read: ``keys``, ``key_to_idx``, ``indices_for``,
 ``device_resident``, ``n_cols``, ``row_shape``, ``device_array()`` and
 ``device_gather(idx)``.
 
@@ -38,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from masters_thesis_tpu_torch.device import resolve_device
-from masters_thesis_tpu_torch.ops.gather import gather_rows
+from masters_thesis_tpu_torch.ops.gather import row_gather
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -157,12 +160,14 @@ class ArrayStore:
     ``cuda``; pass ``device="cpu"`` for the CPU) as (N, W), (N, P, C) rows
     kept as (N, P·C); ``dtype`` ('float32' | 'bfloat16',
     ``tpu.store_dtype``) casts them at upload, and by default they keep
-    their own. Host-resident (``device_resident=False``): ``data`` is kept
-    as it was given, a numpy array, a memmap or a ``RowConcat``, and
-    ``upload`` moves it to a device."""
+    their own; ``kernel`` (``tpu.use_pallas``) picks ``device_gather``'s
+    route, K1 or the library take. Host-resident
+    (``device_resident=False``): ``data`` is kept as it was given, a numpy
+    array, a memmap or a ``RowConcat``, and ``upload`` moves it to a
+    device."""
 
     def __init__(self, data, keys: Sequence[int], device=None, dtype=None,
-                 device_resident: bool = True):
+                 device_resident: bool = True, kernel: bool = True):
         keys = [int(k) for k in keys]
         if len(keys) != len(data):
             raise ValueError(f"{len(keys)} keys for {len(data)} rows")
@@ -172,6 +177,7 @@ class ArrayStore:
         self.key_to_idx = {k: i for i, k in enumerate(keys)}
         self.keys = np.asarray(keys, dtype=np.int64)
         self.device_resident = device_resident
+        self.kernel = kernel
         if len(np.shape(data)) < 2:
             raise ValueError(f"expected (N, ...) rows, got "
                              f"{tuple(np.shape(data))}")
@@ -217,9 +223,10 @@ class ArrayStore:
         return self.data
 
     def device_gather(self, idx) -> torch.Tensor:
-        """Rows ``idx`` (B,) through K1: (B, n_cols)."""
+        """Rows ``idx`` (B,) through K1, or the library take for a store
+        made with ``kernel=False``: (B, n_cols)."""
         idx = torch.as_tensor(idx, device=self.device)
-        return gather_rows(self.device_array(), idx)
+        return row_gather(self.kernel)(self.device_array(), idx)
 
     @property
     def row_shape(self) -> tuple[int, ...]:

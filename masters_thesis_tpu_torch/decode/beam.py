@@ -34,8 +34,8 @@ It runs any model with the decode API (``encode``, ``init_carry``,
 ``decode_step``): a GRU carries ``c`` through unchanged, and ShowTell's
 (B·W, 1) placeholder alphas ride along. It is plain PyTorch on the card as
 on the CPU: the JAX package runs it in XLA, with no kernel (a whole-beam
-kernel was measured slower there and deleted). The scanned multi-batch
-variant waits for ROADMAP M6b.
+kernel was measured slower there and deleted). ``make_scanned_beam_decoder``
+decodes K stacked batches in one call, each as a single call would.
 """
 
 from __future__ import annotations
@@ -54,6 +54,20 @@ def top_w(keys: torch.Tensor, w: int):
     equal keys, the lower index first; the first ``w`` are the selection."""
     values, indices = torch.sort(keys, dim=1, descending=True, stable=True)
     return indices[:, :w + 1], values[:, :w + 1]
+
+
+def make_scanned_beam_decoder(model, max_length: int, beam_width: int = 5):
+    """decode(betas (K, B, N), start_id, end_id) -> words (K, B, T) int32:
+    the JAX ``make_scanned_beam_decoder``, K stacked batches a call, walked
+    one by one as the JAX scan walks them (see
+    ``greedy.make_scanned_greedy_decoder``)."""
+    inner = make_beam_decoder(model, max_length, beam_width=beam_width)
+
+    @torch.inference_mode()
+    def decode(betas: torch.Tensor, start_id: int, end_id: int):
+        return torch.stack([inner(b, start_id, end_id)[0] for b in betas])
+
+    return decode
 
 
 def make_beam_decoder(model, max_length: int, beam_width: int = 5,

@@ -5,9 +5,10 @@ encode once, then ``max_length`` steps of ``decode_step`` and argmax, for
 either cell of ``NIC`` (a GRU carries ``c`` through unchanged) and for
 ``ShowTell``. Like the reference it always runs every step (no stop at
 ``<end>``). It is the oracle for the whole-decode kernel, the path behind
-``Captioner(use_fused=False)``, and the greedy decoder of the ShowTell
-family, which has no kernel in the JAX package either. The scanned multi-batch variant waits for a
-later PR (ROADMAP M6).
+``Captioner(use_fused=False)``, of ``tpu.use_pallas: false`` and of the
+ShowTell family, which has no kernel in the JAX package either.
+``make_scanned_greedy_decoder`` decodes K stacked batches in one call,
+each as a single call would.
 """
 
 from __future__ import annotations
@@ -34,5 +35,28 @@ def make_greedy_decoder(model, max_length: int):
             alphas.append(alpha)
         return (torch.stack(words, 1).to(torch.int32),
                 torch.stack(logits, 1), torch.stack(alphas, 1))
+
+    return decode
+
+
+def make_scanned_greedy_decoder(model, max_length: int,
+                                return_logits: bool = False):
+    """decode(betas (K, B, N), start_id) -> words (K, B, T) int32, or
+    (words, logits (K, B, T, V)) with ``return_logits``.
+
+    Counterpart of the JAX ``make_scanned_greedy_decoder``, the serving
+    decoder of K stacked batches a call. It walks the batches one by one,
+    as the JAX ``lax.scan`` does, so that each slice is a single call's
+    words bit for bit: K·B rows in one product would sum in another order
+    and could move near-ties."""
+    inner = make_greedy_decoder(model, max_length)
+
+    @torch.inference_mode()
+    def decode(betas: torch.Tensor, start_id: int):
+        outs = [inner(b, start_id) for b in betas]
+        words = torch.stack([o[0] for o in outs])
+        if return_logits:
+            return words, torch.stack([o[1] for o in outs])
+        return words
 
     return decode

@@ -20,14 +20,18 @@ group layout), ``glove_table.npy`` (for a GloVe run), ``modelsummary.txt``,
 checkpoint files are torch's (``train/checkpoint.py``).
 
 Every entry point runs on the card (``cuda``) unless it is given
-``device="cpu"``. There, every train and val batch gathers its rows from
-the device store through K1 (``ops.gather``), with ``tpu.scan_steps`` > 0
-for ``lc_nic``/``ms_nic`` from a store permuted once into the encoder's
+``device="cpu"``. There, every train, val and test batch gathers its rows
+from the device store through K1 (``ops.gather``), with ``tpu.scan_steps``
+> 0 for ``lc_nic``/``ms_nic`` from a store permuted once into the encoder's
 grouped layout ("pregathered"), and every greedy decode of a ``NIC`` runs
-K2 (LSTM) or K3 (GRU) (``ops.fused_decode``). The ShowTell family has no
-kernel, here as in the JAX package, and decodes through the step loop; beam
-and sampling are plain PyTorch on any device. On the CPU each kernel takes
-its plain PyTorch version. ``layout.npz`` and ``run_meta.json``'s
+K2 (LSTM) or K3 (GRU) (``ops.fused_decode``). ``tpu.use_pallas: false``
+takes the JAX package's plain paths instead, on the card as on the CPU:
+every gather through the library take (``ops.gather.take_rows``) and every
+greedy decode through the step loop (``decode.greedy``), so that K1, K2 and
+K3 make no launch. The ShowTell family has no kernel, here as in the JAX
+package, and decodes through the step loop; beam and sampling are plain
+PyTorch on any device. On the CPU each kernel takes its plain PyTorch
+version. ``layout.npz`` and ``run_meta.json``'s
 ``input_row_shape`` let serving (``serve.Captioner.from_run_dir``) rebuild
 a model that takes raw rows.
 
@@ -49,8 +53,8 @@ set, ``run_training`` is one rank's part of a sharded run
 masters on the card and in fp32 on the CPU (``train.steps._compute_dtype``:
 logged once, and recorded as ``run_meta.json``'s ``compute_dtype``);
 ``tpu.remat`` reaches the NIC, ImgNIC and CnnRnnNIC models
-(``train.state.model_for``). ``tpu.use_pallas: false`` is refused on the
-card (``config.unsupported_knobs``).
+(``train.state.model_for``). ``vocab_overlap`` compares two tokenizers'
+top-k vocabularies (caption_analysis.py::unique_words).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ import numpy as np
 import torch
 
 from masters_thesis_tpu_torch import __version__
-from masters_thesis_tpu_torch.config import Config, unsupported_knobs
+from masters_thesis_tpu_torch.config import Config
 from masters_thesis_tpu_torch.data.pairs import encode_pairs
 from masters_thesis_tpu_torch.data.pipeline import BatchPipeline, EvalPipeline
 from masters_thesis_tpu_torch.data.preprocess.glasser import select_groups
@@ -86,7 +90,7 @@ from masters_thesis_tpu_torch.models.showtell import showtell_l2_rules
 from masters_thesis_tpu_torch.ops.fused_decode import (
     make_whole_fused_greedy_decoder,
 )
-from masters_thesis_tpu_torch.ops.gather import gather_rows
+from masters_thesis_tpu_torch.ops.gather import row_gather
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
 from masters_thesis_tpu_torch.train.state import (
@@ -335,8 +339,11 @@ def build_model(cfg: Config, groups, n_voxels: int,
 def _greedy_decoder(model, cfg: Config):
     """decode(betas, start_id) -> (words, ..., alphas): for a ``NIC``, K2 or
     K3 on the card and its plain version on the CPU; the step loop for the
-    ShowTell family, which has no kernel."""
-    if isinstance(model, NIC):
+    ShowTell family, which has no kernel, and for every model under
+    ``tpu.use_pallas: false``. (The JAX ``_greedy_decoder``, behind the val
+    caption metrics and the previews, is always the step loop; its
+    ``run_eval`` takes the kernel on the TPU: ROADMAP §3.)"""
+    if cfg.tpu.use_pallas and isinstance(model, NIC):
         return make_whole_fused_greedy_decoder(model, cfg.max_length)
     return make_greedy_decoder(model, cfg.max_length)
 
@@ -402,7 +409,6 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
     from masters_thesis_tpu_torch.utils.summary import model_summary
 
     device = resolve_device(device)
-    unsupported_knobs(cfg, device)
     compute_dtype = steps._compute_dtype(cfg, device)
     logger.info("training forward in %s (tpu.compute_dtype %s on %s)",
                 str(compute_dtype).removeprefix("torch."),
@@ -497,7 +503,8 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
         data = shard_store_array(data, layout, mesh)
     elif pregathered:
         data = permute_rows(data, layout)
-    store = ArrayStore(data, keys, device=device, dtype=cfg.tpu.store_dtype)
+    store = ArrayStore(data, keys, device=device, dtype=cfg.tpu.store_dtype,
+                       kernel=cfg.tpu.use_pallas)
     del data
 
     train_enc = encode_pairs(pairs["train"], tok, cfg.max_length)
@@ -733,12 +740,13 @@ def run_eval(bundle, run_path: str, epoch: int | None = None,
     test pair (val when there is no test split), written as
     ``output_captions_{e}.npy``, ``attention_scores_{e}.npy`` and
     ``captions_{e}.txt``. ``decoder`` "greedy" runs K2 or K3 for a ``NIC``
-    (the step loop for the ShowTell family); "beam" the fixed-lattice beam
-    of ``beam_width``, whose attention file holds the winning hypothesis'
-    own trail. ``ms2_subject`` picks the encoder that decodes an ms2_nic
-    run (the split layout is a training batch contract; the reference
-    evaluates one subject at a time). Returns {"words", "keys", "texts",
-    "epoch"}."""
+    (the step loop for the ShowTell family, and for every model under
+    ``tpu.use_pallas: false``, whose rows come through the library take);
+    "beam" the fixed-lattice beam of ``beam_width``, whose attention file
+    holds the winning hypothesis' own trail. ``ms2_subject`` picks the
+    encoder that decodes an ms2_nic run (the split layout is a training
+    batch contract; the reference evaluates one subject at a time).
+    Returns {"words", "keys", "texts", "epoch"}."""
     if decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {decoder!r}: expected 'greedy' "
                          f"or 'beam'")
@@ -748,6 +756,7 @@ def run_eval(bundle, run_path: str, epoch: int | None = None,
     enc = encode_pairs(pairs, tok, cfg.max_length)
     bs = min(cfg.batch_size, len(enc))
     pipe = EvalPipeline(enc, store, bs)
+    gather = row_gather(cfg.tpu.use_pallas)
     if decoder == "greedy":
         dec = _greedy_decoder(model, cfg)
     else:
@@ -767,7 +776,7 @@ def run_eval(bundle, run_path: str, epoch: int | None = None,
             logger.info("ms2 eval: decoding through encoder_%s", ms2_subject)
             encoder.mode = ms2_subject
         for batch in pipe.epoch():
-            betas = gather_rows(
+            betas = gather(
                 store.device_array(),
                 torch.as_tensor(batch["idx"], device=store.device))
             out = dec(betas, tok.start_id)
@@ -1262,3 +1271,22 @@ def corpus_stats(texts: list[str]) -> dict:
                for q in (0.25, 0.5, 0.75, 0.9, 0.99)},
         }
     return stats
+
+
+def vocab_overlap(tok_a, tok_b, top_k: int = 5000) -> dict:
+    """Fraction of tokenizer A's top-k vocabulary present in tokenizer B's
+    top-k (caption_analysis.py::unique_words: 73k-corpus vocab vs one
+    subject's vocab). Words rank by count, most first, ties in the order
+    of ``word_counts`` (a stable sort, as the JAX function's)."""
+    def top_words(tok):
+        pairs = sorted(tok.word_counts.items(), key=lambda x: x[1],
+                       reverse=True)
+        return [w for w, _ in pairs[:top_k]]
+
+    a, b = top_words(tok_a), set(top_words(tok_b))
+    overlap = sum(1 for w in a if w in b)
+    return {
+        "overlap": overlap,
+        "total": len(a),
+        "fraction": overlap / len(a) if a else 0.0,
+    }

@@ -15,7 +15,13 @@ The TPU's lane-packed (N, S, 128) layout and ``pack_rows`` exist for the
 TPU's DMA engine and are not ported. Out-of-range ids clamp, as on the TPU
 path (the JAX package's ``jnp.take`` fallback fills NaN rows instead).
 
-- ``gather_rows`` (K1): the train steps and the store gather through it.
+- ``gather_rows`` (K1): the train steps, the eval and the store gather
+  through it while ``tpu.use_pallas`` is true (the default).
+- ``take_rows``: the library take of ``tpu.use_pallas: false``, the port of
+  the JAX package's unpacked ``jnp.take`` branch: clamp, then
+  ``index_select``, on the card as on the CPU; it never launches K1.
+  ``row_gather(cfg.tpu.use_pallas)`` picks one of the two for every
+  gather of a run.
   ``gather_plan`` cuts each row by its bytes: a row under a block's sweep
   goes whole to a block sized to it, a vector a thread; a longer one into
   equal pieces of at most a sweep (half a sweep from 1 MiB), a block each.
@@ -73,6 +79,21 @@ def gather_rows(store: torch.Tensor, idx: torch.Tensor,
 
 
 gather_rows.launches = 0
+
+
+def take_rows(store: torch.Tensor, idx: torch.Tensor,
+              width: int | None = None) -> torch.Tensor:
+    """Rows ``idx`` of ``store`` through the library, on whatever device
+    both are: the gather of ``tpu.use_pallas: false``. Out-of-range ids
+    clamp, as K1's do (the JAX ``jnp.take`` fills NaN rows for them; in
+    range the two agree)."""
+    return gather_rows_reference(store, idx, width)
+
+
+def row_gather(kernel: bool):
+    """The store gather of a run: K1 (``gather_rows``) where ``kernel``
+    (``tpu.use_pallas``), else the library take (``take_rows``)."""
+    return gather_rows if kernel else take_rows
 
 
 class GatherPlan(NamedTuple):

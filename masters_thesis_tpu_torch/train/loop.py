@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from masters_thesis_tpu_torch.ops.gather import gather_rows
+from masters_thesis_tpu_torch.ops.gather import row_gather
 
 logger = logging.getLogger(__name__)
 
@@ -130,11 +130,13 @@ class Trainer:
 
     def _batch_arrays(self, batch):
         """The batch on the device, its rows gathered from the store through
-        K1 (this rank's rows under a mesh)."""
+        K1, or the library take under ``tpu.use_pallas: false`` (this
+        rank's rows under a mesh)."""
         if self.input_placer is not None:
             batch = self.input_placer.batch(batch)
         idx = torch.as_tensor(batch["idx"], device=self.device)
-        return (gather_rows(self.store.device_array(), idx),
+        return (row_gather(self.cfg.tpu.use_pallas)(
+                    self.store.device_array(), idx),
                 torch.as_tensor(batch["tokens"], device=self.device),
                 torch.as_tensor(batch["target"], device=self.device))
 

@@ -14,10 +14,11 @@ padded targets.
 
 "Scanned" steps run K steps inside one call as a Python loop: each step
 indexes the device-resident tables with its row of the (K, B) pair ids,
-gathers the betas from the store through K1 (``ops.gather.gather_rows``),
-and the metrics come back stacked (K,) and still on the device, so the host
-never waits on a step. A CUDA graph of the step is later work (ROADMAP
-M17).
+gathers the betas from the store through K1 (``ops.gather.gather_rows``;
+under ``tpu.use_pallas: false`` the library take, ``ops.gather.take_rows``,
+as the JAX package takes them with ``jnp.take``), and the metrics come
+back stacked (K,) and still on the device, so the host never waits on a
+step. A CUDA graph of the step is later work (ROADMAP M17).
 
 Mixed precision (``tpu.compute_dtype: bfloat16``) follows the JAX
 ``_compute_dtype``: bf16 on the accelerator (here a CUDA device), fp32
@@ -48,7 +49,7 @@ from masters_thesis_tpu_torch.ops.fused_seq import (
     fused_train_supported,
     make_train_forward_loss,
 )
-from masters_thesis_tpu_torch.ops.gather import gather_rows
+from masters_thesis_tpu_torch.ops.gather import row_gather
 from masters_thesis_tpu_torch.train.losses import (
     accuracy,
     attention_loss,
@@ -168,11 +169,13 @@ def make_train_step(cfg, l2_rules, masked: bool = False, mesh=None):
 
 def make_gathered_train_step(cfg, l2_rules, masked: bool = False):
     """``step(state, store, idx, tokens, target) -> (state, metrics)``, the
-    beta rows gathered from the device store by K1 inside the step."""
+    beta rows gathered from the device store inside the step by
+    ``ops.gather.row_gather``."""
     one = _step_body(cfg, l2_rules, masked)
+    gather = row_gather(cfg.tpu.use_pallas)
 
     def step(state, store, idx, tokens, target):
-        return one(state, gather_rows(store, idx), tokens, target)
+        return one(state, gather(store, idx), tokens, target)
 
     return step
 
@@ -214,13 +217,15 @@ def make_scanned_train_steps_from_tables(cfg, l2_rules, masked: bool = False,
                                          mesh=None):
     """``steps(state, store, store_idx (N,), tokens (N, T), target (N, T),
     pair_idx (K, B)) -> (state, metrics stacked (K,))``: K steps in one
-    call, the tables and the store on the device and indexed by pair id."""
+    call, the tables and the store on the device and indexed by pair id,
+    the rows gathered by ``ops.gather.row_gather``."""
     one = _step_body(cfg, l2_rules, masked, mesh)
+    gather = row_gather(cfg.tpu.use_pallas)
 
     def steps(state, store, store_idx, tokens, target, pair_idx):
         metrics = []
         for pidx in pair_idx:
-            betas = gather_rows(store, store_idx.index_select(0, pidx))
+            betas = gather(store, store_idx.index_select(0, pidx))
             state, m = one(state, betas, tokens.index_select(0, pidx),
                            target.index_select(0, pidx))
             metrics.append(m)
@@ -234,10 +239,11 @@ def make_scanned_eval_steps_from_tables(cfg, l2_rules, masked: bool = False,
     """The whole validation pass in one call, over the (K, B) pair ids, as
     ``make_scanned_train_steps_from_tables``: metrics stacked (K,)."""
     body = _eval_body(cfg, l2_rules, masked, mesh)
+    gather = row_gather(cfg.tpu.use_pallas)
 
     def steps(state, store, store_idx, tokens, target, pair_idx):
         return _stack([body(state,
-                            gather_rows(store, store_idx.index_select(0, p)),
+                            gather(store, store_idx.index_select(0, p)),
                             tokens.index_select(0, p),
                             target.index_select(0, p))
                        for p in pair_idx])

@@ -2,13 +2,11 @@
 ``Config`` (PyYAML): every file of ``configs/`` loads to the same
 ``to_dict()``; a config either package saved loads in the other to the same
 dict; the reader parses as ``yaml.safe_load`` does, and input outside its
-YAML subset raises, naming the line. ``use_pallas: false`` is refused on the
-card."""
+YAML subset raises, naming the line."""
 
 from pathlib import Path
 
 import pytest
-import torch
 import yaml
 
 from masters_thesis_tpu.config import Config as JConfig
@@ -17,7 +15,6 @@ from masters_thesis_tpu_torch.config import (
     dump_yaml,
     load_config,
     load_yaml,
-    unsupported_knobs,
 )
 
 CONFIGS = sorted((Path(__file__).resolve().parents[1] / "configs")
@@ -110,14 +107,3 @@ def test_outside_the_subset_raises_naming_the_line(text, what):
         load_yaml(text, "cfg.yaml")
     if what is not None:
         assert err.match(what)
-
-
-def test_plain_versions_are_refused_on_the_card():
-    """``use_pallas: false`` cannot put the plain versions on a CUDA run;
-    on the CPU they are the only route, and the knob changes nothing."""
-    cfg = Config()
-    cfg.tpu.use_pallas = False
-    with pytest.raises(ValueError, match="use_pallas: false has no route"):
-        unsupported_knobs(cfg, torch.device("cuda"))
-    unsupported_knobs(cfg, torch.device("cpu"))
-    unsupported_knobs(Config(), torch.device("cuda"))

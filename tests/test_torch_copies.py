@@ -22,6 +22,7 @@ from masters_thesis_tpu.data import pipeline as jpipeline
 from masters_thesis_tpu.data import synthetic as jsynthetic
 from masters_thesis_tpu.data import tokenizer as jtokenizer
 from masters_thesis_tpu.data.store import ArrayStore as JArrayStore
+from masters_thesis_tpu.experiment import vocab_overlap as j_vocab_overlap
 from masters_thesis_tpu.evalsuite.tokens import ids_to_caption as j_ids_to_caption
 from masters_thesis_tpu.evalsuite.tokens import (
     postprocess_text as j_postprocess_text,
@@ -34,6 +35,7 @@ from masters_thesis_tpu.utils import tensorboard as jtensorboard
 from masters_thesis_tpu_torch.data import captions, pairs, pipeline, synthetic
 from masters_thesis_tpu_torch.data import tokenizer
 from masters_thesis_tpu_torch.data.store import ArrayStore
+from masters_thesis_tpu_torch.experiment import vocab_overlap
 from masters_thesis_tpu_torch.evalsuite.tokens import (
     ids_to_caption,
     postprocess_text,
@@ -583,3 +585,34 @@ def _fit_texts(module, texts):
     tok.fit_on_texts(texts)
     tok.install_pad()
     return tok
+
+
+# the two tokenizers' texts: the JAX test's (tests/test_captions_and_variants
+# .py:89-98), and the cleaned captions of two disjoint synthetic key sets
+# (34 and 30 words, 28 shared; at top_k 5 the cut falls among equal counts)
+OVERLAP_TEXTS = {
+    "jax test": (["a a a b b c"], ["b c c d"]),
+    "disjoint synthetic": tuple(
+        [jpairs.clean_caption(c) for lines in
+         jsynthetic.synthetic_captions(keys, seed=seed).values()
+         for c in lines]
+        for keys, seed in ((range(0, 2), 5), (range(2, 4), 6))),
+}
+
+
+@pytest.mark.parametrize("top_k", [2, 5, 50, 5000])
+@pytest.mark.parametrize("texts", sorted(OVERLAP_TEXTS))
+def test_vocab_overlap_matches_original(texts, top_k):
+    """The same dict from each package's tokenizers, fitted to the same
+    texts, at a cut inside, near and past the vocabularies."""
+    got, want = ({}, {})
+    for module, fn, out in ((tokenizer, vocab_overlap, got),
+                            (jtokenizer, j_vocab_overlap, want)):
+        toks = []
+        for part in OVERLAP_TEXTS[texts]:
+            tok = module.Tokenizer(num_words=10)
+            tok.fit_on_texts(part)
+            toks.append(tok)
+        out.update(fn(*toks, top_k=top_k))
+    assert got == want
+    assert 0 < want["total"] <= top_k

@@ -113,7 +113,8 @@ def runs(tmp_path_factory):
                                                 device="cpu")
     return {"jb": jb, "jb_path": jb_path, "jb_logs": jb_logs,
             "jb_eval": jb_eval, "jb_metrics": jb_metrics, "p": p,
-            "p_path": p_path, "p_logs": p_logs, "tmp": tmp, "yaml": path}
+            "p_path": p_path, "p_logs": p_logs, "tmp": tmp, "yaml": path,
+            "run_a": run_a, "port_a": str(port_a)}
 
 
 def _records(run_path, kind="epoch"):
@@ -211,20 +212,16 @@ def _port_bundle_with_jax_weights(runs):
     return bundle
 
 
-def test_eval_on_jax_weights_gives_the_jax_words(runs):
-    bundle = _port_bundle_with_jax_weights(runs)
-    out_dir = runs["tmp"] / "eval"
-    out_dir.mkdir()
-    got = experiment.run_eval(bundle, str(out_dir))
-    want = runs["jb_eval"]
+def _equal_but_at_near_ties(bundle, got, want):
+    """``run_eval``'s words ``got`` equal ``want``'s, but on rows that first
+    differ at a near-tie of ``bundle``'s model (top-2 logit margin <
+    TIE_MARGIN): two decodes that sum in different orders may part there.
+    At most a tenth of the rows."""
     np.testing.assert_array_equal(got["keys"], want["keys"])
-    assert got["epoch"] == want["epoch"] == 1
     words, jwords = got["words"], np.asarray(want["words"])
     assert words.shape == jwords.shape and words.dtype == np.int32
     differs = np.nonzero((words != jwords).any(axis=1))[0]
     if len(differs):
-        # a near-tie of the port's plain decode at the first step that
-        # differs is no fault: the two sum in different orders
         store, cfg = bundle["store"], bundle["cfg"]
         rows = store.device_array()[store.indices_for(got["keys"][differs])]
         model = bundle["model"].eval()
@@ -235,9 +232,114 @@ def test_eval_on_jax_weights_gives_the_jax_words(runs):
             first = int(np.argmax(words[row] != jwords[row]))
             assert float(margins[i, first]) < TIE_MARGIN, row
     assert len(differs) <= len(words) // 10
+
+
+def test_eval_on_jax_weights_gives_the_jax_words(runs):
+    bundle = _port_bundle_with_jax_weights(runs)
+    out_dir = runs["tmp"] / "eval"
+    out_dir.mkdir()
+    got = experiment.run_eval(bundle, str(out_dir))
+    want = runs["jb_eval"]
+    np.testing.assert_array_equal(got["keys"], want["keys"])
+    assert got["epoch"] == want["epoch"] == 1
+    _equal_but_at_near_ties(bundle, got, want)
     for name in ("output_captions_1.npy", "attention_scores_1.npy",
                  "captions_1.txt"):
         assert (out_dir / name).exists()
+
+
+def _no_pallas(cfg):
+    return dataclasses.replace(
+        cfg, tpu=dataclasses.replace(cfg.tpu, use_pallas=False))
+
+
+@pytest.fixture(scope="module")
+def plain_runs(runs):
+    """The fixture's warm-started runs again under ``tpu.use_pallas:
+    false``: JAX C from A and the port's Q from A's port checkpoint, 2
+    epochs each, then ``run_eval``; and P's ``run_eval``, the knob-on
+    twin's words."""
+    jcfg = _no_pallas(JConfig.load(runs["yaml"]))
+    jc_path, _, jc = jexp.run_training(
+        dataclasses.replace(jcfg, run="C", warm_start=runs["run_a"]),
+        epochs=2, smoke_keys=KEYS)
+    cfg = _no_pallas(Config.load(runs["yaml"]))
+    q_path, _, q = experiment.run_training(
+        dataclasses.replace(cfg, run="Q", warm_start=runs["port_a"]),
+        epochs=2, smoke_keys=KEYS, device="cpu")
+    p_eval = runs["tmp"] / "p_eval"
+    p_eval.mkdir()
+    return {"jc_path": jc_path, "jc_eval": jexp.run_eval(jc, jc_path),
+            "q": q, "q_path": q_path,
+            "q_eval": experiment.run_eval(q, q_path),
+            "p_eval": experiment.run_eval(runs["p"], str(p_eval))}
+
+
+def test_plain_route_matches_the_jax_plain_run(plain_runs):
+    """``use_pallas: false`` in both packages: the port's epoch losses
+    within TRAJ of the JAX run's, and its words, near-ties excepted."""
+    got, want = (_records(plain_runs[k]) for k in ("q_path", "jc_path"))
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [0, 1]
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose([r[key] for r in got],
+                                   [r[key] for r in want], **TRAJ,
+                                   err_msg=key)
+    _equal_but_at_near_ties(plain_runs["q"], plain_runs["q_eval"],
+                            plain_runs["jc_eval"])
+
+
+def test_plain_route_equals_the_kernel_route_bit_for_bit(runs, plain_runs):
+    """The port's runs with the knob off and on from the same checkpoint:
+    every epoch record's loss and val loss and the final parameters equal
+    bit for bit (a gather is a copy either way); the words of the step loop
+    and of K2's plain version, near-ties excepted."""
+    got, want = _records(plain_runs["q_path"]), _records(runs["p_path"])
+    for key in ("loss", "val_loss", "accuracy", "L2"):
+        assert [r[key] for r in got] == [r[key] for r in want], key
+    q_state = plain_runs["q"]["state"].model.state_dict()
+    p_state = runs["p"]["state"].model.state_dict()
+    assert q_state.keys() == p_state.keys()
+    assert all(torch.equal(q_state[k], p_state[k]) for k in q_state)
+    _equal_but_at_near_ties(runs["p"], plain_runs["q_eval"],
+                            plain_runs["p_eval"])
+
+
+@pytest.mark.parametrize("scan_steps", [0, 2])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_picks_the_route(use_pallas, scan_steps, tmp_path,
+                                    monkeypatch):
+    """``run_training`` and ``run_eval`` on the CPU, per step and scanned:
+    with the knob off, K1's wrapper (``ops.gather.gather_rows``) and the
+    whole-decode factory are never called; with it on, both are."""
+    from masters_thesis_tpu_torch.ops import gather
+
+    calls = {"gather_rows": 0, "make_whole_fused_greedy_decoder": 0}
+
+    def watched(name, fn):
+        def call(*args, **kwargs):
+            if not use_pallas:
+                raise AssertionError(f"{name} called under use_pallas: "
+                                     f"false")
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(gather, "gather_rows",
+                        watched("gather_rows", gather.gather_rows))
+    monkeypatch.setattr(experiment, "make_whole_fused_greedy_decoder",
+                        watched("make_whole_fused_greedy_decoder",
+                                experiment.make_whole_fused_greedy_decoder))
+    cfg = dataclasses.replace(
+        _cfg(use_pallas=use_pallas, scan_steps=scan_steps,
+             caption_metrics_every=1), log=str(tmp_path))
+    run_path, logs, bundle = experiment.run_training(
+        cfg, epochs=1, smoke_keys=KEYS, device="cpu")
+    out = experiment.run_eval(bundle, run_path)
+    rows = bundle["store"].device_gather([0, 1])
+    assert np.isfinite(logs["loss"]) and len(out["words"]) and len(rows) == 2
+    assert bundle["store"].kernel is use_pallas
+    if use_pallas:
+        assert all(calls.values()), calls
 
 
 def test_metrics_on_the_jax_texts_give_the_jax_dict(runs):

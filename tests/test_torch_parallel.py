@@ -20,7 +20,9 @@ and under ``tpu.fused_seq``; a 1 x 1 config through ``train --processes``
 becomes data-parallel. A
 multi-rank checkpoint restores in one process and on another topology bit
 for bit, and a run resumed on another topology equals the uninterrupted
-one. Then the launcher's typed failures and port-race markers (the JAX
+one; ``tpu.use_pallas: false`` at data 1 x model 2 never calls K1's
+wrapper and trains the single-process run's epoch. Then the launcher's
+typed failures and port-race markers (the JAX
 markers, and torch's bind error), ``caption --shard 2`` on two CPU
 replicas, and ``dryrun`` on 4 CPU ranks.
 """
@@ -440,6 +442,20 @@ def test_other_routes_match_the_single_process_run(tmp_path, name, tpu):
                           1, knobs))
     assert got["mesh"] == {"data": 2, "model": 2}
     _close(got, want)
+
+
+def test_plain_route_under_a_mesh_takes_no_kernel(runs, tmp_path):
+    """``tpu.use_pallas: false`` at data 1 x model 2 (a voxel-sharded
+    store, the scanned steps): K1's wrapper raises
+    in every rank and no rank counts a launch, and the epoch is the
+    single-process run's first."""
+    got = run_ranks(2, "plain_route_run", str(tmp_path / "mp"), 1, 2)
+    assert got["mesh"] == {"data": 1, "model": 2}
+    assert got["launches_by_rank"]["gather_rows"] == [0, 0]
+    single = runs["single"]
+    for key in ("epoch_losses", "epoch_val_losses"):
+        np.testing.assert_allclose(got[key], single[key][:1], rtol=0,
+                                   atol=LOSS_ATOL, err_msg=key)
 
 
 def test_cli_train_makes_a_1x1_config_data_parallel(runs):

@@ -322,6 +322,22 @@ def family_run(name: str, root: str, mesh_data: str, mesh_model: str,
     return _training_report(run_path, bundle, logs)
 
 
+def plain_route_run(root: str, mesh_data: str, mesh_model: str) -> dict:
+    """``family_run`` of lc_nic for one epoch under ``tpu.use_pallas:
+    false``, K1's wrapper replaced by one that raises: every gather of the
+    rank must take the library take. The stand-in carries K1's count for
+    the report, which nothing moves while it stands."""
+    from masters_thesis_tpu_torch.ops import gather
+
+    def refused(*args, **kwargs):
+        raise AssertionError("K1's wrapper called under use_pallas: false")
+
+    refused.launches = gather.gather_rows.launches
+    gather.gather_rows = refused
+    return family_run("lc_nic", root, mesh_data, mesh_model, "1",
+                      '{"use_pallas": false}')
+
+
 def padded_vocab_run(root: str, mesh_data: str, mesh_model: str) -> dict:
     """The drive's config at vocab 61 padded to 64 on this rank's part of
     a mesh_data x mesh_model mesh; its report."""
