@@ -9,14 +9,23 @@ Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
-  PyTorch version, serves three HTTP caption requests through the port's
-  ``Captioner`` and caption server, and times the kernel, the plain
-  version, the unfused greedy decoder and captions per second;
+  PyTorch version (its words and alphas must have K2_DIGEST, PR 7's),
+  serves three HTTP caption requests through the port's ``Captioner`` and
+  caption server, and times the kernel, the plain version, the unfused
+  greedy decoder and captions per second; then the bf16-weight K2 (the
+  TPU kernel as the TPU runs it, ``feat_bf16`` off and on) against its
+  bf16 plain version and that version summed in float64, a one-step decode
+  within the fp32 limits and the whole decode within BF16_ALPHA_ATOL and
+  BF16_TIE_MARGIN, which the fp32 decode must fail, with the rows whose
+  words differ from the fp32 kernel's and their fp32 margins, timed beside
+  the fp32 K2; and three HTTP requests through
+  ``Captioner(weights_bf16=True)``, which must launch it;
 - CnnRnn serving (GRU, on (64, 2048) InceptionV3 patch rows): holds the GRU
   whole-decode kernel (K3) against its plain version for both values of
   ``gru_zero_state``, serves 256 host rows through ``Captioner`` and one
   ``.npy`` request through the server, and times K3, its plain version and
-  captions per second;
+  captions per second; then the bf16-weight K3, both zero-state values, as
+  the bf16 K2, and one request through ``Captioner(weights_bf16=True)``;
 - LcNIC training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
   on the card, holds the store row gather (K1) against its plain version and
   a 3-step dropout-off trajectory through K1 against the same steps through
@@ -195,8 +204,10 @@ statistic is live and the greedy words vary; the run fails if they do not.
 The flagship layout is the synthetic 360-group one of ``bench.py``. The last
 line is the JSON object ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel with its launches on its path (K2 while serving LcNIC,
-K3 while serving CnnRnn, K1 while training, K4 through the eval-mode fused
-loss with ``backend="kernel"``, P1, P2 and P3 through the probe's run; K1
+K3 while serving CnnRnn, the bf16-weight K2 and K3 while serving through
+``Captioner(weights_bf16=True)``, K1 while training, K4 through the
+eval-mode fused loss with ``backend="kernel"``, P1, P2 and P3 through the
+probe's run; K1
 and K2 also under ``launches_experiment``, their launches in the training
 product's phase, K1, K2 and K3 under ``launches_families``, theirs in
 the families' runs, under ``launches_ingest``, theirs in the ingest
@@ -215,7 +226,9 @@ version, both times, the least time the card could take for the same work
 where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
 K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
-the bf16-weight K4's holds its device time a step by part under
+the bf16-weight K2's holds its check and times with ``feat_bf16`` under
+``feat_bf16`` and the bf16 K2's and K3's the fp32 kernel's time under
+``fp32_ms``, the bf16-weight K4's holds its device time a step by part under
 ``us_a_step`` and the cell's rate under ``cell_tflops`` at both shapes,
 and P3's holds its and ``index_select``'s times in turns under ``turns``;
 K1's holds, for the training store and each ingest and sweep run's store,
@@ -253,6 +266,20 @@ BATCH = 64
 SEED = 0
 ALPHA_ATOL = 1e-6   # fp32, summation order only (measured ~3e-7)
 TIE_MARGIN = 1e-3   # a top-2 logit margin below this is a near-tie
+# K2's words and alphas on the seeded flagship inputs, unchanged since PR 7
+K2_DIGEST = "3e0a4c5e5f56edebf92f2811205bef7a3ddd16f6bb8217194dcf154995eed0cb"
+# The bf16-weight decode (K2 and K3 as the TPU runs them) against its plain
+# version: a one-step decode (T = 1) is held to the fp32 limits above. Over
+# 15 steps the bf16 rounding of h turns the last-bit differences of two
+# summation orders into bf16 ones wherever a value lies near a rounding
+# boundary (PR 16's finding for the bf16 K4), and they grow with the
+# recurrence: the alphas are held to BF16_ALPHA_ATOL up to a row's first
+# differing word, and a row may take another word only where the plain
+# version's top-2 margin is under BF16_TIE_MARGIN. The fp32 plain version
+# must fail the same check against the bf16 one, so the limits are tighter
+# than the bf16 rounding they look for.
+BF16_ALPHA_ATOL = 1e-3
+BF16_TIE_MARGIN = 1e-2
 MIN_DISTINCT_WORDS = 16     # over the B x T greedy words of the check
 MIN_NONEMPTY_SHARE = 0.9    # of the served captions
 REQUEST_ROWS = (1, 5, 64)   # .npy, JSON, .npy
@@ -356,35 +383,42 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> dict:
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS,
+          bf16_flops: float = 0.0) -> dict:
     """The least time the card could take for work that must move
-    ``nbytes`` and do ``flops`` operations at ``peak`` (by default fp32):
-    the larger of the two times at the card's peaks, and which of them it
-    is."""
+    ``nbytes`` and do ``flops`` operations at ``peak`` (by default fp32)
+    and ``bf16_flops`` more on the bf16 tensor cores: the larger of the two
+    times at the card's peaks, and which of them it is."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / peak * 1e3
+    by_ops = (flops / peak + bf16_flops / BF16_FLOPS) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def decode_bound(cell: str, inputs, opts: dict, T: int, vocab: int) -> dict:
     """``bound`` of one whole greedy decode on ``inputs`` (the kernel's
-    arguments): each input read once (the head's and the embedding's true
-    vocab only; no Wh under zero state, whose cell never reads it), words
-    and alphas written once, and per row and step the fp32 multiply-adds of
-    the attention (h W2, the scores, the context), the cell and the head."""
+    arguments): each input read once at its dtype's size (the head's and
+    the embedding's true vocab only; no Wh under zero state, whose cell
+    never reads it), words and alphas written once, and per row and step
+    the multiply-adds of the attention (h W2, the scores, the context), the
+    cell and the head: all fp32, or with bf16 weights the cell's and the
+    head's on the bf16 tensor cores."""
     from masters_thesis_tpu_torch.ops.fused_decode import DECODE_ARGS
 
     a = dict(zip(DECODE_ARGS[cell], inputs))
     B, R, A = a["pre"].shape
     D, (U, H) = a["features"].shape[2], a["wi"].shape
     skip = {"wo", "bo"} | ({"wh"} if opts.get("zero_state") else set())
-    read = sum(t.numel() for n, t in a.items() if n not in skip)
-    read += H * vocab + vocab
-    written = B * T * (1 + R)
+    read = sum(t.numel() * t.element_size()
+               for n, t in a.items() if n not in skip)
+    read += H * vocab * a["wo"].element_size() + vocab * 4
+    written = 4 * B * T * (1 + R)
     cell_fma = a["wx"].numel() + (0 if "wh" in skip else a["wh"].numel())
-    fma = B * T * (U * A + R * A + R * D + cell_fma + U * H + H * vocab)
-    return bound(4 * (read + written), 2 * fma)
+    attn = B * T * (U * A + R * A + R * D)
+    weights = B * T * (cell_fma + U * H + H * vocab)
+    if a["wx"].dtype == torch.bfloat16:
+        return bound(read + written, 2 * attn, bf16_flops=2 * weights)
+    return bound(read + written, 2 * (attn + weights))
 
 
 def build_kernels() -> None:
@@ -418,13 +452,14 @@ def flagship_model(device, **variant):
 
 @torch.inference_mode()
 def check_kernel(model, rows, card: str, label: str, timed: bool = True,
-                 profile: bool = False) -> dict:
+                 profile: bool = False, digest: str | None = None) -> dict:
     """The model's decode kernel (K2 or K3) against its plain version on the
     same inputs, on the card, and both against the plain version in
     float64; with ``timed``, then both timed, and the
     fused decoder with the encoder against the unfused one; with
-    ``profile``, the kernel's per-step split. Returns the kernel's entry of
-    the kernels line, less its launches."""
+    ``profile``, the kernel's per-step split; with ``digest``, K2's words
+    and alphas must have that SHA-256. Returns the kernel's entry of the
+    kernels line, less its launches."""
     from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
@@ -494,10 +529,15 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
             ("h W2", "cell", "Wi", "Wo"), fd.lstm_decode_plans(inputs))}
         print(f"{label}: the tile kernel's plans, " + ", ".join(
             f"{part} {plan}" for part, plan in entry["tiles"].items()))
-        digest = hashlib.sha256(words.cpu().numpy().tobytes())
-        digest.update(alphas.cpu().numpy().tobytes())
+        sha = hashlib.sha256(words.cpu().numpy().tobytes())
+        sha.update(alphas.cpu().numpy().tobytes())
         print(f"{label}: SHA-256 of its words (int32) and alphas (fp32) on "
-              f"the seeded inputs: {digest.hexdigest()}")
+              f"the seeded inputs: {sha.hexdigest()}"
+              + ("" if digest is None else f" (must be {digest})"))
+        if digest is not None and sha.hexdigest() != digest:
+            raise RuntimeError(f"{label}'s words and alphas are no longer "
+                               f"the fp32 kernel's of PR 7 on: "
+                               f"{sha.hexdigest()} != {digest}")
     if not timed:
         return entry
 
@@ -520,6 +560,130 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
                    STEP_PARTS[cell], card)
     return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
             "library_ms": None}
+
+
+@torch.inference_mode()
+def check_kernel_bf16(model, rows, card: str, label: str,
+                      feat_bf16: bool = False, timed: bool = True) -> dict:
+    """The model's bf16-weight decode kernel (K2 or K3 with the weights and
+    the embedding table in bf16, and with ``feat_bf16`` pre and features)
+    against its bf16 plain version on the same inputs, and both against
+    that plain version summed in float64 on the same bf16 operands: a
+    one-step decode within the fp32 limits, the whole decode within
+    ``BF16_ALPHA_ATOL`` and ``BF16_TIE_MARGIN``, which the fp32 plain version
+    must fail. Prints the rows whose words differ from the fp32 kernel's,
+    with the fp32 plain version's margin at each first differing step.
+    With ``timed``, the kernel and its plain version timed. Returns the
+    kernel's entry of the kernels line, less its launches."""
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+
+    T, V = model.max_length, model.vocab_size
+    kernel, reference = fd.decode_kernel(model)
+    opts = fd.decode_options(model)
+    fp32 = fd.decode_inputs(model, rows, 1)
+    half = fd.cast_decode_inputs(model.cell_type, fp32, weights_bf16=True,
+                                 feat_bf16=feat_bf16)
+    wide = [t.double() if t.dtype == torch.float32 else t for t in half]
+    B, R = len(rows), half[0].shape[1]
+    err = 0.0
+    for steps, atol, tie in ((1, ALPHA_ATOL, TIE_MARGIN),
+                             (T, BF16_ALPHA_ATOL, BF16_TIE_MARGIN)):
+        words, alphas = kernel(*half, max_length=steps, **opts)
+        torch.cuda.synchronize()
+        if words.shape != (B, steps) or alphas.shape != (B, steps, R):
+            raise RuntimeError(f"{label}: output shapes "
+                               f"{tuple(words.shape)}, {tuple(alphas.shape)}")
+        if not (0 <= int(words.min()) and int(words.max()) < V):
+            raise RuntimeError(f"{label} produced an id outside the "
+                               f"vocabulary")
+        ref = reference(*half, max_length=steps, return_margins=True,
+                        **opts)
+        ref64 = reference(*wide, max_length=steps, return_margins=True,
+                          **opts)
+        reports = {who: fd.compare_with_reference(
+            w, a.double(), *want, alpha_atol=atol, tie_margin=tie)
+            for who, w, a, want in (
+                ("kernel vs plain", words, alphas, ref),
+                ("kernel vs float64", words, alphas, ref64),
+                ("plain vs float64", ref[0], ref[1], ref64))}
+        print(f"{label} at B={B} R={R} T={steps} V={V}: " + "; ".join(
+            f"{who} max |alpha err| {r['max_abs_err']:.3e}, near-tie rows "
+            f"{r['near_tie_rows']}, bad rows {len(r['bad_rows'])}"
+            for who, r in reports.items())
+            + f" (limits {atol}, margin {tie}) [{card}]")
+        for who, r in reports.items():
+            if r["bad_rows"]:
+                raise RuntimeError(f"{label}: {who} disagree on rows "
+                                   f"{r['bad_rows']}: {r}")
+        err = max(err, reports["kernel vs plain"]["max_abs_err"])
+    # the fp32 decode under the same limits: the check must tell it apart
+    ref32 = reference(*fp32, max_length=T, return_margins=True, **opts)
+    control = fd.compare_with_reference(
+        ref32[0], ref32[1], *ref, alpha_atol=BF16_ALPHA_ATOL,
+        tie_margin=BF16_TIE_MARGIN)
+    words32, _ = kernel(*fp32, max_length=T, **opts)
+    diff = words32 != words
+    moved = diff.any(dim=1).nonzero().flatten()
+    first = diff.int().argmax(dim=1)
+    margins = [f"{float(ref32[2][r, first[r]]):.2e}" for r in moved]
+    distinct = len(torch.unique(words))
+    print(f"{label}: the fp32 plain version against the bf16 one under the "
+          f"same limits: max |alpha err| {control['max_abs_err']:.3e}, bad "
+          f"rows {len(control['bad_rows'])} of {B} (must be some); rows "
+          f"whose words differ from the fp32 kernel's {len(moved)} of {B}, "
+          f"the fp32 margin at each first differing step "
+          f"[{', '.join(margins)}]; distinct words {distinct} [{card}]")
+    if not control["bad_rows"]:
+        raise RuntimeError(f"{label}: the check cannot tell the fp32 decode "
+                           f"from the bf16 one: {control}")
+    if distinct < MIN_DISTINCT_WORDS:
+        raise RuntimeError(f"{label}'s greedy words are degenerate: "
+                           f"{distinct} distinct < {MIN_DISTINCT_WORDS}")
+    entry = {"max_abs_err": err}
+    if not timed:
+        return entry
+    ms = cuda_ms(lambda: kernel(*half, max_length=T, **opts))
+    plain_ms = cuda_ms(lambda: reference(*half, max_length=T, **opts))
+    fp32_ms = cuda_ms(lambda: kernel(*fp32, max_length=T, **opts))
+    work = decode_bound(model.cell_type, half, opts, T, V)
+    print(f"{label} decode at B={B}, T={T}: kernel {ms:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms, the fp32 kernel {fp32_ms:.4f} ms, "
+          f"bound {work['bound_ms']:.4f} ms (by {work['bound_by']}; 3.35 "
+          f"TB/s, 989 TFLOP/s dense bf16 for the cell and head, 67 TFLOP/s "
+          f"fp32 for the attention) [{card}]")
+    return {**entry, "ms": ms, "plain_ms": plain_ms, **work,
+            "library_ms": None, "fp32_ms": fp32_ms}
+
+
+def serve_bf16(model, tok, rows: np.ndarray, card: str, label: str,
+               request_rows=REQUEST_ROWS) -> int:
+    """Captions ``rows`` through ``Captioner(weights_bf16=True)`` and its
+    HTTP server (``request_rows`` requests), counting the bf16-weight
+    kernel's launches from 0: at least one, and the served captions must
+    be ``caption``'s. Returns the launches."""
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+    from masters_thesis_tpu_torch.serve import Captioner
+
+    kernel, _ = fd.decode_kernel(model)
+    captioner = Captioner(model, tok, model.units, model.max_length,
+                          batch_size=BATCH,
+                          device=next(model.parameters()).device,
+                          weights_bf16=True)
+    kernel.launches_bf16 = 0
+    served = serve(captioner, rows, card, request_rows=request_rows)
+    launches = kernel.launches_bf16
+    print(f"{label} launches while serving {sum(request_rows)} rows "
+          f"through Captioner(weights_bf16=True): {launches}")
+    if launches < 1:
+        raise RuntimeError(f"Captioner(weights_bf16=True) never launched "
+                           f"{label}")
+    if served != captioner.caption(rows[:len(served)]):
+        raise RuntimeError(f"captions served with bf16 weights differ from "
+                           f"Captioner.caption on the same rows")
+    print(f"served captions with bf16 weights equal Captioner.caption on the "
+          f"same rows; {len(set(served))} distinct of {len(served)}, e.g. "
+          f"{served[-1]!r}")
+    return launches
 
 
 def _post(url: str, body: bytes, content_type: str) -> dict:
@@ -791,7 +955,17 @@ def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
     if with_profile:
         device_time(lambda: captioner.caption(host[:BATCH]),
                     "one served CnnRnn batch", table=True)
-    return {"launches": launches, **k3}
+
+    # the bf16-weight K3, both zero-state values, the default timed last
+    model.gru_zero_state = False
+    errs = [check_kernel_bf16(model, rows, card, "bf16 K3 (carried GRU "
+                              "state)", timed=False)["max_abs_err"]]
+    model.gru_zero_state = True
+    k3b = check_kernel_bf16(model, rows, card, "bf16 K3 (zero-state GRU)")
+    k3b["max_abs_err"] = max(errs + [k3b["max_abs_err"]])
+    k3b["launches"] = serve_bf16(model, tok, host, card, "bf16 K3",
+                                 request_rows=(CNN_RNN_REQUEST_ROWS,))
+    return {"launches": launches, **k3, "bf16": k3b}
 
 
 # ---- training ----
@@ -4322,7 +4496,8 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     betas = torch.randn(BATCH, N_VOXELS, generator=gen, device=device)
-    k2 = check_kernel(model, betas, card, "K2", profile=args.profile)
+    k2 = check_kernel(model, betas, card, "K2", profile=args.profile,
+                      digest=K2_DIGEST)
 
     # synthetic captions plus a made-up lexicon, so every id of the
     # vocabulary names a word and the served captions are not empty
@@ -4358,10 +4533,19 @@ def main(argv=None) -> int:
     if args.profile:
         device_time(lambda: captioner.caption(rows[:BATCH]),
                     "one served batch", table=True)
+    # the bf16-weight K2, feat_bf16 off (the Captioner's) and on
+    k2b = check_kernel_bf16(model, betas, card, "bf16 K2")
+    k2b["feat_bf16"] = check_kernel_bf16(model, betas, card,
+                                         "bf16 K2 (feat_bf16)",
+                                         feat_bf16=True)
+    k2b["max_abs_err"] = max(k2b["max_abs_err"],
+                             k2b["feat_bf16"].pop("max_abs_err"))
+    k2b["launches"] = serve_bf16(model, tok, rows, card, "bf16 K2")
     del model, captioner, rows, betas
     release()
 
     k3 = cnn_rnn(device, tok, card, args.profile)
+    k3b = k3.pop("bf16")
     release()
 
     k1, train_data = train(device, card, args.profile)
@@ -4421,6 +4605,12 @@ def main(argv=None) -> int:
         "launches_families": counts["fused_greedy_decode_gru"],
         "launches_ingest": ing["fused_greedy_decode_gru"],
         "launches_plain_route": plain["route"]["K3"], **k3}, {
+        "name": "fused_greedy_decode_bf16", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "masters_thesis_tpu/ops/fused_decode.py:211", **k2b}, {
+        "name": "fused_greedy_decode_gru_bf16", "route": "cuda",
+        "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "masters_thesis_tpu/ops/fused_decode.py:276", **k3b}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",
         "replaces": "masters_thesis_tpu/ops/gather.py:49",

@@ -16,7 +16,9 @@
 //                      ctx; any A and D (a column loop where they exceed the
 //                      block's threads). It reads hw_pre, which the tile
 //                      kernel (tile_kernels.cuh) forms for the whole batch
-//                      at once, in K2, K3 and K4 alike;
+//                      at once, in K2, K3 and K4 alike. attention_kernel<true>
+//                      reads pre and features in bf16 (the bf16-weight
+//                      decode's feat_bf16), widened, with fp32 sums;
 //   rows_kernel<cell>  a block owns 32 output columns x 8 batch rows, its 8
 //                      warps split the reduction axis [in0 | in1 | in2], each
 //                      lane reads its column's weights coalesced and forms
@@ -31,6 +33,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -55,6 +58,21 @@ __host__ __device__ constexpr int gate_cols(int cell) {
 }
 __host__ __device__ constexpr int gate_sums(int cell) {
   return cell == kDense ? 1 : 4;
+}
+
+// the element type of a tensor that the bf16-weight decode may keep in bf16
+// (pre, features, the embedding table), and its value widened to fp32
+template <bool kBf16>
+struct Elem {
+  using type = float;
+};
+template <>
+struct Elem<true> {
+  using type = __nv_bfloat16;
+};
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 __device__ __forceinline__ float lrelu(float x, float slope) {
@@ -100,9 +118,11 @@ __device__ float block_max(float v, float* red) {
 // narrower than the block gets blockDim.x / N threads, each summing every
 // nsl-th k, and their partial sums are added in slice order; a wider one
 // loops over passes of blockDim.x columns. `part` holds blockDim.x floats.
-// Ends with a barrier, so `out` may be shared memory read next.
+// Ends with a barrier, so `out` may be shared memory read next. w is fp32
+// or bf16, widened.
+template <typename W>
 __device__ void block_vecmat(const float* __restrict__ x, int K,
-                             const float* __restrict__ w, int N,
+                             const W* __restrict__ w, int N,
                              float* __restrict__ out, float* part) {
   const int tid = threadIdx.x;
   const int nsl = N < (int)blockDim.x ? (int)blockDim.x / N : 1;
@@ -113,7 +133,7 @@ __device__ void block_vecmat(const float* __restrict__ x, int K,
     if (sl < nsl && n < N) {
       float acc = 0.f;
       for (int k = sl; k < K; k += nsl)
-        acc = fmaf(x[k], w[(size_t)k * N + n], acc);
+        acc = fmaf(x[k], widen(w[(size_t)k * N + n]), acc);
       part[sl * width + j] = acc;
     }
     __syncthreads();
@@ -135,10 +155,12 @@ size_t attention_smem_bytes(int A, int R) {
 // T = 1, t = 0), from hw_pre = h W2 + b2 (B, A). Shared memory:
 // attention_smem_bytes(A, R). attn_slope comes before T and t so that the
 // compiler loads the same pairs of parameters together as when the kernel
-// also took h, W2, b2 and U, and its machine code stays that one's.
+// also took h, W2, b2 and U, and its machine code stays that one's. kBf16:
+// pre and features in bf16.
+template <bool kBf16 = false>
 __global__ void attention_kernel(
-    const float* __restrict__ pre,    // (B, R, A) act(features W1 + b1)
-    const float* __restrict__ feat,   // (B, R, D)
+    const typename Elem<kBf16>::type* __restrict__ pre,   // (B, R, A)
+    const typename Elem<kBf16>::type* __restrict__ feat,  // (B, R, D)
     const float* __restrict__ v,      // (A,)
     const float* __restrict__ bv,     // (1,)
     float* __restrict__ ctx,          // (B, D)
@@ -158,11 +180,11 @@ __global__ void attention_kernel(
   __syncthreads();
 
   // scores: one warp per region, lanes over the attention width
-  const float* pb = pre + (size_t)b * R * A;
+  const auto* pb = pre + (size_t)b * R * A;
   for (int r = warp; r < R; r += nwarps) {
     float s = 0.f;
     for (int a = lane; a < A; a += 32)
-      s = fmaf(tanhf(pb[(size_t)r * A + a] + sh_hw[a]), v[a], s);
+      s = fmaf(tanhf(widen(pb[(size_t)r * A + a]) + sh_hw[a]), v[a], s);
     s = warp_sum(s);
     if (lane == 0) sh_e[r] = s + bv[0];
   }

@@ -27,6 +27,21 @@ so hz = b_rec and the carried h feeds only the next step's attention.
 The wrappers take the plain version for CPU tensors only; for CUDA tensors
 they launch the kernel or raise. There is no fallback.
 
+The dtypes of the arguments pick the mode, as the TPU kernels' casts do on
+their accelerator (``_fused_decode_call``, ``masters_thesis_tpu/ops/
+fused_decode.py:159-166``): ``wx``, ``wh``, ``wi``, ``wo`` and ``emb_table``
+all fp32 (the fp32 kernels) or all bf16 (the bf16-weight kernels); ``pre``
+and ``features`` both fp32 or both bf16 (``feat_bf16``, which comes with
+bf16 weights, as on the TPU); every other tensor fp32. A mixed set is
+refused before any work. With bf16 weights every product with them is an
+fp32 sum of exact products of operands rounded to bf16 (the TPU kernels'
+``jnp.dot(x.astype(bf16), w, preferred_element_type=float32)``): [ctx ; emb]
+Wx and h Wh (kept apart for the GRU's h̄ gate), h Wi and hi Wo. h W2 stays
+fp32, as W2 does; the carries stay fp32 and h is rounded only as an
+operand; the re-embedding gives the bf16 table's row, widened; ``emb0``
+stays fp32. Under ``feat_bf16`` the attention reads ``pre`` and
+``features`` widened, with fp32 sums.
+
 Unlike the TPU kernels, regions are not padded (that served TPU sublanes)
 and the re-embedding is a row gather, not a one-hot matmul.
 """
@@ -51,12 +66,26 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _product(w, wide):
+    """x -> x w as the decode kernels form it: as it stands for an fp32 (or
+    float64) ``w``; for a bf16 ``w`` the TPU kernels' bf16 product, x
+    rounded to bf16, every product exact and the sum in ``wide``, the
+    carries' dtype."""
+    if w.dtype != torch.bfloat16:
+        return lambda x: x @ w
+    w = w.to(wide)
+    return lambda x: x.to(torch.bfloat16).to(wide) @ w
+
+
 def _greedy_loop(cell, pre, features, w2, b2, v, bv, wi, bi, wo, bo,
                  emb_table, emb0, h0, *, max_length: int, slope: float,
                  attn_slope: float, return_margins: bool):
     """The plain versions' shared loop; ``cell(x, h) -> h'`` is the cell
     on x = [ctx ; emb]."""
     B = pre.shape[0]
+    wide = h0.dtype
+    pre, features = pre.to(wide), features.to(wide)   # feat_bf16: widened
+    head_i, head_o = _product(wi, wide), _product(wo, wide)
     h = h0
     emb = emb0.expand(B, -1)
     words, alphas, margins = [], [], []
@@ -66,9 +95,9 @@ def _greedy_loop(cell, pre, features, w2, b2, v, bv, wi, bi, wo, bo,
         alpha = torch.softmax(e, dim=1)
         ctx = torch.sum(alpha[:, :, None] * features, dim=1)     # (B, D)
         h = cell(torch.cat([ctx, emb], dim=-1), h)
-        logits = leaky_relu(h @ wi + bi, slope) @ wo + bo
+        logits = head_o(leaky_relu(head_i(h) + bi, slope)) + bo
         nxt = torch.argmax(logits, dim=-1)
-        emb = emb_table[nxt]
+        emb = emb_table[nxt].to(wide)
         words.append(nxt)
         alphas.append(alpha)
         if return_margins:
@@ -83,15 +112,22 @@ def fused_greedy_decode_reference(pre, features, w2, b2, v, bv, wx, wh, b,
                                   max_length: int, slope: float = 0.2,
                                   attn_slope: float = 0.2,
                                   return_margins: bool = False):
-    """Plain PyTorch version of K2. Returns (words (B, T) int32, alphas
-    (B, T, R) fp32); with ``return_margins`` also the top-2 logit margin of
-    every step (B, T), which tells a near-tie from a fault when the
-    kernel's summation order picks another word."""
+    """Plain PyTorch version of K2, in either mode (the module docstring).
+    Returns (words (B, T) int32, alphas (B, T, R) in the carries' dtype);
+    with ``return_margins`` also the top-2 logit margin of every step
+    (B, T), which tells a near-tie from a fault when the kernel's summation
+    order picks another word. Carries in float64 (with the fp32 tensors
+    widened, and bf16 ones as they are) give the same decode summed in
+    float64."""
+    args = (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
+            emb_table, emb0, h0, c0)
+    decode_precision("lstm", args, plain=True)
     c = c0
+    x_wx, h_wh = _product(wx, h0.dtype), _product(wh, h0.dtype)
 
     def lstm(x, h):
         nonlocal c
-        z = x @ wx + h @ wh + b
+        z = x_wx(x) + h_wh(h) + b
         i, f, g, o = torch.chunk(z, 4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c)
@@ -109,16 +145,20 @@ def fused_greedy_decode_gru_reference(pre, features, w2, b2, v, bv, wx, wh,
                                       attn_slope: float = 1.0,
                                       zero_state: bool = False,
                                       return_margins: bool = False):
-    """Plain PyTorch version of K3; returns as
+    """Plain PyTorch version of K3; takes and returns as
     ``fused_greedy_decode_reference`` does."""
+    args = (pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi, wo,
+            bo, emb_table, emb0, h0)
+    decode_precision("gru", args, plain=True)
+    x_wx, h_wh = _product(wx, h0.dtype), _product(wh, h0.dtype)
 
     def gru(x, h):
-        xz_z, xz_r, xz_h = torch.chunk(x @ wx + b_in, 3, dim=-1)
+        xz_z, xz_r, xz_h = torch.chunk(x_wx(x) + b_in, 3, dim=-1)
         if zero_state:           # h @ wh is 0: the recurrent part is b_rec
             h = torch.zeros_like(h)
             hz = b_rec.expand(h.shape[0], -1)
         else:
-            hz = h @ wh + b_rec
+            hz = h_wh(h) + b_rec
         hz_z, hz_r, hz_h = torch.chunk(hz, 3, dim=-1)
         z = torch.sigmoid(xz_z + hz_z)
         r = torch.sigmoid(xz_r + hz_r)
@@ -164,9 +204,12 @@ def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
     bi (H,); wo (H, Vp); bo (Vp,) with -1e30 on padded ids; emb_table
     (V, E); emb0 (E,); h0, c0 (B, U). ``slope`` and ``attn_slope`` are the
     negative slopes of the head's and the attention's activations.
-    Returns (words (B, T) int32, alphas (B, T, R) fp32).
+    Returns (words (B, T) int32, alphas (B, T, R) fp32). Every tensor fp32,
+    or ``BF16_WEIGHTS`` in bf16 (and ``BF16_FEATURES`` too, for
+    ``feat_bf16``): the bf16-weight K2 (the module docstring).
 
-    ``fused_greedy_decode.launches`` counts the kernel chain's launches."""
+    ``fused_greedy_decode.launches`` counts the fp32 kernel chain's
+    launches, ``fused_greedy_decode.launches_bf16`` the bf16 one's."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
             emb_table, emb0, h0, c0)
     if plain_or_kernel("fused_greedy_decode", args):
@@ -174,11 +217,15 @@ def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
             *args, max_length=max_length, slope=slope, attn_slope=attn_slope)
     out = _launch("lstm", args, max_length=max_length, slope=slope,
                   attn_slope=attn_slope)
-    fused_greedy_decode.launches += 1
+    if wx.dtype == torch.bfloat16:
+        fused_greedy_decode.launches_bf16 += 1
+    else:
+        fused_greedy_decode.launches += 1
     return out
 
 
 fused_greedy_decode.launches = 0
+fused_greedy_decode.launches_bf16 = 0
 
 
 def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
@@ -189,10 +236,11 @@ def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
     """K3: every greedy step of a GRU NIC, the arguments of
     ``fused_greedy_decode`` with wx (D+E, 3U), wh (U, 3U), the input and
     recurrent biases b_in, b_rec (3U,) in place of b, and no c0.
-    ``zero_state`` restarts the recurrence from zeros every step.
+    ``zero_state`` restarts the recurrence from zeros every step. The
+    dtypes pick the mode as for K2.
 
-    ``fused_greedy_decode_gru.launches`` counts the kernel chain's
-    launches."""
+    ``fused_greedy_decode_gru.launches`` counts the fp32 kernel chain's
+    launches, ``fused_greedy_decode_gru.launches_bf16`` the bf16 one's."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi, wo,
             bo, emb_table, emb0, h0)
     if plain_or_kernel("fused_greedy_decode_gru", args):
@@ -201,11 +249,15 @@ def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
             zero_state=zero_state)
     out = _launch("gru", args, max_length=max_length, slope=slope,
                   attn_slope=attn_slope, zero_state=zero_state)
-    fused_greedy_decode_gru.launches += 1
+    if wx.dtype == torch.bfloat16:
+        fused_greedy_decode_gru.launches_bf16 += 1
+    else:
+        fused_greedy_decode_gru.launches += 1
     return out
 
 
 fused_greedy_decode_gru.launches = 0
+fused_greedy_decode_gru.launches_bf16 = 0
 
 
 # the positional arguments of each cell's kernel, in order
@@ -215,6 +267,55 @@ DECODE_ARGS = {
     "gru": ("pre features w2 b2 v bv wx wh b_in b_rec wi bi wo bo emb_table "
             "emb0 h0").split(),
 }
+# what the TPU kernels cast to bf16 on their accelerator: the weights with
+# the embedding table, and under feat_bf16 the attention's inputs
+BF16_WEIGHTS = ("wx", "wh", "wi", "wo", "emb_table")
+BF16_FEATURES = ("pre", "features")
+
+
+def decode_precision(cell: str, args, plain: bool = False) -> tuple:
+    """(weights_bf16, feat_bf16) of a decode's arguments (``cell`` "lstm"
+    or "gru"): ``BF16_WEIGHTS`` all bf16 or all fp32, ``BF16_FEATURES``
+    both bf16 (only beside bf16 weights) or both fp32, every other tensor
+    fp32. ``plain`` (the plain versions) also takes every fp32 tensor in
+    float64 instead, for a decode summed in float64. Raises ValueError on
+    any other set."""
+    a = dict(zip(DECODE_ARGS[cell], args))
+    wide = a["h0"].dtype
+    wides = (torch.float32, torch.float64) if plain else (torch.float32,)
+
+    def bf16(names):
+        dtypes = {a[n].dtype for n in names}
+        return None if len(dtypes) > 1 else dtypes.pop() == torch.bfloat16
+
+    weights, feat = bf16(BF16_WEIGHTS), bf16(BF16_FEATURES)
+    rest = {t.dtype for n, t in a.items()
+            if not (weights and n in BF16_WEIGHTS)
+            and not (feat and n in BF16_FEATURES)}
+    if (weights is None or feat is None or rest != {wide}
+            or wide not in wides or (feat and not weights)):
+        got = ", ".join(f"{n} {str(t.dtype).removeprefix('torch.')}"
+                        for n, t in a.items())
+        raise ValueError(
+            f"the decode takes every tensor in float32, or wx, wh, wi, wo "
+            f"and emb_table all in bfloat16 (and with them pre and features "
+            f"both in bfloat16, for feat_bf16) and the rest in float32; got "
+            f"{got}")
+    return bool(weights), bool(feat)
+
+
+def cast_decode_inputs(cell: str, args, *, weights_bf16: bool = False,
+                       feat_bf16: bool = False) -> tuple:
+    """``args`` (fp32, as ``decode_inputs`` gives them) with
+    ``BF16_WEIGHTS`` cast to bf16 if ``weights_bf16`` and
+    ``BF16_FEATURES`` if ``feat_bf16``, as the TPU kernels cast them on
+    their accelerator. ``feat_bf16`` needs ``weights_bf16``."""
+    if feat_bf16 and not weights_bf16:
+        raise ValueError("feat_bf16 comes with weights_bf16, as on the TPU")
+    names = ((BF16_WEIGHTS if weights_bf16 else ())
+             + (BF16_FEATURES if feat_bf16 else ()))
+    return tuple(t.to(torch.bfloat16) if n in names else t
+                 for n, t in zip(DECODE_ARGS[cell], args))
 
 
 def lstm_decode_plans(args, force=None) -> tuple[tiles.Plan, ...]:
@@ -253,11 +354,17 @@ def gru_hw_plan(args) -> tiles.Plan:
 
 def _launch(cell: str, args, *, max_length: int, slope: float,
             attn_slope: float, zero_state: bool = False, plans=None):
-    """Launch K2 (``cell`` "lstm") or K3 ("gru"); K2 on ``plans`` (h W2,
-    cell, Wi, Wo), by default ``lstm_decode_plans``'s."""
+    """Launch K2 (``cell`` "lstm") or K3 ("gru") in the mode that the
+    arguments' dtypes select (``decode_precision``, which refuses a mixed
+    set before any work). The fp32 K2 runs on ``plans`` (h W2, cell, Wi,
+    Wo), by default ``lstm_decode_plans``'s. The bf16-weight kernels take
+    no plans: they run h W2 on the fp32 kernel's plan of their cell and
+    every product with a bf16 weight on the tensor-core tiles of
+    ``csrc/mma_tile.cuh``."""
     from masters_thesis_tpu_torch.ops import _build
 
     a = dict(zip(DECODE_ARGS[cell], args))
+    weights_bf16, feat_bf16 = decode_precision(cell, args)
     device = a["pre"].device
     require_hopper(device, "the decode kernels")
     B, R, A = a["pre"].shape
@@ -273,9 +380,11 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
         "bi": (H,), "wo": (H, Vp), "bo": (Vp,), "emb_table": (V, E),
         "emb0": (E,), "h0": (B, U), "c0": (B, U)}
     for name, t in a.items():
-        if tuple(t.shape) != shapes[name] or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 {shapes[name]}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: expected {t.dtype} {shapes[name]}, "
+                             f"got {tuple(t.shape)}")
+    if weights_bf16 and plans is not None:
+        raise ValueError("the bf16-weight decode takes no tile plans")
 
     lib = _build.load_library()
     # Copies and scratch freed on return stay safe: the caching allocator
@@ -284,22 +393,48 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
     inputs = {name: t.contiguous() for name, t in a.items()
               if name not in ("emb0", "h0", "c0")}
     empty = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
-    emb = a["emb0"].expand(B, E).contiguous()
     h_a = a["h0"].contiguous().clone()
     # c is double buffered as h is: the cell tile reads c and writes c'
     cell_state = ([a["c0"].contiguous().clone(), empty(B, U)]
                   if cell == "lstm" else [])
-    scratch = [emb, h_a, empty(B, U), *cell_state, empty(B, D), empty(B, H),
-               empty(B, Vp), empty(B, A)]       # ..., hi, logits, h W2 + b2
     words = torch.empty(B, max_length, dtype=torch.int32, device=device)
     alphas = empty(B, max_length, R)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    pointers = [t.data_ptr()
-                for t in [*inputs.values(), *scratch, words, alphas]]
     sizes = [B, R, A, D, E, U, H, Vp, max_length]
     stream = torch.cuda.current_stream(device).cuda_stream
     planned = [inputs.get(n, a[n]) for n in a]
+    if weights_bf16:
+        hw_plan = (gru_hw_plan(planned) if cell == "gru"
+                   else lstm_decode_plans(planned)[0])
+        if cell == "gru":      # one bias, [b_in ; b_rec]
+            del inputs["b_rec"]
+            inputs["b_in"] = torch.cat([a["b_in"], a["b_rec"]])
+        # the cell's operands in bf16, rounded once (to nearest even):
+        # emb0 here, every later emb by the argmax (the table's row), and
+        # h by the cell that makes it, into the other half of hbuf
+        emb = a["emb0"].to(torch.bfloat16).expand(B, E).contiguous()
+        hbuf = torch.empty(2, B, U, dtype=torch.bfloat16, device=device)
+        hbuf[0] = a["h0"]
+        zs = [empty(B, 4 * U)] if cell == "lstm" else []  # the cell's z
+        scratch = [emb, h_a, empty(B, U), hbuf, *cell_state, empty(B, D),
+                   empty(B, H), empty(B, Vp), empty(B, A), *zs]
+        pointers = [t.data_ptr()
+                    for t in [*inputs.values(), *scratch, words, alphas]]
+        entry = (lib.mtt_fused_greedy_decode_gru_bf16 if cell == "gru"
+                 else lib.mtt_fused_greedy_decode_bf16)
+        flags = ([int(feat_bf16), int(zero_state)] if cell == "gru"
+                 else [int(feat_bf16)])
+        code = entry(*pointers, *sizes, *flags, *hw_plan.args, slope,
+                     attn_slope, index, stream)
+        _build.check_error(code, f"bf16-weight greedy decode ({cell})")
+        return words, alphas
+
+    emb = a["emb0"].expand(B, E).contiguous()
+    scratch = [emb, h_a, empty(B, U), *cell_state, empty(B, D), empty(B, H),
+               empty(B, Vp), empty(B, A)]       # ..., hi, logits, h W2 + b2
+    pointers = [t.data_ptr()
+                for t in [*inputs.values(), *scratch, words, alphas]]
     if cell == "gru":      # h W2 + b2 on the tile kernel, before the attention
         code = lib.mtt_fused_greedy_decode_gru(
             *pointers, *sizes, int(zero_state), *gru_hw_plan(planned).args,
@@ -381,21 +516,31 @@ def decode_inputs(model, betas: torch.Tensor, start_id: int) -> tuple:
             sp["embedding"][start_id], *carry)
 
 
-def make_whole_fused_greedy_decoder(model, max_length: int):
+def make_whole_fused_greedy_decoder(model, max_length: int, *,
+                                    weights_bf16: bool = False,
+                                    feat_bf16: bool = False):
     """Drop-in for ``decode.greedy.make_greedy_decoder`` minus the logits:
     decode(betas (B, ...), start_id) -> (words (B, T) int32, alphas
     (B, T, R)).
 
     Runs the model's decode kernel (K2 for an LSTM, K3 for a GRU) on
     ``decode_inputs``: the CUDA kernel on a CUDA model, the plain version on
-    a CPU one."""
+    a CPU one. ``weights_bf16`` runs it with the weights and the embedding
+    table in bf16, and ``feat_bf16`` (with it) with ``pre`` and
+    ``features`` in bf16, as the JAX kernels run on the TPU; the casts are
+    made in every call, as the JAX decoder makes them inside its jit."""
     kernel, _ = decode_kernel(model)
     opts = decode_options(model)
+    if feat_bf16 and not weights_bf16:
+        raise ValueError("feat_bf16 comes with weights_bf16, as on the TPU")
 
     @torch.inference_mode()
     def decode(betas: torch.Tensor, start_id: int):
-        return kernel(*decode_inputs(model, betas, start_id),
-                      max_length=max_length, **opts)
+        args = decode_inputs(model, betas, start_id)
+        if weights_bf16:
+            args = cast_decode_inputs(model.cell_type, args,
+                                      weights_bf16=True, feat_bf16=feat_bf16)
+        return kernel(*args, max_length=max_length, **opts)
 
     return decode
 

@@ -17,7 +17,13 @@ hand-written kernel of its cell (K2 for an LSTM, K3 for a GRU) and on the
 CPU its plain PyTorch version; ``use_fused=False`` selects the unfused step
 loop (``decode.greedy``), which is also the greedy decoder of the ShowTell
 family (``ShowTell``, ``GuseNIC``), as in the JAX package, whose kernel
-takes ``NIC`` only. ``decoder="beam"`` runs the fixed-lattice beam of
+takes ``NIC`` only. ``weights_bf16=True`` runs that kernel with its weights
+and embedding table in bf16, as the JAX ``Captioner`` serves through its
+kernel on the TPU (the bf16-weight K2 or K3; the plain version's bf16 mode on
+the CPU); it applies to the greedy kernel route only, so beam and sampling
+stay fp32, and it raises where greedy decoding would not take the kernel
+(``use_fused=False``, a ShowTell-family model). ``decoder="beam"`` runs the
+fixed-lattice beam of
 ``beam_width``, and ``decoder="sample"`` draws with ``temperature`` and
 ``sample_top_k``; each call's draw comes from a generator seeded by
 (``seed``, the call's index) alone, as the JAX ``fold_in(PRNGKey(seed),
@@ -165,11 +171,15 @@ class Captioner:
     def __init__(self, model, tokenizer, units: int, max_length: int,
                  batch_size: int = 64, use_fused: bool = True, device=None,
                  beam_width: int = 5, temperature: float = 1.0,
-                 sample_top_k: int = 0, seed: int = 0, shard: int = 0):
+                 sample_top_k: int = 0, seed: int = 0, shard: int = 0,
+                 weights_bf16: bool = False):
         """Moves ``model`` to ``device`` (by default ``cuda``; raises
         without a card unless ``device="cpu"``). A request row has the
         shape of the model's ``row_shape``. ``beam_width`` sizes the beam;
         ``temperature``, ``sample_top_k`` and ``seed`` set the sampler.
+        ``weights_bf16`` decodes greedily through the decode kernel with
+        bf16 weights (the module docstring); without the kernel route it
+        raises.
 
         ``shard`` N > 0 serves N replicas of the model on the first N
         devices (``cuda:0`` .. ``cuda:N-1``, or N on the CPU): the service
@@ -179,6 +189,11 @@ class Captioner:
         every replica draws the whole chunk's uniforms from the stream of
         (seed, call) and keeps its own rows, so sampling gives the words of
         one device at the same service batch. Fewer than N devices raise."""
+        if weights_bf16 and not (use_fused and isinstance(model, NIC)):
+            raise ValueError(
+                "weights_bf16 needs the greedy decode kernel: use_fused=True "
+                f"and a NIC model (got use_fused={use_fused}, "
+                f"{type(model).__name__})")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.shard = int(shard)
@@ -193,6 +208,7 @@ class Captioner:
         self.max_length = max_length
         self.batch_size = batch_size
         self.use_fused = use_fused
+        self.weights_bf16 = weights_bf16
         self.beam_width = beam_width
         self.temperature = temperature
         self.sample_top_k = sample_top_k
@@ -306,9 +322,11 @@ class Captioner:
         sampler reads it."""
         start, end = self.tokenizer.start_id, self.tokenizer.end_id
         if kind == "greedy":
-            greedy = (make_whole_fused_greedy_decoder
-                      if self.use_fused and isinstance(model, NIC)
-                      else make_greedy_decoder)(model, self.max_length)
+            if self.use_fused and isinstance(model, NIC):
+                greedy = make_whole_fused_greedy_decoder(
+                    model, self.max_length, weights_bf16=self.weights_bf16)
+            else:
+                greedy = make_greedy_decoder(model, self.max_length)
             return lambda rows, window: greedy(rows, start)[0]
         if kind == "beam":
             beam = make_beam_decoder(model, self.max_length,

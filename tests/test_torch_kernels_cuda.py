@@ -12,8 +12,11 @@ widths and through three train steps; the teacher-forced sequence forward
 K2 on K2's own words, and with every tile of its tile kernel forced at
 shapes that cross the tiles' edges; and K4's bf16-weight variant at every
 K4 shape, step by step, its rounding of h, emb and ctx against torch's on
-values at ties, and through the bf16 sequence's backward. A CUDA kernel has
-no CPU mode, so every
+values at ties, and through the bf16 sequence's backward; and the
+bf16-weight K2 and K3 at the shapes of the fp32 ones, on batches of 1 and
+5 rows and at the tiles' edges, with feat_bf16, their rounding of ctx at
+ties, the first index on an argmax tie and the refusal of mixed dtypes. A
+CUDA kernel has no CPU mode, so every
 test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -1134,3 +1137,250 @@ def test_bf16_sequence_through_the_kernel_matches_the_scan_forward(cuda):
         assert g.dtype == torch.float32 and torch.isfinite(g).all()
         scale = max(1.0, float(want.abs().max()))
         assert float((g - want).abs().max()) <= 1e-2 * scale
+
+
+# ---- the bf16-weight K2 and K3 ----
+
+# A one-step decode is held to the fp32 limits of compare_with_reference;
+# over more steps the bf16 rounding of h turns summation-order differences
+# into bf16 ones, so the alphas are held to BF16_DECODE_ATOL and a word may
+# differ only where the plain version's top-2 margin is under
+# BF16_DECODE_TIE (chip_smoke.py's BF16_ALPHA_ATOL and BF16_TIE_MARGIN).
+BF16_DECODE_ATOL, BF16_DECODE_TIE = 1e-3, 1e-2
+
+
+def _check_bf16_decode(cell, args, opts, T, min_distinct=0):
+    """The bf16-weight kernel of ``cell`` against its bf16 plain version on
+    ``args`` (already cast): T = 1 within the fp32 limits, T steps within
+    the bf16 ones; each launch counted in ``launches_bf16`` alone."""
+    kernel = (fused_decode.fused_greedy_decode_gru if cell == "gru"
+              else fused_decode.fused_greedy_decode)
+    reference = (fused_decode.fused_greedy_decode_gru_reference
+                 if cell == "gru"
+                 else fused_decode.fused_greedy_decode_reference)
+    B, R = args[0].shape[:2]
+    for steps, atol, tie in ((1, 1e-6, 1e-3),
+                             (T, BF16_DECODE_ATOL, BF16_DECODE_TIE)):
+        before = (kernel.launches, kernel.launches_bf16)
+        with torch.inference_mode():
+            words, alphas = kernel(*args, max_length=steps, **opts)
+            torch.cuda.synchronize()
+            ref_words, ref_alphas, margins = reference(
+                *args, max_length=steps, return_margins=True, **opts)
+        assert (kernel.launches, kernel.launches_bf16) == (before[0],
+                                                           before[1] + 1)
+        assert words.shape == (B, steps) and alphas.shape == (B, steps, R)
+        assert alphas.dtype == torch.float32
+        report = fused_decode.compare_with_reference(
+            words, alphas, ref_words, ref_alphas, margins, alpha_atol=atol,
+            tie_margin=tie)
+        assert report["bad_rows"] == [], (steps, report)
+    assert len(torch.unique(ref_words)) >= min_distinct
+    return words
+
+
+BF16_K2_CASES = {
+    "small": ("small", None, False),
+    "small-feat_bf16": ("small", None, True),
+    "small-1-row": ("small", 1, False),
+    "small-5-rows": ("small", 5, True),
+    "flagship": ("flagship", None, False),
+    "flagship-feat_bf16": ("flagship", None, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_K2_CASES))
+def test_bf16_k2_matches_plain_version(cuda, case):
+    """The bf16-weight K2 at the shapes of the fp32 one (and service
+    batches of 1 and 5 rows, whose tiles are mostly rows past B), with
+    feat_bf16 off and on."""
+    shape, rows, feat = BF16_K2_CASES[case]
+    model, betas = _model_and_betas(cuda, shape)
+    betas = betas if rows is None else betas[:rows]
+    with torch.inference_mode():
+        args = fused_decode.cast_decode_inputs(
+            "lstm", fused_decode.decode_inputs(model, betas, 1),
+            weights_bf16=True, feat_bf16=feat)
+    _check_bf16_decode("lstm", args, fused_decode.decode_options(model),
+                       model.max_length,
+                       MIN_DISTINCT[shape] if rows is None else 0)
+
+
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+def test_bf16_k2_at_the_tiles_edges(cuda, shape):
+    """The bf16-weight K2 on DECODE_SHAPES: batches and widths that are
+    multiples of no tile (rows past B, units past N, a K tail), widths
+    that are not a multiple of 8 (element-by-element staging)."""
+    args = fused_decode.cast_decode_inputs(
+        "lstm", _decode_case(cuda, *DECODE_SHAPES[shape]), weights_bf16=True)
+    _check_bf16_decode("lstm", args, dict(slope=0.2, attn_slope=0.2),
+                       DECODE_T, 4)
+
+
+def _bf16_k3(cuda, shape, zero_state, rows=None):
+    """The bf16-weight K3 against its plain version on a CnnRnn model of
+    GRU_SHAPES' ``shape`` (its first ``rows`` rows, if given)."""
+    patches, channels, units, vocab, true_vocab, batch = GRU_SHAPES[shape]
+    full = shape == "cnn_rnn"
+    gen = torch.Generator().manual_seed(0 if full else SMALL_SEED)
+    model = CnnRnnNIC(embed_dim=256 if full else 64, units=units,
+                      vocab_size=vocab, true_vocab=true_vocab,
+                      max_length=15 if full else 6, n_patches=patches,
+                      in_channels=channels, gru_zero_state=zero_state,
+                      generator=gen)
+    fused_decode.spread_for_check(model, gen)
+    betas = torch.randn(batch, patches, channels, generator=gen)[:rows]
+    model = model.to(cuda).eval()
+    with torch.inference_mode():
+        args = fused_decode.cast_decode_inputs(
+            "gru", fused_decode.decode_inputs(model, betas.to(cuda), 1),
+            weights_bf16=True)
+    min_distinct = (0 if rows is not None
+                    else 16 if full else SMALL_MIN_DISTINCT)
+    words = _check_bf16_decode("gru", args,
+                               fused_decode.decode_options(model),
+                               model.max_length, min_distinct)
+    if true_vocab:
+        assert int(words.max()) < true_vocab
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("shape", list(GRU_SHAPES))
+def test_bf16_k3_matches_plain_version(cuda, shape, zero_state):
+    """The bf16-weight K3 at the shapes of the fp32 one, both values of the
+    zero-state quirk."""
+    _bf16_k3(cuda, shape, zero_state)
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+def test_bf16_k3_at_service_batches(cuda, rows):
+    """The bf16-weight K3, carried state, on batches of 1 and 5 rows:
+    every row tile mostly rows past B."""
+    _bf16_k3(cuda, "small-odd-regions", False, rows)
+
+
+def _tie_case(device, B, D, E, U, H):
+    """K2's arguments (T = 1) under which the word of row b says which way
+    the kernel rounded ctx[b, 0] to bf16. One region makes alpha exactly 1
+    and ctx the features; ctx[b, 0] is a tie x_b (the midpoint of two bf16
+    values in [1, 2), 2^-7 apart) and ctx[b, 1] the lower one, l_b. The g
+    gate of unit 0 is 2^7 (ctx0 - ctx1): 1 where x_b rounds up, 0 where it
+    rounds down; its i and o gates are saturated, so h0' = tanh(sig(10)
+    tanh(1)) sig(10) ~ 0.64 or 0; the logits are [h0', 0.3, ...], so the
+    word is 0 (up) or 1 (down)."""
+    gen = torch.Generator().manual_seed(5)
+    j = torch.randint(0, 128, (B,), generator=gen).float()
+    low = 1 + j * 2 ** -7
+    features = torch.zeros(B, 1, D)
+    features[:, 0, 0] = low + 2 ** -8
+    features[:, 0, 1] = low
+    wx = torch.zeros(D + E, 4 * U)
+    wx[0, 2 * U] = 2.0 ** 7
+    wx[1, 2 * U] = -2.0 ** 7
+    b = torch.zeros(4 * U)
+    b[0], b[3 * U] = 10.0, 10.0
+    wi = torch.zeros(U, H)
+    wi[0, 0] = 1.0
+    wo = torch.zeros(H, 128)
+    wo[0, 0] = 1.0
+    bo = torch.full((128,), fused_decode.PAD_NEG)
+    bo[:2] = torch.tensor([0.0, 0.3])
+    emb_table = torch.randn(128, E, generator=gen)
+    zeros = torch.zeros(B, U)
+    args = (torch.randn(B, 1, 8, generator=gen), features,
+            torch.randn(U, 8, generator=gen), torch.randn(8, generator=gen),
+            torch.randn(8, generator=gen), torch.randn(1, generator=gen), wx,
+            torch.zeros(U, 4 * U), b, wi, torch.zeros(H), wo, bo, emb_table,
+            emb_table[1], zeros, zeros)
+    up = features[:, 0, 0].to(torch.bfloat16).float() > low
+    return [t.to(device) for t in args], up
+
+
+@pytest.mark.parametrize("shape", ["aligned", "odd"])
+def test_bf16_k2_rounds_at_ties_as_torch_does(cuda, shape):
+    """The bf16-weight K2 rounds ctx to bf16 as ``.to(torch.bfloat16)``
+    does (to nearest even) at ties, both ways (``_tie_case``); ``aligned``
+    widths take the 16-byte staging, ``odd`` the element-by-element one.
+    Its words equal the plain version's."""
+    B, D, E, U, H = ((32, 16, 32, 24, 16) if shape == "aligned"
+                     else (9, 5, 11, 17, 13))
+    args, up = _tie_case(cuda, B, D, E, U, H)
+    args = fused_decode.cast_decode_inputs("lstm", args, weights_bf16=True)
+    words, _ = fused_decode.fused_greedy_decode(*args, max_length=1)
+    torch.cuda.synchronize()
+    want = torch.where(up.to(cuda), 0, 1).to(torch.int32)
+    assert 0 < int(up.sum()) < B        # both ways are taken
+    assert torch.equal(words[:, 0], want)
+    ref, _ = fused_decode.fused_greedy_decode_reference(*args, max_length=1)
+    assert torch.equal(ref, words)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_argmax_takes_the_first_index_on_a_tie(cuda, cell):
+    """Logits that tie at ids 3 and 7 (Wo zero, the bias equal there): the
+    bf16-weight kernel takes 3 at every step, as torch.argmax does."""
+    if cell == "lstm":
+        args = list(_decode_case(cuda, *DECODE_SHAPES["b70-u40"]))
+    else:
+        args = list(_decode_case(cuda, *DECODE_SHAPES["b70-u40"]))
+        U = args[7].shape[0]
+        gen = torch.Generator().manual_seed(1)
+        args[6] = args[6][:, :3 * U].contiguous()
+        args[7] = args[7][:, :3 * U].contiguous()
+        args[8:9] = [torch.randn(3 * U, generator=gen).to(cuda),
+                     torch.randn(3 * U, generator=gen).to(cuda)]
+        del args[-1]                                      # no c0
+    names = fused_decode.DECODE_ARGS[cell]
+    wo, bo = names.index("wo"), names.index("bo")
+    args[wo] = torch.zeros_like(args[wo])
+    args[bo] = torch.full_like(args[bo], -1.0)
+    args[bo][[3, 7]] = 2.0
+    args = fused_decode.cast_decode_inputs(cell, args, weights_bf16=True)
+    kernel = (fused_decode.fused_greedy_decode_gru if cell == "gru"
+              else fused_decode.fused_greedy_decode)
+    words, _ = kernel(*args, max_length=DECODE_T)
+    torch.cuda.synchronize()
+    assert bool((words == 3).all())
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_decode_refuses_mixed_dtypes_before_a_launch(cuda, cell):
+    """Each weight of BF16_WEIGHTS alone in fp32, one of BF16_FEATURES
+    alone in bf16, an fp32-only tensor in bf16, fp16 weights, bf16 features
+    beside fp32 weights: a ValueError before any launch, ``launches_bf16``
+    unmoved; the bf16-weight decode takes no tile plans."""
+    model, betas = _model_and_betas(cuda, "small")
+    if cell == "gru":
+        gen = torch.Generator().manual_seed(0)
+        model = CnnRnnNIC(embed_dim=64, units=16, vocab_size=40,
+                          max_length=6, n_patches=7, in_channels=24,
+                          generator=gen).to(cuda).eval()
+        betas = torch.randn(6, 7, 24, generator=gen).to(cuda)
+    kernel, _ = fused_decode.decode_kernel(model)
+    opts = fused_decode.decode_options(model)
+    names = fused_decode.DECODE_ARGS[cell]
+    with torch.inference_mode():
+        fp32 = fused_decode.decode_inputs(model, betas, 1)
+    half = fused_decode.cast_decode_inputs(cell, fp32, weights_bf16=True,
+                                           feat_bf16=True)
+    bad = []
+    for i, name in enumerate(names):
+        args = list(half)
+        args[i] = (args[i].float() if name in fused_decode.BF16_WEIGHTS
+                   + fused_decode.BF16_FEATURES
+                   else args[i].to(torch.bfloat16))
+        bad.append(args)
+    bad.append([t.half() if n in fused_decode.BF16_WEIGHTS else t
+                for n, t in zip(names, fp32)])
+    bad.append([t.to(torch.bfloat16) if n in fused_decode.BF16_FEATURES
+                else t for n, t in zip(names, fp32)])
+    before = (kernel.launches, kernel.launches_bf16)
+    for args in bad:
+        with pytest.raises(ValueError, match="bfloat16"):
+            kernel(*args, max_length=2, **opts)
+    if cell == "lstm":
+        with pytest.raises(ValueError, match="no tile plans"):
+            fused_decode._launch("lstm", half, max_length=2, slope=0.2,
+                                 attn_slope=0.2,
+                                 plans=fused_decode.lstm_decode_plans(fp32))
+    assert (kernel.launches, kernel.launches_bf16) == before
