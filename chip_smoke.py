@@ -13,19 +13,22 @@ width of its model or at its probe's own sizes:
   serves three HTTP caption requests through the port's ``Captioner`` and
   caption server, and times the kernel, the plain version, the unfused
   greedy decoder and captions per second; then the bf16-weight K2 (the
-  TPU kernel as the TPU runs it, ``feat_bf16`` off and on) against its
-  bf16 plain version and that version summed in float64, a one-step decode
+  TPU kernel as the TPU runs it, ``feat_bf16`` off and on: one persistent
+  cooperative launch a decode, ``csrc/decode_bf16.cu``) against its bf16
+  plain version and that version summed in float64, a one-step decode
   within the fp32 limits and the whole decode within BF16_ALPHA_ATOL and
-  BF16_TIE_MARGIN, which the fp32 decode must fail, with the rows whose
-  words differ from the fp32 kernel's and their fp32 margins, timed beside
-  the fp32 K2; and three HTTP requests through
-  ``Captioner(weights_bf16=True)``, which must launch it;
+  BF16_TIE_MARGIN, which the fp32 decode must fail, two calls equal bit
+  for bit, with the rows whose words differ from the fp32 kernel's and
+  their fp32 margins, timed beside the fp32 K2; captions/s through
+  ``Captioner(weights_bf16=True)`` as for the fp32 one, and three HTTP
+  requests through it, which must launch it;
 - CnnRnn serving (GRU, on (64, 2048) InceptionV3 patch rows): holds the GRU
   whole-decode kernel (K3) against its plain version for both values of
   ``gru_zero_state``, serves 256 host rows through ``Captioner`` and one
   ``.npy`` request through the server, and times K3, its plain version and
   captions per second; then the bf16-weight K3, both zero-state values, as
-  the bf16 K2, and one request through ``Captioner(weights_bf16=True)``;
+  the bf16 K2, with its captions/s and one request through
+  ``Captioner(weights_bf16=True)``;
 - LcNIC training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
   on the card, holds the store row gather (K1) against its plain version and
   a 3-step dropout-off trajectory through K1 against the same steps through
@@ -194,7 +197,10 @@ The device time of a train step, the sum of its kernels' times by
 for one served batch and for the scanned train steps, and the time a step
 of K2, K3 and K4 (at both shapes) by part, each launch of a step in turn:
 K2's h W2, attention, cell, Wi, Wo and argmax; K3's h W2, attention, cell
-and head; K4's h W2, attention and cell. K2's words and alphas on the
+and head; K4's h W2, attention and cell; and the bf16-weight K2's and K3's
+(one launch a decode) by phase, from the ``%globaltimer`` stamps its block
+0 writes (``phase_split``: argmax and embed, attention, cell, Wi and h W2,
+Wo and the partial argmax, and the share of the decode at barriers). K2's words and alphas on the
 seeded LcNIC inputs are printed as a SHA-256 digest, so that two builds can
 be told apart or shown bit-identical.
 
@@ -227,8 +233,11 @@ where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
 K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
 the bf16-weight K2's holds its check and times with ``feat_bf16`` under
-``feat_bf16`` and the bf16 K2's and K3's the fp32 kernel's time under
-``fp32_ms``, the bf16-weight K4's holds its device time a step by part under
+``feat_bf16``, the bf16 K3's its check and times at the carried state
+under ``carried``, and the bf16 K2's and K3's the fp32 kernel's time under
+``fp32_ms``, their plan (blocks, each operand resident or streamed, the
+largest block's shared memory) under ``plan`` and, with ``--profile``,
+their phases under ``phases``, the bf16-weight K4's holds its device time a step by part under
 ``us_a_step`` and the cell's rate under ``cell_tflops`` at both shapes,
 and P3's holds its and ``index_select``'s times in turns under ``turns``;
 K1's holds, for the training store and each ingest and sweep run's store,
@@ -564,17 +573,21 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
 
 @torch.inference_mode()
 def check_kernel_bf16(model, rows, card: str, label: str,
-                      feat_bf16: bool = False, timed: bool = True) -> dict:
+                      feat_bf16: bool = False, timed: bool = True,
+                      profile: bool = False) -> dict:
     """The model's bf16-weight decode kernel (K2 or K3 with the weights and
-    the embedding table in bf16, and with ``feat_bf16`` pre and features)
-    against its bf16 plain version on the same inputs, and both against
-    that plain version summed in float64 on the same bf16 operands: a
-    one-step decode within the fp32 limits, the whole decode within
-    ``BF16_ALPHA_ATOL`` and ``BF16_TIE_MARGIN``, which the fp32 plain version
-    must fail. Prints the rows whose words differ from the fp32 kernel's,
-    with the fp32 plain version's margin at each first differing step.
-    With ``timed``, the kernel and its plain version timed. Returns the
-    kernel's entry of the kernels line, less its launches."""
+    the embedding table in bf16, and with ``feat_bf16`` pre and features:
+    the persistent kernel of ``csrc/decode_bf16.cu``) against its bf16
+    plain version on the same inputs, and both against that plain version
+    summed in float64 on the same bf16 operands: a one-step decode within
+    the fp32 limits, the whole decode within ``BF16_ALPHA_ATOL`` and
+    ``BF16_TIE_MARGIN``, which the fp32 plain version must fail; and two
+    calls must give the same words and alphas bit for bit. Prints the rows
+    whose words differ from the fp32 kernel's, with the fp32 plain
+    version's margin at each first differing step, and the kernel's plan.
+    With ``timed``, the kernel and its plain version timed; with
+    ``profile``, the kernel's phases (``phase_split``). Returns the kernel's
+    entry of the kernels line, less its launches."""
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
     T, V = model.max_length, model.vocab_size
@@ -639,7 +652,17 @@ def check_kernel_bf16(model, rows, card: str, label: str,
     if distinct < MIN_DISTINCT_WORDS:
         raise RuntimeError(f"{label}'s greedy words are degenerate: "
                            f"{distinct} distinct < {MIN_DISTINCT_WORDS}")
-    entry = {"max_abs_err": err}
+    again = kernel(*half, max_length=T, **opts)
+    if not (torch.equal(again[0], words) and torch.equal(again[1], alphas)):
+        raise RuntimeError(f"{label}: two calls on the same inputs gave "
+                           f"different words or alphas")
+    plan = fd.bf16_decode_plan(model.cell_type, half, T,
+                               opts.get("zero_state", False)).describe()
+    print(f"{label}: two calls bit for bit equal; plan {plan}")
+    entry = {"max_abs_err": err, "plan": plan}
+    if profile:
+        entry["phases"] = phase_split(model.cell_type, half, opts, T, label,
+                                      card)
     if not timed:
         return entry
     ms = cuda_ms(lambda: kernel(*half, max_length=T, **opts))
@@ -657,7 +680,8 @@ def check_kernel_bf16(model, rows, card: str, label: str,
 
 def serve_bf16(model, tok, rows: np.ndarray, card: str, label: str,
                request_rows=REQUEST_ROWS) -> int:
-    """Captions ``rows`` through ``Captioner(weights_bf16=True)`` and its
+    """Captions/s through ``Captioner(weights_bf16=True)`` on ``rows`` (as
+    ``throughput`` times the fp32 one), then ``rows`` through it and its
     HTTP server (``request_rows`` requests), counting the bf16-weight
     kernel's launches from 0: at least one, and the served captions must
     be ``caption``'s. Returns the launches."""
@@ -669,6 +693,7 @@ def serve_bf16(model, tok, rows: np.ndarray, card: str, label: str,
                           batch_size=BATCH,
                           device=next(model.parameters()).device,
                           weights_bf16=True)
+    throughput(captioner, rows, card, label=f"{label}: ")
     kernel.launches_bf16 = 0
     served = serve(captioner, rows, card, request_rows=request_rows)
     launches = kernel.launches_bf16
@@ -767,7 +792,9 @@ def throughput(captioner, rows: np.ndarray, card: str,
     median = float(np.median(rates))
     print(f"{label}{decoder} captions/s through "
           f"{type(captioner).__name__} (batch {BATCH}, "
-          f"{len(rows)} host rows a call, fp32): median {median:.1f} over "
+          f"{len(rows)} host rows a call, "
+          f"{'bf16' if getattr(captioner, 'weights_bf16', False) else 'fp32'}"
+          f"): median {median:.1f} over "
           f"{windows} windows of >= {window_s} s, min {min(rates):.1f}, max "
           f"{max(rates):.1f}, spread {(max(rates) - min(rates)) / median:.1%}"
           f" [{card}]")
@@ -781,6 +808,7 @@ KERNEL_GROUPS = (
      ("tile_kernel",)),
     ("K2/K3/K4 step kernels", ("attention_kernel", "rows_kernel",
                                "argmax_embed_kernel")),
+    ("bf16-weight K2/K3 (persistent)", ("decode_bf16_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "splitkreduce")),
     ("index, gather, scatter, embedding", ("index", "gather", "scatter",
                                            "embedding")),
@@ -894,6 +922,48 @@ def step_split(fn, what: str, steps: int, parts, card: str) -> dict:
             for name, (us, n) in split.items()}
 
 
+# the bf16-weight decode's phases in the order its kernel stamps them
+# (csrc/decode_bf16.cu): block 0's time in each phase of a step, and at the
+# barrier after it
+BF16_PHASES = ("argmax and embed", "attention", "barrier", "cell", "barrier",
+               "Wi and h W2", "barrier", "Wo and partial argmax", "barrier")
+
+
+def phase_split(cell: str, inputs, opts: dict, steps: int, what: str,
+                card: str, calls: int = 5) -> dict:
+    """The bf16-weight decode's time by phase, from the ``%globaltimer``
+    stamps its block 0 writes at each phase boundary (``calls`` decodes of
+    ``steps`` steps on ``inputs``): us a step in each phase, the barriers'
+    waits summed, their share of the decode, and the prologue that loads
+    the resident weights (and the first h W2, and its barrier)."""
+    from masters_thesis_tpu_torch.ops import fused_decode as fd
+
+    stamps = torch.zeros(calls, 5 + 9 * steps, dtype=torch.int64,
+                         device=inputs[0].device)
+    for i in range(calls):
+        fd._launch(cell, inputs, max_length=steps, stamps=stamps[i], **opts)
+    torch.cuda.synchronize()
+    us = stamps.double().cpu().numpy() / 1e3
+    gaps = np.diff(us[:, 3:4 + 9 * steps], axis=1).reshape(calls, steps, 9)
+    per_step: dict[str, float] = {}
+    for name, gap in zip(BF16_PHASES, gaps.mean(axis=(0, 1))):
+        per_step[name] = per_step.get(name, 0.0) + float(gap)
+    total = us[:, -1] - us[:, 0]
+    waits = gaps[:, :, 2::2].sum(axis=(1, 2)) + us[:, 3] - us[:, 2]
+    out = {"us_a_step": per_step,
+           "prologue_us": float((us[:, 3] - us[:, 0]).mean()),
+           "last_argmax_us": float((us[:, -1] - us[:, -2]).mean()),
+           "decode_us": float(total.mean()),
+           "barrier_share": float((waits / total).mean())}
+    print(f"phases of {what} ({steps} steps, block 0's %globaltimer stamps, "
+          f"{calls} decodes): " + ", ".join(
+              f"{name} {v:.2f} us" for name, v in per_step.items())
+          + f" a step; prologue (resident loads, first h W2) "
+          f"{out['prologue_us']:.2f} us, decode {out['decode_us']:.2f} us, "
+          f"barrier waits {out['barrier_share']:.1%} of it [{card}]")
+    return out
+
+
 # ---- CnnRnn serving ----
 
 def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
@@ -958,11 +1028,13 @@ def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
 
     # the bf16-weight K3, both zero-state values, the default timed last
     model.gru_zero_state = False
-    errs = [check_kernel_bf16(model, rows, card, "bf16 K3 (carried GRU "
-                              "state)", timed=False)["max_abs_err"]]
+    carried = check_kernel_bf16(model, rows, card, "bf16 K3 (carried GRU "
+                                "state)", profile=with_profile)
     model.gru_zero_state = True
-    k3b = check_kernel_bf16(model, rows, card, "bf16 K3 (zero-state GRU)")
-    k3b["max_abs_err"] = max(errs + [k3b["max_abs_err"]])
+    k3b = check_kernel_bf16(model, rows, card, "bf16 K3 (zero-state GRU)",
+                            profile=with_profile)
+    k3b["max_abs_err"] = max(carried.pop("max_abs_err"), k3b["max_abs_err"])
+    k3b["carried"] = carried
     k3b["launches"] = serve_bf16(model, tok, host, card, "bf16 K3",
                                  request_rows=(CNN_RNN_REQUEST_ROWS,))
     return {"launches": launches, **k3, "bf16": k3b}
@@ -4534,10 +4606,12 @@ def main(argv=None) -> int:
         device_time(lambda: captioner.caption(rows[:BATCH]),
                     "one served batch", table=True)
     # the bf16-weight K2, feat_bf16 off (the Captioner's) and on
-    k2b = check_kernel_bf16(model, betas, card, "bf16 K2")
+    k2b = check_kernel_bf16(model, betas, card, "bf16 K2",
+                            profile=args.profile)
     k2b["feat_bf16"] = check_kernel_bf16(model, betas, card,
                                          "bf16 K2 (feat_bf16)",
-                                         feat_bf16=True)
+                                         feat_bf16=True,
+                                         profile=args.profile)
     k2b["max_abs_err"] = max(k2b["max_abs_err"],
                              k2b["feat_bf16"].pop("max_abs_err"))
     k2b["launches"] = serve_bf16(model, tok, rows, card, "bf16 K2")
@@ -4606,10 +4680,10 @@ def main(argv=None) -> int:
         "launches_ingest": ing["fused_greedy_decode_gru"],
         "launches_plain_route": plain["route"]["K3"], **k3}, {
         "name": "fused_greedy_decode_bf16", "route": "cuda",
-        "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
+        "source": "masters_thesis_tpu_torch/csrc/decode_bf16.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:211", **k2b}, {
         "name": "fused_greedy_decode_gru_bf16", "route": "cuda",
-        "source": "masters_thesis_tpu_torch/csrc/fused_decode.cu",
+        "source": "masters_thesis_tpu_torch/csrc/decode_bf16.cu",
         "replaces": "masters_thesis_tpu/ops/fused_decode.py:276", **k3b}, {
         "name": "gather_rows", "route": "cuda",
         "source": "masters_thesis_tpu_torch/csrc/gather.cu",

@@ -82,41 +82,10 @@
 // Python wrapper passes outputs and scratch. Each launch is checked with
 // cudaGetLastError, and the entry points return the first error.
 //
-// The bf16-weight variants (mtt_fused_greedy_decode_bf16 and
-// mtt_fused_greedy_decode_gru_bf16) are the TPU kernels as they run on the
-// TPU: _fused_decode_call (:159-166) casts Wx, Wh, Wi, Wo and the
-// embedding table to bf16 there, and with feat_bf16 pre and features, and
-// each product is jnp.dot(x.astype(bf16), w_bf16, preferred_element_type=
-// f32) (:82-97, :122-129, :257-262). So [ctx ; emb] and h are rounded to
-// bf16 (to nearest even) for the cell, h for Wi and hi for Wo, and each
-// product is an fp32 sum of exact products; W2, the biases, v, bv, emb0 and
-// the carries stay fp32, and the re-embedding is the bf16 table's row.
-//
-// What bounds them. Counting each input byte once, a flagship decode (B 64,
-// T 15) reads ~12 MB of bf16 weights and table beside ~6 MB of fp32
-// attention inputs (~5.4 us at 3.35 TB/s) and does ~3.4 G multiply-adds on
-// the tensor cores (~6.9 us at 989 TFLOP/s dense bf16) and ~38 M in fp32
-// (the attention, ~1.1 us at 67 TFLOP/s): bound by operations at ~8 us. The
-// steps are sequential, six launches each, so as for the fp32 kernels the
-// attention, L2 round trips and launch gaps set the pace.
-//
-// What the design does about it. The same six-launch step: h W2 + b2 on the
-// fp32 tile kernel (W2 stays fp32), on the fp32 kernel's plan, from the fp32
-// h carry; attention_kernel, on bf16 pre and features under feat_bf16
-// (attention_kernel<true>); the cell, on mma_tile.cuh's bf16 tensor-core
-// tile (K2: the LSTM tile K4 runs, 32 rows x 8 units; K3: its GRU tile, the
-// h~ gate's input and recurrent sums apart, no Wh rows under zero state);
-// Wi on a 16 x 8 dense tile with the head's LeakyReLU in its epilogue; Wo on
-// a 32 x 16 dense tile; argmax_embed_kernel<true>, which reads the bf16
-// table and writes the next embedding in bf16, exact. The cell writes h'
-// twice, fp32 for the carry and the next h W2, and rounded to bf16 into
-// the other half of a (2, B, U) scratch for the next cell and this step's
-// Wi. The weights stay bf16 from HBM to the tensor cores. Rows past B,
-// units past N and K past its end are zero-filled in the stages; a padded
-// vocab id has a zero Wo column and bias -1e30, so it never wins. The fp32
-// kernels above are untouched.
+// The bf16-weight K2 and K3 (the TPU kernels as the TPU runs them, with
+// bf16 weights) are one persistent cooperative kernel of their own, in
+// decode_bf16.cu.
 
-#include "mma_tile.cuh"
 #include "step_kernels.cuh"
 #include "tile_kernels.cuh"
 
@@ -131,13 +100,11 @@ __device__ __forceinline__ void take_better(float& v, int& i, float v2, int i2) 
   }
 }
 
-// Step 6: one block per batch row. kBf16: the table, and the embedding it
-// writes, in bf16.
-template <bool kBf16 = false>
+// Step 6: one block per batch row.
 __global__ void argmax_embed_kernel(
-    const float* __restrict__ logits,                         // (B, N)
-    const typename Elem<kBf16>::type* __restrict__ emb_table,  // (V, E)
-    typename Elem<kBf16>::type* __restrict__ emb,  // (B, E), the next one
+    const float* __restrict__ logits,     // (B, N)
+    const float* __restrict__ emb_table,  // (V, E)
+    float* __restrict__ emb,              // (B, E), the next one
     int* __restrict__ words,              // (B, T)
     int N, int E, int T, int t) {
   __shared__ float s_val[32];
@@ -170,7 +137,7 @@ __global__ void argmax_embed_kernel(
     }
   }
   __syncthreads();
-  const auto* row = emb_table + (size_t)s_word * E;
+  const float* row = emb_table + (size_t)s_word * E;
   for (int e = tid; e < E; e += blockDim.x) emb[(size_t)b * E + e] = row[e];
 }
 
@@ -302,134 +269,6 @@ int run_decode(const Decode& d, int device, void* stream_ptr) {
   return 0;
 }
 
-// The bf16-weight decode's tiles (mma_tile.cuh), <G, MT, NU, KS, BK, STAGES>
-const MmaConfig kDecodeTiles[] = {
-    mma_tile<4, 2, 1, 8, 128, 4>(),        // the LSTM cell: 32 rows x 8 units
-    mma_tile<3, 2, 1, 8, 128, 4>(),        // the GRU cell: 32 x 8
-    mma_tile<1, 1, 1, 8, 128, 4, true>(),  // Wi and the activation: 16 x 8
-    mma_tile<1, 2, 2, 8, 128, 4>(),        // Wo: 32 x 16
-};
-
-// Everything the bf16-weight decode reads and writes. b is the LSTM's
-// (4U) or the GRU's [b_in ; b_rec] (6U); c_a, c_b and zs (the LSTM tile's
-// z, not read) are the LSTM's; hbuf (2, B, U) holds h rounded to bf16, step
-// t reading half t % 2 and its cell writing the other.
-struct DecodeBf16 {
-  const void *pre, *features;  // fp32, or bf16 under feat_bf16
-  const float *w2, *b2, *v, *bv;
-  const bf16 *wx, *wh;
-  const float* b;
-  const bf16* wi;
-  const float* bi;
-  const bf16* wo;
-  const float* bo;
-  const bf16* emb_table;
-  bf16* emb;
-  float *h_a, *h_b;
-  bf16* hbuf;
-  float *c_a, *c_b, *ctx, *hi, *logits, *hw, *zs;
-  int* words;
-  float* alphas;
-  int B, R, A, D, E, U, H, V, T;
-  bool feat_bf16, zero_state;
-  Plan hw_plan;
-  float slope, attn_slope;
-};
-
-template <bool kFeatBf16>
-cudaError_t attend(const DecodeBf16& d, size_t smem, int t,
-                   cudaStream_t stream) {
-  using F = typename Elem<kFeatBf16>::type;
-  attention_kernel<kFeatBf16><<<d.B, kThreads, smem, stream>>>(
-      static_cast<const F*>(d.pre), static_cast<const F*>(d.features), d.v,
-      d.bv, d.ctx, d.alphas, d.hw, d.R, d.A, d.D, d.attn_slope, d.T, t);
-  return cudaGetLastError();
-}
-
-template <int CELL>
-int run_decode_bf16(const DecodeBf16& d, int device, void* stream_ptr) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  constexpr bool kLstm = CELL == kLSTM;
-  // the GRU in zero state reads no recurrent rows: K = D + E
-  const bool recurrent = !(CELL == kGRU && d.zero_state);
-  const MmaConfig& cell = kDecodeTiles[kLstm ? 0 : 1];
-  const MmaConfig& inter = kDecodeTiles[2];
-  const MmaConfig& out = kDecodeTiles[3];
-
-  const size_t attn_smem = attention_smem_bytes(d.A, d.R);
-  if ((err = tile_prepare(d.hw_plan.tile, 1)) != cudaSuccess ||
-      (err = d.feat_bf16
-                 ? cudaFuncSetAttribute(
-                       attention_kernel<true>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)attn_smem)
-                 : cudaFuncSetAttribute(
-                       attention_kernel<>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)attn_smem)) != cudaSuccess ||
-      (err = mma_prepare(cell)) != cudaSuccess ||
-      (err = mma_prepare(inter)) != cudaSuccess ||
-      (err = mma_prepare(out)) != cudaSuccess)
-    return (int)err;
-
-  const size_t bu = (size_t)d.B * d.U;
-  float* h_cur = d.h_a;
-  float* h_next = d.h_b;
-  float* c_cur = d.c_a;
-  float* c_next = d.c_b;
-  for (int t = 0; t < d.T; ++t) {
-    const bf16* hb_cur = d.hbuf + (t % 2) * bu;
-    bf16* hb_next = d.hbuf + ((t + 1) % 2) * bu;
-    // 1-2: h W2 + b2 for the whole batch (fp32), then the attention
-    if ((err = launch(d.hw_plan,
-                      {h_cur, nullptr, nullptr, d.U, 0, 0, d.w2, nullptr,
-                       d.U, d.b2, d.B, d.A, 1.f, d.hw, nullptr, nullptr,
-                       nullptr},
-                      stream)) != cudaSuccess ||
-        (err = d.feat_bf16 ? attend<true>(d, attn_smem, t, stream)
-                           : attend<false>(d, attn_smem, t, stream)) !=
-            cudaSuccess)
-      return (int)err;
-    // 3: the cell over [ctx | emb | h], writing h' in fp32 and in bf16
-    const MmaArgs cell_args =
-        kLstm ? MmaArgs{d.ctx, d.emb, hb_cur, d.D, d.E, d.U, d.wx, d.wh,
-                        d.D + d.E, d.b, d.B, d.U, h_next, hb_next, c_next,
-                        c_cur, d.zs, 0, 1.f}
-              : MmaArgs{d.ctx, d.emb, recurrent ? hb_cur : nullptr, d.D, d.E,
-                        recurrent ? d.U : 0, d.wx, d.wh, d.D + d.E, d.b, d.B,
-                        d.U, h_next, hb_next, nullptr,
-                        recurrent ? h_cur : nullptr, nullptr, 0, 1.f};
-    // 4-5: the head, h' (bf16) Wi, then act(hi) (rounded as staged) Wo
-    if ((err = mma_launch(cell, cell_args, stream)) != cudaSuccess ||
-        (err = mma_launch(inter,
-                          {nullptr, hb_next, nullptr, 0, d.U, 0, d.wi,
-                           nullptr, d.U, d.bi, d.B, d.H, d.hi, nullptr,
-                           nullptr, nullptr, nullptr, 0, d.slope},
-                          stream)) != cudaSuccess ||
-        (err = mma_launch(out,
-                          {d.hi, nullptr, nullptr, d.H, 0, 0, d.wo, nullptr,
-                           d.H, d.bo, d.B, d.V, d.logits, nullptr, nullptr,
-                           nullptr, nullptr, 0, 1.f},
-                          stream)) != cudaSuccess)
-      return (int)err;
-    // 6: the argmax and the next embedding, the bf16 table's row
-    argmax_embed_kernel<true><<<d.B, kThreads, 0, stream>>>(
-        d.logits, d.emb_table, d.emb, d.words, d.V, d.E, d.T, t);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    float* tmp = h_cur;
-    h_cur = h_next;
-    h_next = tmp;
-    if constexpr (kLstm) {
-      tmp = c_cur;
-      c_cur = c_next;
-      c_next = tmp;
-    }
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -488,51 +327,6 @@ int mtt_fused_greedy_decode_gru(
                  zero_state != 0, {hw_tile, hw_feed, hw_slices}, none, none,
                  none, slope, attn_slope};
   return run_decode<kGRU>(d, device, stream_ptr);
-}
-
-// K2 with bf16 Wx, Wh, Wi, Wo and emb_table: the tensors of
-// mtt_fused_greedy_decode, where pre and features are bf16 if feat_bf16 !=
-// 0, emb (B, E) is bf16 and holds the start embedding rounded on entry,
-// hbuf (2, B, U) is bf16 and holds h0 rounded in its first half, and zs
-// (B, 4U) is scratch; one plan, hw_*, that of h W2 on the fp32 tile
-// kernel. Returns 0 on success, else the first CUDA error.
-int mtt_fused_greedy_decode_bf16(
-    const void* pre, const void* features, const float* w2, const float* b2,
-    const float* v, const float* bv, const bf16* wx, const bf16* wh,
-    const float* b, const bf16* wi, const float* bi, const bf16* wo,
-    const float* bo, const bf16* emb_table, bf16* emb, float* h_a,
-    float* h_b, bf16* hbuf, float* c_a, float* c_b, float* ctx, float* hi,
-    float* logits, float* hw, float* zs, int* words, float* alphas, int B,
-    int R, int A, int D, int E, int U, int H, int V, int T, int feat_bf16,
-    int hw_tile, int hw_feed, int hw_slices, float slope, float attn_slope,
-    int device, void* stream_ptr) {
-  const DecodeBf16 d{pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
-                     emb_table, emb, h_a, h_b, hbuf, c_a, c_b, ctx, hi,
-                     logits, hw, zs, words, alphas, B, R, A, D, E, U, H, V, T,
-                     feat_bf16 != 0, false, {hw_tile, hw_feed, hw_slices},
-                     slope, attn_slope};
-  return run_decode_bf16<kLSTM>(d, device, stream_ptr);
-}
-
-// K3 with bf16 weights, as mtt_fused_greedy_decode_bf16 with b the (6U)
-// [b_in ; b_rec], no c and no zs, and zero_state != 0 restarting the
-// recurrence from zeros every step.
-int mtt_fused_greedy_decode_gru_bf16(
-    const void* pre, const void* features, const float* w2, const float* b2,
-    const float* v, const float* bv, const bf16* wx, const bf16* wh,
-    const float* b, const bf16* wi, const float* bi, const bf16* wo,
-    const float* bo, const bf16* emb_table, bf16* emb, float* h_a,
-    float* h_b, bf16* hbuf, float* ctx, float* hi, float* logits, float* hw,
-    int* words, float* alphas, int B, int R, int A, int D, int E, int U,
-    int H, int V, int T, int feat_bf16, int zero_state, int hw_tile,
-    int hw_feed, int hw_slices, float slope, float attn_slope, int device,
-    void* stream_ptr) {
-  const DecodeBf16 d{pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
-                     emb_table, emb, h_a, h_b, hbuf, nullptr, nullptr, ctx,
-                     hi, logits, hw, nullptr, words, alphas, B, R, A, D, E, U,
-                     H, V, T, feat_bf16 != 0, zero_state != 0,
-                     {hw_tile, hw_feed, hw_slices}, slope, attn_slope};
-  return run_decode_bf16<kGRU>(d, device, stream_ptr);
 }
 
 const char* mtt_error_string(int code) {

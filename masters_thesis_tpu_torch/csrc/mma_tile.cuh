@@ -1,31 +1,21 @@
 // The bf16 tensor-core tile of the decoder's products, for Hopper (sm_90a):
 // mma.sync.m16n8k16 with bf16 operands and fp32 sums, its operands loaded by
 // ldmatrix from a ring of bf16 stages that cp.async fills. The bf16-weight
-// K4 (fused_seq.cu) runs its h W2 and its flagship cell on it, and the
-// bf16-weight K2 and K3 (fused_decode.cu) their cells and both head layers.
-// For a block of BM rows x BU units it computes
+// K4 (fused_seq.cu) runs its h W2 and its flagship cell on it. For a block
+// of BM rows x BU units it computes
 //
 //   Y = [in0 | in1 | in2] W + bias        (in0 fp32, rounded to bf16 as it
 //                                          is staged; in1, in2 and W bf16)
 //
-// with one of four epilogues, by G, the gates a unit:
-//   G = 4  the Keras LSTM cell (K4, K2): gates [i | f | g | o], c from
-//          c_in, writes z, c', h' and h' rounded to bf16;
-//   G = 3  the Keras reset_after GRU cell (K3): gates [z | r | h~], bias
-//          [b_in ; b_rec], the carried h from c_in (null under zero state:
-//          h = 0). The h~ gate's input sum (rows k < ka, of Wx) and its
-//          recurrent sum (rows k >= ka, of Wh) are kept apart, because r
-//          multiplies only the recurrent one: the stage holds the h~
-//          columns twice, each copy zero-filled on the other's rows, so the
-//          block sums four groups of columns. Writes h' and h' rounded;
-//   G = 1  a dense product, out = x W + bias, and with ACT its LeakyReLU of
-//          negative slope a.slope (K2's and K3's Wi).
+// with one of two epilogues, by G, the gates a unit:
+//   G = 4  the Keras LSTM cell: gates [i | f | g | o], c from c_in, writes
+//          z, c', h' and h' rounded to bf16;
+//   G = 1  a dense product, out = x W + bias.
 //
 // The epilogue of a (row, unit) has every gate's sum in one place, so the
 // cell runs in registers; h' is rounded to bf16 once, where it is made, for
-// the next products. Moved here from fused_seq.cu unchanged but for the GRU
-// epilogue, ACT and MmaArgs::slope, which the K4 instantiations do not
-// read: their machine code stays that of fused_seq.cu before the move
+// the next products. Moved here from fused_seq.cu unchanged: the K4
+// instantiations' machine code is that of fused_seq.cu before the move
 // (scripts/port_sass_diff.py).
 
 #pragma once
@@ -51,15 +41,14 @@ struct MmaArgs {
   const bf16* wa;
   const bf16* wb;
   int ka;
-  const float* bias;   // (G N,); the GRU's [b_in ; b_rec], (6N,)
+  const float* bias;   // (G N,)
   int B, N;
   float* out;          // (B, N): the dense product, or the cell's h'
-  bf16* h_out;         // (B, N), the cells: h' rounded to bf16
+  bf16* h_out;         // (B, N), LSTM: h' rounded to bf16
   float* c_out;        // (B, N), LSTM
-  const float* c_in;   // (B, N), LSTM: c; GRU: the carried h, or null
+  const float* c_in;   // (B, N), LSTM
   float* z_out;        // (B, 4N), LSTM
   int feed;            // kFeedX16 | kFeedW16: 16-byte copies (mma_launch)
-  float slope;         // G = 1 with ACT: the negative slope
 };
 
 __device__ __forceinline__ void cp_async16_any(void* dst, const void* src,
@@ -125,10 +114,8 @@ constexpr int padded(int c) { return (c / 8) % 2 ? c : c + 8; }
 
 // The epilogue of row m and unit n given their G pre-activations z (bias
 // added) and, for the cell, the cell state c: the cell writes z, c', h'
-// and h' rounded to bf16; a dense product writes z, or with ACT its
-// LeakyReLU. The GRU (G = 3) gets its four sums without the biases and the
-// carried h in c, and writes h' and h' rounded.
-template <int G, bool ACT = false>
+// and h' rounded to bf16; a dense product writes z.
+template <int G>
 __device__ __forceinline__ void mma_store(const MmaArgs& a, int m, int n,
                                           const float* z, float c) {
   const size_t o = (size_t)m * a.N + n;
@@ -141,64 +128,36 @@ __device__ __forceinline__ void mma_store(const MmaArgs& a, int m, int n,
     a.c_out[o] = cn;
     a.out[o] = h;
     a.h_out[o] = __float2bfloat16_rn(h);
-  } else if constexpr (G == 3) {
-    const float* b_in = a.bias;
-    const float* b_rec = a.bias + (size_t)3 * a.N;
-    const float zg = sigmoid(z[0] + b_in[n] + b_rec[n]);
-    const float r = sigmoid(z[1] + b_in[a.N + n] + b_rec[a.N + n]);
-    const float hh =
-        tanhf(z[2] + b_in[2 * a.N + n] + r * (z[3] + b_rec[2 * a.N + n]));
-    const float h = zg * c + (1.f - zg) * hh;
-    a.out[o] = h;
-    a.h_out[o] = __float2bfloat16_rn(h);
-  } else if constexpr (ACT) {
-    a.out[o] = lrelu(z[0], a.slope);
   } else {
     a.out[o] = z[0];
   }
 }
 
-// The gate whose weights a stage's column group g holds, and whether W's
-// row k feeds that group: gate g and every row, but for the GRU (G = 3),
-// whose group 3 is its h~ gate again, group 2 taking the rows k < ka (Wx)
-// and group 3 the rows k >= ka (Wh).
-template <int G>
-__device__ __forceinline__ int w_gate(int g) {
-  return G == 3 && g == 3 ? 2 : g;
-}
-template <int G>
-__device__ __forceinline__ bool w_feeds(int g, int k, int ka) {
-  return G != 3 || g < 2 || (g == 2) == (k < ka);
-}
-
-// The bf16 tensor-core tile: G gates (4: the LSTM cell, 3: the GRU cell,
-// 1: a dense product), summed in GS groups of columns (the gates, and the
-// GRU's h~ twice), a block of BM = 16 MT rows x BU = 8 NU units of each
-// group. Each of its KS warps takes the whole tile, MT m16 tiles x NU n8
-// tiles of each group, on one k16 slice in KS of each chunk of BK k; the
+// The bf16 tensor-core tile: G gates (4: the LSTM cell, 1: a dense product
+// out = x W + bias), a block of BM = 16 MT rows x BU = 8 NU units of each
+// gate. Each of its KS warps takes the whole tile, MT m16 tiles x NU n8
+// tiles of each gate, on one k16 slice in KS of each chunk of BK k; the
 // warps' sums meet in shared memory and are added in warp order, from warp
 // 0's, before the epilogue. Grid (ceil(N / BU), ceil(B / BM)).
 template <int G, int MT, int NU, int KS, int BK, int STAGES>
 struct MmaTile {
   static constexpr int kThreads = 32 * KS;
-  static constexpr int GS = G == 3 ? 4 : G;
-  static constexpr int BM = 16 * MT, BU = 8 * NU, WC = GS * BU;
+  static constexpr int BM = 16 * MT, BU = 8 * NU, WC = G * BU;
   static constexpr int XS = padded(BK), WS = padded(WC);
   static constexpr int STAGE = BM * XS + BK * WS;      // bf16 a stage
-  static constexpr int ACC = MT * GS * NU * 4;         // sums a thread
+  static constexpr int ACC = MT * G * NU * 4;          // sums a thread
   static constexpr size_t kRing = sizeof(bf16) * STAGES * STAGE;
   static constexpr size_t kRed = sizeof(float) * KS * ACC * 32;
   static constexpr size_t kSmem = kRing > kRed ? kRing : kRed;
   static_assert(BK % (16 * KS) == 0 && STAGES >= 2, "tile shape");
 };
 
-template <int G, int MT, int NU, int KS, int BK, int STAGES,
-          bool ACT = false>
+template <int G, int MT, int NU, int KS, int BK, int STAGES>
 __global__ void __launch_bounds__(32 * KS)
 mma_tile_kernel(MmaArgs a) {
   using T = MmaTile<G, MT, NU, KS, BK, STAGES>;
   constexpr int BM = T::BM, BU = T::BU, WC = T::WC, XS = T::XS, WS = T::WS;
-  constexpr int NT = T::GS * NU;             // n8 tiles a warp
+  constexpr int NT = G * NU;                 // n8 tiles a warp
   extern __shared__ __align__(16) uint4 mma_sm[];
   bf16* ring = reinterpret_cast<bf16*>(mma_sm);
   const int tid = threadIdx.x, lane = tid % 32, ks = tid / 32;
@@ -250,20 +209,18 @@ mma_tile_kernel(MmaArgs a) {
       for (int i = tid; i < BK * (WC / 8); i += T::kThreads) {
         const int kr = i / (WC / 8), col = i % (WC / 8) * 8;
         const int g = col / BU, n = n0 + col % BU, k = kc + kr;
-        const bool in = k < K && n < a.N && w_feeds<G>(g, k, a.ka);
+        const bool in = k < K && n < a.N;
         cp_async16_any(ws + kr * WS + col,
-                       in ? wb_row(a, k, ld) + (size_t)w_gate<G>(g) * a.N + n
-                          : a.wa,
+                       in ? wb_row(a, k, ld) + (size_t)g * a.N + n : a.wa,
                        in ? 16 : 0);
       }
     } else {
       for (int i = tid; i < BK * WC; i += T::kThreads) {
         const int kr = i / WC, col = i % WC;
         const int g = col / BU, n = n0 + col % BU, k = kc + kr;
-        ws[kr * WS + col] =
-            k < K && n < a.N && w_feeds<G>(g, k, a.ka)
-                ? wb_row(a, k, ld)[(size_t)w_gate<G>(g) * a.N + n]
-                : __float2bfloat16_rn(0.f);
+        ws[kr * WS + col] = k < K && n < a.N
+                                ? wb_row(a, k, ld)[(size_t)g * a.N + n]
+                                : __float2bfloat16_rn(0.f);
       }
     }
   };
@@ -338,20 +295,15 @@ mma_tile_kernel(MmaArgs a) {
     const int m = m0 + i * 16 + l / 4 + e / 2 * 8;
     const int n = n0 + u * 8 + l % 4 * 2 + e % 2;
     if (m >= a.B || n >= a.N) continue;
-    float z[T::GS];
+    float z[G];
 #pragma unroll
-    for (int g = 0; g < T::GS; ++g) {
+    for (int g = 0; g < G; ++g) {
       z[g] = 0.f;
       for (int q = 0; q < KS; ++q)
         z[g] += red[(((q * MT + i) * NT + g * NU + u) * 4 + e) * 32 + l];
-      if constexpr (G != 3) z[g] += a.bias[(size_t)g * a.N + n];
+      z[g] += a.bias[(size_t)g * a.N + n];
     }
-    if constexpr (G == 3)
-      mma_store<G>(a, m, n, z,
-                   a.c_in != nullptr ? a.c_in[(size_t)m * a.N + n] : 0.f);
-    else
-      mma_store<G, ACT>(a, m, n, z,
-                        G == 4 ? a.c_in[(size_t)m * a.N + n] : 0.f);
+    mma_store<G>(a, m, n, z, G == 4 ? a.c_in[(size_t)m * a.N + n] : 0.f);
   }
 }
 
@@ -361,12 +313,11 @@ struct MmaConfig {
   void (*kernel)(MmaArgs);
 };
 
-template <int G, int MT, int NU, int KS, int BK, int STAGES,
-          bool ACT = false>
+template <int G, int MT, int NU, int KS, int BK, int STAGES>
 MmaConfig mma_tile() {
   using T = MmaTile<G, MT, NU, KS, BK, STAGES>;
   return {T::BM, T::BU, T::kThreads, T::kSmem,
-          mma_tile_kernel<G, MT, NU, KS, BK, STAGES, ACT>};
+          mma_tile_kernel<G, MT, NU, KS, BK, STAGES>};
 }
 
 // Let tile t's kernel have its shared memory. Call once before launching.

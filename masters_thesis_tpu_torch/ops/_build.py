@@ -32,10 +32,10 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # mtt_fused_greedy_decode: 25 pointers, 9 sizes, the plans (tile, feed,
 # slices) of h W2, the cell, Wi and Wo, the two slopes, the device and the
 # stream; mtt_fused_greedy_decode_gru: 24 pointers, 9 sizes, the zero-state
-# flag, h W2's plan, then as K2; mtt_fused_greedy_decode_bf16: 27 pointers,
-# 9 sizes, the feat_bf16 flag, h W2's plan, then as K2;
-# mtt_fused_greedy_decode_gru_bf16: 24 pointers, 9 sizes, the feat_bf16 and
-# zero-state flags, then as the bf16 K2; mtt_fused_seq_forward: 18 pointers, 7
+# flag, h W2's plan, then as K2; mtt_greedy_decode_bf16: the array of its
+# tensors' pointers, the launch record on the host and on the device
+# (ops/decode_plan.py), the two slopes, the device and the stream;
+# mtt_fused_seq_forward: 18 pointers, 7
 # sizes, the attention's slope, the cell's and h W2's plans, the device and
 # the stream; mtt_fused_seq_forward_bf16: the same less the plans, with a
 # 19th pointer, the weights' transpose for the wgmma cell, or null;
@@ -48,10 +48,7 @@ _SIGNATURES = {
                                 ctypes.c_int),
     "mtt_fused_greedy_decode_gru": ([_P] * 24 + [_I] * 13 + [_F, _F, _I, _P],
                                     ctypes.c_int),
-    "mtt_fused_greedy_decode_bf16": ([_P] * 27 + [_I] * 13
-                                     + [_F, _F, _I, _P], ctypes.c_int),
-    "mtt_fused_greedy_decode_gru_bf16": ([_P] * 24 + [_I] * 14
-                                         + [_F, _F, _I, _P], ctypes.c_int),
+    "mtt_greedy_decode_bf16": ([_P] * 3 + [_F, _F, _I, _P], ctypes.c_int),
     "mtt_fused_seq_forward": ([_P] * 18 + [_I] * 7 + [_F] + [_I] * 7 + [_P],
                               ctypes.c_int),
     "mtt_fused_seq_forward_bf16": ([_P] * 19 + [_I] * 7 + [_F, _I, _P],

@@ -1,12 +1,15 @@
 """The whole greedy decode loop as one hand-written CUDA kernel chain, for
 both cells of the NIC family: K2 (LSTM) and K3 (GRU).
 
-Counterpart of ``masters_thesis_tpu/ops/fused_decode.py``. The kernels are
-in ``csrc/fused_decode.cu`` (its header says what bounds them on Hopper and
-how the design answers that); the products that run on the tile kernel of
-``csrc/tile_kernels.cuh`` (K2's h W2, cell and head, K3's h W2) are planned
-here (``lstm_decode_plans``, ``gru_hw_plan``, by ``ops.tiles.plan``) and
-the C side refuses a plan it cannot run. ``fused_greedy_decode_reference`` and
+Counterpart of ``masters_thesis_tpu/ops/fused_decode.py``. The fp32
+kernels are in ``csrc/fused_decode.cu`` (its header says what bounds them
+on Hopper and how the design answers that); the products that run on the
+tile kernel of ``csrc/tile_kernels.cuh`` (K2's h W2, cell and head, K3's h
+W2) are planned here (``lstm_decode_plans``, ``gru_hw_plan``, by
+``ops.tiles.plan``) and the C side refuses a plan it cannot run. The
+bf16-weight K2 and K3 are one persistent cooperative kernel,
+``csrc/decode_bf16.cu``, on the launch record of ``ops.decode_plan``
+(``bf16_decode_plan``), which the C side checks in the same way. ``fused_greedy_decode_reference`` and
 ``fused_greedy_decode_gru_reference`` are the same computations in plain
 PyTorch:
 
@@ -48,6 +51,8 @@ and the re-embedding is a row gather, not a one-hot matmul.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -57,6 +62,7 @@ from masters_thesis_tpu_torch.models.common import (
     leaky_relu,
 )
 from masters_thesis_tpu_torch.ops import tiles
+from masters_thesis_tpu_torch.ops.decode_plan import CELLS, decode_plan
 
 PAD_NEG = -1e30      # padded-vocab bias: never wins the argmax
 VOCAB_MULTIPLE = 128
@@ -353,14 +359,16 @@ def gru_hw_plan(args) -> tiles.Plan:
 
 
 def _launch(cell: str, args, *, max_length: int, slope: float,
-            attn_slope: float, zero_state: bool = False, plans=None):
+            attn_slope: float, zero_state: bool = False, plans=None,
+            plan=None, stamps=None):
     """Launch K2 (``cell`` "lstm") or K3 ("gru") in the mode that the
     arguments' dtypes select (``decode_precision``, which refuses a mixed
     set before any work). The fp32 K2 runs on ``plans`` (h W2, cell, Wi,
-    Wo), by default ``lstm_decode_plans``'s. The bf16-weight kernels take
-    no plans: they run h W2 on the fp32 kernel's plan of their cell and
-    every product with a bf16 weight on the tensor-core tiles of
-    ``csrc/mma_tile.cuh``."""
+    Wo), by default ``lstm_decode_plans``'s. The bf16-weight decode is one
+    cooperative launch of ``csrc/decode_bf16.cu`` on ``plan`` (an
+    ``ops.decode_plan.DecodePlan``, by default ``decode_plan``'s for the
+    card), and takes no tile plans; ``stamps`` (int64, 5 + 9 T, on the
+    device) receives its phases' ``%globaltimer`` stamps."""
     from masters_thesis_tpu_torch.ops import _build
 
     a = dict(zip(DECODE_ARGS[cell], args))
@@ -383,8 +391,13 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: expected {t.dtype} {shapes[name]}, "
                              f"got {tuple(t.shape)}")
-    if weights_bf16 and plans is not None:
-        raise ValueError("the bf16-weight decode takes no tile plans")
+    if weights_bf16:
+        if plans is not None:
+            raise ValueError("the bf16-weight decode takes no tile plans")
+        if plan is None:
+            plan = bf16_decode_plan(cell, args, max_length, zero_state)
+        return _launch_bf16(cell, a, plan, max_length, zero_state, slope,
+                            attn_slope, stamps)
 
     lib = _build.load_library()
     # Copies and scratch freed on return stay safe: the caching allocator
@@ -404,32 +417,6 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
     sizes = [B, R, A, D, E, U, H, Vp, max_length]
     stream = torch.cuda.current_stream(device).cuda_stream
     planned = [inputs.get(n, a[n]) for n in a]
-    if weights_bf16:
-        hw_plan = (gru_hw_plan(planned) if cell == "gru"
-                   else lstm_decode_plans(planned)[0])
-        if cell == "gru":      # one bias, [b_in ; b_rec]
-            del inputs["b_rec"]
-            inputs["b_in"] = torch.cat([a["b_in"], a["b_rec"]])
-        # the cell's operands in bf16, rounded once (to nearest even):
-        # emb0 here, every later emb by the argmax (the table's row), and
-        # h by the cell that makes it, into the other half of hbuf
-        emb = a["emb0"].to(torch.bfloat16).expand(B, E).contiguous()
-        hbuf = torch.empty(2, B, U, dtype=torch.bfloat16, device=device)
-        hbuf[0] = a["h0"]
-        zs = [empty(B, 4 * U)] if cell == "lstm" else []  # the cell's z
-        scratch = [emb, h_a, empty(B, U), hbuf, *cell_state, empty(B, D),
-                   empty(B, H), empty(B, Vp), empty(B, A), *zs]
-        pointers = [t.data_ptr()
-                    for t in [*inputs.values(), *scratch, words, alphas]]
-        entry = (lib.mtt_fused_greedy_decode_gru_bf16 if cell == "gru"
-                 else lib.mtt_fused_greedy_decode_bf16)
-        flags = ([int(feat_bf16), int(zero_state)] if cell == "gru"
-                 else [int(feat_bf16)])
-        code = entry(*pointers, *sizes, *flags, *hw_plan.args, slope,
-                     attn_slope, index, stream)
-        _build.check_error(code, f"bf16-weight greedy decode ({cell})")
-        return words, alphas
-
     emb = a["emb0"].expand(B, E).contiguous()
     scratch = [emb, h_a, empty(B, U), *cell_state, empty(B, D), empty(B, H),
                empty(B, Vp), empty(B, A)]       # ..., hi, logits, h W2 + b2
@@ -445,6 +432,91 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
             *pointers, *sizes, *(x for p in plans for x in p.args), slope,
             attn_slope, index, stream)
     _build.check_error(code, f"fused greedy decode ({cell})")
+    return words, alphas
+
+
+def bf16_decode_plan(cell: str, args, max_length: int,
+                     zero_state: bool = False):
+    """The plan (``ops.decode_plan``) that the bf16-weight decode of
+    ``args`` (``cell``'s tensors) runs on unless it is given another: one
+    block an SM of the tensors' card (of an H100 SXM's 132 for CPU
+    tensors, which only a report of the plan reads)."""
+    a = dict(zip(DECODE_ARGS[cell], args))
+    B, R, A = a["pre"].shape
+    H, Vp = a["wo"].shape
+    device = a["pre"].device
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 132)
+    return decode_plan(
+        cell, B, R, A, a["features"].shape[2], a["emb_table"].shape[1],
+        a["w2"].shape[0], H, Vp, max_length,
+        feat_bf16=a["pre"].dtype == torch.bfloat16, zero_state=zero_state,
+        sms=sms)
+
+
+# (record, device) -> the record as C reads it on the host and on the device
+_RECORDS: dict = {}
+
+
+def _launch_bf16(cell: str, a: dict, plan, max_length: int, zero_state: bool,
+                 slope: float, attn_slope: float, stamps=None):
+    """The bf16-weight decode's one cooperative launch on the arguments
+    ``a`` (checked by ``_launch``) under ``plan``. The kernel fills its own
+    scratch from emb0, h0 and c0; the record is made once a plan and
+    device."""
+    from masters_thesis_tpu_torch.ops import _build
+
+    h = plan.header
+    device = a["pre"].device
+    B, R, A = a["pre"].shape
+    H, V = a["wo"].shape
+    want = dict(cell=CELLS[cell], B=B, R=R, A=A, D=a["features"].shape[2],
+                E=a["emb_table"].shape[1], U=a["w2"].shape[0], H=H, V=V,
+                T=max_length, feat_bf16=int(a["pre"].dtype == torch.bfloat16),
+                zero_state=int(zero_state))
+    if any(h[k] != v for k, v in want.items()):
+        raise ValueError(f"the plan is for {[h[k] for k in want]}, the "
+                         f"arguments are {list(want.values())}")
+    T, U = max_length, h["U"]
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (plan, index)
+    if key not in _RECORDS:
+        if len(_RECORDS) >= 256:
+            _RECORDS.clear()
+        record = plan.record
+        _RECORDS[key] = ((ctypes.c_int * len(record))(*record),
+                         torch.tensor(record, dtype=torch.int32,
+                                      device=device))
+    host, dev = _RECORDS[key]
+    f32 = dict(dtype=torch.float32, device=device)
+    words = torch.empty(B, T, dtype=torch.int32, device=device)
+    alphas = torch.empty(B, T, h["R"], **f32)
+    lstm = cell == "lstm"
+    scratch = [
+        torch.empty(2, B, h["kx"], dtype=torch.bfloat16, device=device),  # x
+        torch.empty(B, U, **f32),                                         # h
+        torch.empty(B, U, **f32) if lstm else None,                       # c
+        torch.empty(B, h["hp"], dtype=torch.bfloat16, device=device),     # hi
+        torch.empty(B, h["A"], **f32),                                    # hw
+        torch.empty(B, h["blocks"], **f32),                               # pval
+        torch.empty(B, h["blocks"], dtype=torch.int32, device=device),
+        torch.empty(1, dtype=torch.int32, device=device)]                 # bar
+    inputs = [a[n] for n in ("pre", "features", "w2", "b2", "v", "bv", "wx",
+                             "wh")]
+    inputs += ([a["b"], None] if lstm else [a["b_in"], a["b_rec"]])
+    inputs += [a[n] for n in ("wi", "bi", "wo", "bo", "emb_table", "emb0",
+                              "h0")]
+    inputs.append(a["c0"] if lstm else None)
+    # the tensors stay referenced here until the launch is queued
+    tensors = [*inputs, *scratch, words, alphas, stamps]
+    held = [None if t is None else t.contiguous() for t in tensors]
+    pointers = (ctypes.c_void_p * len(held))(
+        *(None if t is None else t.data_ptr() for t in held))
+    code = _build.load_library().mtt_greedy_decode_bf16(
+        pointers, host, dev.data_ptr(), slope, attn_slope, index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check_error(code, f"bf16-weight greedy decode ({cell})")
     return words, alphas
 
 

@@ -15,8 +15,10 @@ K4 shape, step by step, its rounding of h, emb and ctx against torch's on
 values at ties, and through the bf16 sequence's backward; and the
 bf16-weight K2 and K3 at the shapes of the fp32 ones, on batches of 1 and
 5 rows and at the tiles' edges, with feat_bf16, their rounding of ctx at
-ties, the first index on an argmax tie and the refusal of mixed dtypes. A
-CUDA kernel has no CPU mode, so every
+ties, the first index on an argmax tie and the refusal of mixed dtypes;
+and their persistent kernel on batches past one row a block, bit for bit
+from call to call, on forced plans of few blocks, and refusing plans it
+cannot run. A CUDA kernel has no CPU mode, so every
 test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -1384,3 +1386,157 @@ def test_bf16_decode_refuses_mixed_dtypes_before_a_launch(cuda, cell):
                                  attn_slope=0.2,
                                  plans=fused_decode.lstm_decode_plans(fp32))
     assert (kernel.launches, kernel.launches_bf16) == before
+
+
+# ---- the persistent bf16-weight decode's plans ----
+
+@pytest.mark.parametrize("rows", [65, 130, 256])
+def test_bf16_k2_at_batches_past_one_row_a_block(cuda, rows):
+    """The bf16-weight K2 at flagship widths on 65, 130 and 256 rows:
+    more rows than a 64-row pass of a product, and at 256 more rows than
+    blocks (two attention rows a block, streamed)."""
+    model, _ = _model_and_betas(cuda, "flagship")
+    gen = torch.Generator().manual_seed(rows)
+    betas = torch.randn(rows, 327_684, generator=gen).to(cuda)
+    with torch.inference_mode():
+        args = fused_decode.cast_decode_inputs(
+            "lstm", fused_decode.decode_inputs(model, betas, 1),
+            weights_bf16=True)
+    _check_bf16_decode("lstm", args, fused_decode.decode_options(model),
+                       model.max_length, MIN_DISTINCT["flagship"])
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_decode_is_the_same_bit_for_bit_from_call_to_call(cuda, cell):
+    """No sum of the persistent kernel depends on timing: two calls on the
+    same inputs give the same words and alphas, bit for bit."""
+    if cell == "lstm":
+        model, betas = _model_and_betas(cuda, "flagship")
+    else:
+        gen = torch.Generator().manual_seed(0)
+        model = CnnRnnNIC(embed_dim=256, units=512, vocab_size=5001,
+                          max_length=15, n_patches=64, in_channels=2048,
+                          gru_zero_state=False, generator=gen)
+        fused_decode.spread_for_check(model, gen)
+        betas = torch.randn(64, 64, 2048, generator=gen)
+        model, betas = model.to(cuda).eval(), betas.to(cuda)
+    kernel, _ = fused_decode.decode_kernel(model)
+    opts = fused_decode.decode_options(model)
+    with torch.inference_mode():
+        args = fused_decode.cast_decode_inputs(
+            cell, fused_decode.decode_inputs(model, betas, 1),
+            weights_bf16=True)
+        first = kernel(*args, max_length=model.max_length, **opts)
+        second = kernel(*args, max_length=model.max_length, **opts)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("sms, shape, cell", [
+    (3, "b130-u300", "lstm"), (3, "b70-u40", "lstm"), (8, "tma", "lstm"),
+    (4, "b130-u300", "gru"), (3, "b70-u40", "gru")])
+def test_bf16_decode_on_plans_of_few_blocks(cuda, sms, shape, cell):
+    """Plans of a few blocks, forced: a block then owns several unit panels
+    (more than 16 units), several vocab panels (more than 64 ids), several
+    attention rows and a tall h W2 tile, as on a card of few SMs."""
+    from masters_thesis_tpu_torch.ops.decode_plan import decode_plan
+
+    B, R, A, D, E, U, H, V = DECODE_SHAPES[shape]
+    args = list(_decode_case(cuda, B, R, A, D, E, U, H, V))
+    opts = dict(slope=0.2, attn_slope=0.2)
+    if cell == "gru":
+        gen = torch.Generator().manual_seed(1)
+        args[6] = args[6][:, :3 * U].contiguous()
+        args[7] = args[7][:, :3 * U].contiguous()
+        args[8:9] = [torch.randn(3 * U, generator=gen).to(cuda),
+                     torch.randn(3 * U, generator=gen).to(cuda)]
+        del args[-1]
+        opts["zero_state"] = False
+    args = fused_decode.cast_decode_inputs(cell, args, weights_bf16=True)
+    reference = (fused_decode.fused_greedy_decode_gru_reference
+                 if cell == "gru"
+                 else fused_decode.fused_greedy_decode_reference)
+    Vp = args[fused_decode.DECODE_ARGS[cell].index("wo")].shape[1]
+    for T, atol, tie in ((1, 1e-6, 1e-3), (DECODE_T, 1e-3, 1e-2)):
+        plan = decode_plan(cell, B, R, A, D, E, U, H, Vp, T, sms=sms)
+        assert plan.header["blocks"] == sms
+        with torch.inference_mode():
+            words, alphas = fused_decode._launch(
+                cell, args, max_length=T, plan=plan, **opts)
+            torch.cuda.synchronize()
+            ref = reference(*args, max_length=T, return_margins=True,
+                            **opts)
+        report = fused_decode.compare_with_reference(
+            words, alphas, *ref, alpha_atol=atol, tie_margin=tie)
+        assert report["bad_rows"] == [], (T, report)
+
+
+def _forged(plan, header=None, block=None, at=0):
+    """``plan`` with some header fields, and some fields of block ``at``,
+    replaced."""
+    from masters_thesis_tpu_torch.ops.decode_plan import DecodePlan
+
+    blocks = [dict(b) for b in plan.blocks]
+    blocks[at].update(block or {})
+    return DecodePlan({**plan.header, **(header or {})}, tuple(blocks))
+
+
+def test_bf16_decode_refuses_plans_it_cannot_run(cuda):
+    """The C side refuses, before anything runs: more blocks than can all
+    be resident at once (a cooperative launch), a block over the card's
+    shared memory, a layout whose regions overlap or overrun the block's
+    bytes, units or vocab ids cut out of order or left without an owner,
+    h W2 tiles that overlap, and attention rows that do not match the
+    grid. The good plan still runs. Nothing falls back."""
+    from masters_thesis_tpu_torch.ops.decode_plan import decode_plan
+
+    model, betas = _model_and_betas(cuda, "flagship")
+    with torch.inference_mode():
+        args = fused_decode.cast_decode_inputs(
+            "lstm", fused_decode.decode_inputs(model, betas, 1),
+            weights_bf16=True)
+    T = 3
+    B, R, A = args[0].shape
+    D, U, E = args[1].shape[2], args[2].shape[0], args[13].shape[1]
+    H, V = args[11].shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    good = decode_plan("lstm", B, R, A, D, E, U, H, V, T, sms=sms)
+    b0, b1 = good.blocks[0], good.blocks[1]
+    # two blocks that hold h W2 tiles
+    t0, t1 = [j for j, b in enumerate(good.blocks) if b["a1"] > b["a0"]][:2]
+    last = good.header["smem"] - good.header["scratch"]
+    bad = {
+        "blocks past co-residency": decode_plan(
+            "lstm", B, R, A, D, E, U, H, V, T, sms=2 * sms),
+        "over the card's shared memory": _forged(
+            good, header={"smem": 232_449}),
+        "a block past its bytes": _forged(
+            good, header={"smem": good.header["smem"] - 16}),
+        "overlapping regions": _forged(
+            good, block={"off_wo": b0["off_wi"]}),
+        "units out of order": _forged(
+            good, block={"u0": b1["u0"] + 2}, at=1),
+        "a vocab id without an owner": _forged(
+            good, block={"o1": b0["o1"] - 8, "o0": b0["o0"]}),
+        "overlapping h W2 tiles": _forged(
+            good, at=t0, block={k: good.blocks[t1][k]
+                                for k in ("r0", "r1", "a0", "a1")}),
+        "attention rows off the grid": _forged(
+            good, block={"rows": b0["rows"] + 1}),
+        "a ring too deep": _forged(good, header={"stages": 17}),
+    }
+    past = bad["blocks past co-residency"].header
+    assert past["blocks"] == 2 * sms and past["smem"] > 232_448 // 2
+    assert last > 0
+    for what, plan in bad.items():
+        try:
+            fused_decode._launch("lstm", args, max_length=T, slope=0.2,
+                                 attn_slope=0.2, plan=plan)
+        except RuntimeError as err:
+            assert "CUDA error" in str(err), (what, err)
+        else:
+            pytest.fail(f"{what}: the plan ran")
+    words, _ = fused_decode._launch("lstm", args, max_length=T, slope=0.2,
+                                    attn_slope=0.2, plan=good)
+    torch.cuda.synchronize()
+    assert words.shape == (B, T)
