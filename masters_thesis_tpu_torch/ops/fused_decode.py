@@ -63,6 +63,7 @@ from masters_thesis_tpu_torch.models.common import (
 )
 from masters_thesis_tpu_torch.ops import tiles
 from masters_thesis_tpu_torch.ops.decode_plan import CELLS, decode_plan
+from masters_thesis_tpu_torch.utils.profiling import span
 
 PAD_NEG = -1e30      # padded-vocab bias: never wins the argmax
 VOCAB_MULTIPLE = 128
@@ -215,14 +216,17 @@ def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
     ``feat_bf16``): the bf16-weight K2 (the module docstring).
 
     ``fused_greedy_decode.launches`` counts the fp32 kernel chain's
-    launches, ``fused_greedy_decode.launches_bf16`` the bf16 one's."""
+    launches, ``fused_greedy_decode.launches_bf16`` the bf16 one's. The
+    call is the span ``decode.kernel`` (``utils.profiling.span``)."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
             emb_table, emb0, h0, c0)
-    if plain_or_kernel("fused_greedy_decode", args):
-        return fused_greedy_decode_reference(
-            *args, max_length=max_length, slope=slope, attn_slope=attn_slope)
-    out = _launch("lstm", args, max_length=max_length, slope=slope,
-                  attn_slope=attn_slope)
+    with span("decode.kernel", pre):
+        if plain_or_kernel("fused_greedy_decode", args):
+            return fused_greedy_decode_reference(
+                *args, max_length=max_length, slope=slope,
+                attn_slope=attn_slope)
+        out = _launch("lstm", args, max_length=max_length, slope=slope,
+                      attn_slope=attn_slope)
     if wx.dtype == torch.bfloat16:
         fused_greedy_decode.launches_bf16 += 1
     else:
@@ -246,15 +250,17 @@ def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
     dtypes pick the mode as for K2.
 
     ``fused_greedy_decode_gru.launches`` counts the fp32 kernel chain's
-    launches, ``fused_greedy_decode_gru.launches_bf16`` the bf16 one's."""
+    launches, ``fused_greedy_decode_gru.launches_bf16`` the bf16 one's. The
+    call is the span ``decode.kernel``."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi, wo,
             bo, emb_table, emb0, h0)
-    if plain_or_kernel("fused_greedy_decode_gru", args):
-        return fused_greedy_decode_gru_reference(
-            *args, max_length=max_length, slope=slope, attn_slope=attn_slope,
-            zero_state=zero_state)
-    out = _launch("gru", args, max_length=max_length, slope=slope,
-                  attn_slope=attn_slope, zero_state=zero_state)
+    with span("decode.kernel", pre):
+        if plain_or_kernel("fused_greedy_decode_gru", args):
+            return fused_greedy_decode_gru_reference(
+                *args, max_length=max_length, slope=slope,
+                attn_slope=attn_slope, zero_state=zero_state)
+        out = _launch("gru", args, max_length=max_length, slope=slope,
+                      attn_slope=attn_slope, zero_state=zero_state)
     if wx.dtype == torch.bfloat16:
         fused_greedy_decode_gru.launches_bf16 += 1
     else:
@@ -561,14 +567,28 @@ def extract_decode_params(model) -> dict:
     return out
 
 
-def decode_inputs(model, betas: torch.Tensor, start_id: int) -> tuple:
+def decode_inputs(model, betas: torch.Tensor, start_id: int, *,
+                  weights_bf16: bool = False,
+                  feat_bf16: bool = False) -> tuple:
     """The positional arguments of the model's decode kernel
     (``decode_kernel``) for ``betas`` (B, ...).
 
     Encodes, precomputes ``pre = act_a(features W1 + b1)``, pads the vocab
     axis to a multiple of 128 with bias -1e30 from ``model.true_vocab`` on,
     and takes the start embedding and the model's own initial carry (zeros,
-    or the learned one from the features)."""
+    or the learned one from the features); then casts as
+    ``cast_decode_inputs`` does for ``weights_bf16`` and ``feat_bf16``.
+    The call is the span ``decode.inputs`` (``utils.profiling.span``)."""
+    with span("decode.inputs", betas):
+        args = _decode_inputs(model, betas, start_id)
+        if weights_bf16 or feat_bf16:
+            args = cast_decode_inputs(model.cell_type, args,
+                                      weights_bf16=weights_bf16,
+                                      feat_bf16=feat_bf16)
+        return args
+
+
+def _decode_inputs(model, betas: torch.Tensor, start_id: int) -> tuple:
     sp = extract_decode_params(model)
     features = model.encode(betas)
     pre = leaky_relu(features @ sp["w1"] + sp["b1"],
@@ -608,10 +628,8 @@ def make_whole_fused_greedy_decoder(model, max_length: int, *,
 
     @torch.inference_mode()
     def decode(betas: torch.Tensor, start_id: int):
-        args = decode_inputs(model, betas, start_id)
-        if weights_bf16:
-            args = cast_decode_inputs(model.cell_type, args,
-                                      weights_bf16=True, feat_bf16=feat_bf16)
+        args = decode_inputs(model, betas, start_id,
+                             weights_bf16=weights_bf16, feat_bf16=feat_bf16)
         return kernel(*args, max_length=max_length, **opts)
 
     return decode

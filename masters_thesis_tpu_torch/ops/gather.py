@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from masters_thesis_tpu_torch.ops import _build
+from masters_thesis_tpu_torch.utils.profiling import span
 
 # shared-memory stages of gather_rows_bulk: the barriers the kernel holds
 MAX_STAGES = 32
@@ -71,11 +72,13 @@ def gather_rows(store: torch.Tensor, idx: torch.Tensor,
     """Rows ``idx`` (B,) int32 or int64 of ``store`` (N, W), cut to the
     first ``width`` columns: (B, width), contiguous.
 
-    ``gather_rows.launches`` counts the kernel's launches."""
-    if store.is_cuda and idx.is_cuda:
-        return _gather(store, idx, width)
-    _plain("gather_rows", store, idx)       # raises unless both on the CPU
-    return gather_rows_reference(store, idx, width)
+    ``gather_rows.launches`` counts the kernel's launches. The call is the
+    span ``gather`` (``utils.profiling.span``)."""
+    with span("gather", store):
+        if store.is_cuda and idx.is_cuda:
+            return _gather(store, idx, width)
+        _plain("gather_rows", store, idx)   # raises unless both on the CPU
+        return gather_rows_reference(store, idx, width)
 
 
 gather_rows.launches = 0
@@ -86,8 +89,9 @@ def take_rows(store: torch.Tensor, idx: torch.Tensor,
     """Rows ``idx`` of ``store`` through the library, on whatever device
     both are: the gather of ``tpu.use_pallas: false``. Out-of-range ids
     clamp, as K1's do (the JAX ``jnp.take`` fills NaN rows for them; in
-    range the two agree)."""
-    return gather_rows_reference(store, idx, width)
+    range the two agree). The call is the span ``gather``."""
+    with span("gather", store):
+        return gather_rows_reference(store, idx, width)
 
 
 def row_gather(kernel: bool):

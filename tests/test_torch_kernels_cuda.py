@@ -18,8 +18,9 @@ bf16-weight K2 and K3 at the shapes of the fp32 ones, on batches of 1 and
 ties, the first index on an argmax tie and the refusal of mixed dtypes;
 and their persistent kernel on batches past one row a block, bit for bit
 from call to call, on forced plans of few blocks, and refusing plans it
-cannot run. A CUDA kernel has no CPU mode, so every
-test here needs an NVIDIA Hopper GPU and skips without one.
+cannot run; and the profiler's device spans of a gather and a decode,
+against the decode's kernels by name. A CUDA kernel has no CPU mode, so
+every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1540,3 +1541,64 @@ def test_bf16_decode_refuses_plans_it_cannot_run(cuda):
                                     attn_slope=0.2, plan=good)
     torch.cuda.synchronize()
     assert words.shape == (B, T)
+
+
+# K2's and K3's kernels by name, as the benchmark's roofline readers match
+# them (either tile feed, the attention, the row kernel, the argmax)
+DECODE_KERNELS = {"lstm": ("::tile_kernel", "::attention_kernel<",
+                           "::argmax_embed_kernel("),
+                  "gru": ("::tile_kernel", "::attention_kernel<",
+                          "::rows_kernel<", "::argmax_embed_kernel(")}
+
+
+@pytest.mark.parametrize("cell", list(DECODE_KERNELS))
+def test_device_spans_time_the_decode(cuda, cell, tmp_path):
+    """Under the profiler a gather and a decode at flagship width and the
+    benchmark cells' batches (LcNIC's 256 rows for K2, CnnRnn's 64 for K3)
+    keep one event pair for each span, in order, and the same words;
+    ``decode.kernel``'s extent, which also holds the gaps between the
+    chain's launches, lies within 10% of the decode's kernels by name in
+    the same trace. A sleep ahead of them keeps the card busy while the
+    host enqueues, so the extent holds no wait for the host."""
+    from torch.autograd import DeviceType
+
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+    from masters_thesis_tpu_torch.utils import profiling
+
+    if cell == "lstm":
+        model, betas = _model_and_betas(cuda, "flagship")
+        store = betas.repeat(4, 1)
+        shape = (len(store), store.shape[1])
+    else:
+        gen = torch.Generator().manual_seed(0)
+        model = CnnRnnNIC(gru_zero_state=True, generator=gen).eval()
+        fused_decode.spread_for_check(model, gen)
+        model = model.to(cuda)
+        store = torch.randn(64, 64 * 2048, generator=gen).to(cuda)
+        shape = (64, 64, 2048)
+    decode = fused_decode.make_whole_fused_greedy_decoder(model, 15)
+    ids = torch.arange(len(store), device=cuda).flip(0)
+
+    def run():
+        return decode(gather_rows(store, ids).view(shape), 1)
+
+    words, alphas = run()
+    torch.cuda.synchronize()
+    prof = profiling.start_trace(str(tmp_path), cuda)
+    try:
+        torch.cuda._sleep(200_000_000)
+        traced_words, traced_alphas = run()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    assert torch.equal(words, traced_words)
+    assert torch.equal(alphas, traced_alphas)
+    spans = profiling.device_spans()
+    assert [s[0] for s in spans] == ["gather", "decode.inputs",
+                                     "decode.kernel"]
+    extent = spans[2][1].elapsed_time(spans[2][2])
+    by_name = sum(e.time_range.end - e.time_range.start
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(p in e.name for p in DECODE_KERNELS[cell])) / 1e3
+    assert by_name > 0
+    assert abs(extent - by_name) <= 0.1 * by_name, (extent, by_name)
