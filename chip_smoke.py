@@ -196,13 +196,15 @@ The device time of a train step, the sum of its kernels' times by
 ``tpu.fused_seq`` step; ``--profile`` adds tables of device time by kernel
 for one served batch and for the scanned train steps, and the time a step
 of K2, K3 and K4 (at both shapes) by part, each launch of a step in turn:
-K2's h W2, attention, cell, Wi, Wo and argmax; K3's h W2, attention, cell
-and head; K4's h W2, attention and cell; and the bf16-weight K2's and K3's
+K2's and K3's h W2, attention, cell, Wi, Wo and argmax; K4's h W2,
+attention and cell; and the bf16-weight K2's and K3's
 (one launch a decode) by phase, from the ``%globaltimer`` stamps its block
 0 writes (``phase_split``: argmax and embed, attention, cell, Wi and h W2,
-Wo and the partial argmax, and the share of the decode at barriers). K2's words and alphas on the
-seeded LcNIC inputs are printed as a SHA-256 digest, so that two builds can
-be told apart or shown bit-identical.
+Wo and the partial argmax, and the share of the decode at barriers). K2's
+words and alphas on the seeded LcNIC inputs, and K3's on the seeded CnnRnn
+inputs in both zero-state modes, are printed as a SHA-256 digest and must
+equal ``K2_DIGEST`` and ``K3_DIGESTS``, so that two builds can be told
+apart or shown bit-identical.
 
 The weights are random, made from a seed, and spread by
 ``ops.fused_decode.spread_for_check`` so that every bias and BatchNorm
@@ -231,7 +233,8 @@ version, both times, the least time the card could take for the same work
 (``bound_ms``, from the bytes and operations of this run's inputs) and,
 where one PyTorch call computes the same function, that call's time; K4's
 entry holds its check, times and bound at the wide shape under ``wide``,
-K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``,
+K2's, K3's and K4's name the tile kernel's plans they ran under ``tiles``
+(K2's and K3's also their digest under ``sha256``),
 the bf16-weight K2's holds its check and times with ``feat_bf16`` under
 ``feat_bf16``, the bf16 K3's its check and times at the carried state
 under ``carried``, and the bf16 K2's and K3's the fp32 kernel's time under
@@ -275,8 +278,13 @@ BATCH = 64
 SEED = 0
 ALPHA_ATOL = 1e-6   # fp32, summation order only (measured ~3e-7)
 TIE_MARGIN = 1e-3   # a top-2 logit margin below this is a near-tie
-# K2's words and alphas on the seeded flagship inputs, unchanged since PR 7
+# K2's words and alphas on the seeded flagship inputs, unchanged since K2's
+# cell and head moved onto the tile kernel; K3's on the seeded CnnRnn inputs
+# by zero-state mode, unchanged since its head moved there
 K2_DIGEST = "3e0a4c5e5f56edebf92f2811205bef7a3ddd16f6bb8217194dcf154995eed0cb"
+K3_DIGESTS = {
+    True: "7f1d7f7c3207f764e99ccefa046bfbab1a4a2375460ab52b8ddf94b7b0300a7e",
+    False: "ab415d35a08efbdc119656f0d65fa614b31eff374692b2d6a5e940e42ef34193"}
 # The bf16-weight decode (K2 and K3 as the TPU runs them) against its plain
 # version: a one-step decode (T = 1) is held to the fp32 limits above. Over
 # 15 steps the bf16 rounding of h turns the last-bit differences of two
@@ -466,9 +474,9 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
     same inputs, on the card, and both against the plain version in
     float64; with ``timed``, then both timed, and the
     fused decoder with the encoder against the unfused one; with
-    ``profile``, the kernel's per-step split; with ``digest``, K2's words
-    and alphas must have that SHA-256. Returns the kernel's entry of the
-    kernels line, less its launches."""
+    ``profile``, the kernel's per-step split; with ``digest``, the kernel's
+    words and alphas must have that SHA-256. Returns the kernel's entry of
+    the kernels line, less its launches."""
     from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
@@ -528,25 +536,24 @@ def check_kernel(model, rows, card: str, label: str, timed: bool = True,
     if distinct < MIN_DISTINCT_WORDS:
         raise RuntimeError(f"the check's greedy words are degenerate: "
                            f"{distinct} distinct < {MIN_DISTINCT_WORDS}")
-    entry = {"max_abs_err": report["max_abs_err"]}
-    if model.cell_type == "gru":
-        entry["tiles"] = {"h W2": fd.gru_hw_plan(inputs).describe()}
-        print(f"{label}: h W2 on the tile kernel's plan "
-              f"{entry['tiles']['h W2']}")
-    else:
-        entry["tiles"] = {part: p.describe() for part, p in zip(
-            ("h W2", "cell", "Wi", "Wo"), fd.lstm_decode_plans(inputs))}
-        print(f"{label}: the tile kernel's plans, " + ", ".join(
-            f"{part} {plan}" for part, plan in entry["tiles"].items()))
-        sha = hashlib.sha256(words.cpu().numpy().tobytes())
-        sha.update(alphas.cpu().numpy().tobytes())
-        print(f"{label}: SHA-256 of its words (int32) and alphas (fp32) on "
-              f"the seeded inputs: {sha.hexdigest()}"
-              + ("" if digest is None else f" (must be {digest})"))
-        if digest is not None and sha.hexdigest() != digest:
-            raise RuntimeError(f"{label}'s words and alphas are no longer "
-                               f"the fp32 kernel's of PR 7 on: "
-                               f"{sha.hexdigest()} != {digest}")
+    parts = (("h W2", "Wi", "Wo") if model.cell_type == "gru"
+             else ("h W2", "cell", "Wi", "Wo"))
+    # the plans the launch above ran, as the wrapper recorded them
+    entry = {"max_abs_err": report["max_abs_err"],
+             "tiles": {part: p.describe()
+                       for part, p in zip(parts, kernel.plans)}}
+    print(f"{label}: the tile kernel's plans, " + ", ".join(
+        f"{part} {plan}" for part, plan in entry["tiles"].items()))
+    sha = hashlib.sha256(words.cpu().numpy().tobytes())
+    sha.update(alphas.cpu().numpy().tobytes())
+    entry["sha256"] = sha.hexdigest()
+    print(f"{label}: SHA-256 of its words (int32) and alphas (fp32) on "
+          f"the seeded inputs: {entry['sha256']}"
+          + ("" if digest is None else f" (must be {digest})"))
+    if digest is not None and entry["sha256"] != digest:
+        raise RuntimeError(f"{label}'s words and alphas are no longer the "
+                           f"ones recorded for the fp32 kernel: "
+                           f"{entry['sha256']} != {digest}")
     if not timed:
         return entry
 
@@ -804,7 +811,7 @@ def throughput(captioner, rows: np.ndarray, card: str,
 # kernel name fragments -> the part of the work a kernel does, first match
 KERNEL_GROUPS = (
     ("K1 gather_rows", ("gather_rows_kernel",)),
-    ("K2/K3/K4 tile kernel (h W2; K2's, K4's cell; K2's head)",
+    ("K2/K3/K4 tile kernel (h W2; K2's, K4's cell; K2's, K3's head)",
      ("tile_kernel",)),
     ("K2/K3/K4 step kernels", ("attention_kernel", "rows_kernel",
                                "argmax_embed_kernel")),
@@ -869,8 +876,9 @@ STEP_PARTS = {
              ("Wo (tile)", ("tile_kernel<1,",)),
              ("argmax", ("argmax_embed_kernel",))),
     "gru": (_HW, _ATTN, ("cell (rows)", ("rows_kernel<2>",)),
-            ("head", ("rows_kernel<0>",)), ("head", ("rows_kernel<0>",)),
-            ("head", ("argmax_embed_kernel",))),
+            ("Wi (tile)", ("tile_kernel<1,",)),
+            ("Wo (tile)", ("tile_kernel<1,",)),
+            ("argmax", ("argmax_embed_kernel",))),
     "seq": (_HW, _ATTN,
             ("cell (tile)", ("tile_kernel<4,", "tile_kernel_tma<4,"))),
     "seq_bf16": (("h W2 (mma)", ("mma_tile_kernel<1,",)), _ATTN,
@@ -987,12 +995,13 @@ def cnn_rnn(device, tok, card: str, with_profile: bool) -> dict:
     rows = torch.randn(BATCH, *row_shape, generator=dev_gen, device=device)
     # the family's default (zero state) last, so that it is the one timed
     model.gru_zero_state = False
-    errs = [check_kernel(model, rows, card, "K3 (carried GRU state)",
-                         timed=False)["max_abs_err"]]
+    carried = check_kernel(model, rows, card, "K3 (carried GRU state)",
+                           timed=False, digest=K3_DIGESTS[False])
     model.gru_zero_state = True
     k3 = check_kernel(model, rows, card, "K3 (zero-state GRU)",
-                      profile=with_profile)
-    k3["max_abs_err"] = max(errs + [k3["max_abs_err"]])
+                      profile=with_profile, digest=K3_DIGESTS[True])
+    k3["max_abs_err"] = max(carried["max_abs_err"], k3["max_abs_err"])
+    k3["carried_sha256"] = carried["sha256"]
 
     captioner = Captioner(model, tok, model.units, model.max_length,
                           batch_size=BATCH, device=device)

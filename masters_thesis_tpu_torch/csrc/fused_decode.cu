@@ -1,9 +1,9 @@
 // Whole greedy decode of the NIC caption decoder, for Hopper (sm_90a): K2
 // for the LSTM cell (LcNIC) and K3 for the GRU cell (CnnRnn). Both form
 // h W2 + b2 for the whole batch on the tile kernel (tile_kernels.cuh) and
-// then run the attention and argmax kernels of step_kernels.cuh; K2 runs
-// its cell and head on the tile kernel too, K3 on step_kernels.cuh's row
-// kernel.
+// then run the attention and argmax kernels of step_kernels.cuh. Both run
+// their head on the tile kernel too; K2 its cell as well, K3 its cell on
+// step_kernels.cuh's row kernel.
 //
 // K2 replaces the Pallas TPU kernel masters_thesis_tpu/ops/fused_decode.py::
 // fused_greedy_decode (:211; body _decode_kernel). K3 replaces
@@ -59,11 +59,13 @@
 //                         recurrent one) and, in zero state, skips the Wh
 //                         rows. h (and K2's c) is double buffered because
 //                         other blocks still read the old one;
-//   4. act(h Wi + bi):    K2 a dense tile (128 blocks at LcNIC's 512 -> 256
-//                         where rows_kernel had 64); K3 rows_kernel<kDense>;
-//   5. the logits:        K2 a dense tile of 32 rows x 16 units (Wo, 5.2 MB,
-//                         staged twice a step instead of 8 times); K3
-//                         rows_kernel<kDense> over vocab tiles of 32 columns;
+//   4. act(h Wi + bi):    a dense tile (at B 64, 128 blocks at LcNIC's
+//                         512 -> 256 and 256 at CnnRnn's 512 -> 512, where
+//                         rows_kernel had 64 and 128);
+//   5. the logits:        a dense tile; at B 64 one of 64 rows x 40 units
+//                         holds the whole batch, so Wo (5.2 MB for LcNIC,
+//                         10.5 MB for CnnRnn) streams from L2 once a step,
+//                         where rows_kernel's 8-row blocks read it 8 times;
 //   6. argmax_embed_kernel  one block per row: first-index argmax,
 //                         words[b, t], and a direct row gather of the next
 //                         embedding (the TPU kernels' one-hot matmul exists
@@ -72,11 +74,12 @@
 // Python wrapper made (ops/fused_decode.py, ops/tiles.py): tile_prepare
 // refuses a tile that is unknown or of the wrong kind, tile_launch a feed or
 // slices the tile cannot take, and nothing falls back to another kernel.
-// K2's plans sum K in the order its row kernel and attention summed before
-// it ran on the tile kernel: the cell and the head in rows_kernel's
-// kKSlices classes, h W2 in block_vecmat's kThreads / A where that splits a
-// column. Tensor cores, bf16 weights, a persistent kernel and CUDA graphs
-// are left for later work.
+// The plans sum K in the order the row kernel and the attention summed
+// before a product ran on the tile kernel: the cell and the head in
+// rows_kernel's kKSlices classes, h W2 in block_vecmat's kThreads / A where
+// that splits a column; so the words and alphas stayed what they were.
+// Tensor cores, bf16 weights, a persistent kernel and CUDA graphs are left
+// for later work.
 //
 // All math is fp32 with fp32 accumulation. Kernels allocate nothing; the
 // Python wrapper passes outputs and scratch. Each launch is checked with
@@ -148,7 +151,7 @@ struct Plan {
 
 // Everything one decode reads and writes; the cell's own pointers are
 // b and c_a, c_b (LSTM) or b_in and b_rec (GRU). hw (B, A) is h W2 + b2.
-// The LSTM runs all four plans, the GRU only hw_plan.
+// The LSTM runs all four plans, the GRU all but cell_plan.
 struct Decode {
   const float *pre, *features, *w2, *b2, *v, *bv, *wx, *wh, *b, *b_rec, *wi,
       *bi, *wo, *bo, *emb_table;
@@ -176,35 +179,24 @@ int run_decode(const Decode& d, int device, void* stream_ptr) {
 
   const size_t attn_smem = attention_smem_bytes(d.A, d.R);
   if ((err = tile_prepare(d.hw_plan.tile, 1)) != cudaSuccess ||
+      (err = tile_prepare(d.inter_plan.tile, 1)) != cudaSuccess ||
+      (err = tile_prepare(d.out_plan.tile, 1)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(attention_kernel<>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)attn_smem)) != cudaSuccess)
     return (int)err;
-  size_t cell_smem = 0, inter_smem = 0, out_smem = 0;
+  size_t cell_smem = 0;
   if constexpr (kLstm) {
-    if ((err = tile_prepare(d.cell_plan.tile, 4)) != cudaSuccess ||
-        (err = tile_prepare(d.inter_plan.tile, 1)) != cudaSuccess ||
-        (err = tile_prepare(d.out_plan.tile, 1)) != cudaSuccess)
+    if ((err = tile_prepare(d.cell_plan.tile, 4)) != cudaSuccess)
       return (int)err;
   } else {
-    cell_smem = rows_smem_bytes(d.D + d.E + (recurrent ? d.U : 0), CELL);
-    inter_smem = rows_smem_bytes(d.U, kDense);
-    out_smem = rows_smem_bytes(d.H, kDense);
-    const size_t dense_smem = inter_smem > out_smem ? inter_smem : out_smem;
+    cell_smem = rows_smem_bytes(d.D + d.E + (recurrent ? d.U : 0));
     if ((err = cudaFuncSetAttribute(rows_kernel<CELL>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)cell_smem)) != cudaSuccess ||
-        (err = cudaFuncSetAttribute(rows_kernel<kDense>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)dense_smem)) != cudaSuccess)
+                                    (int)cell_smem)) != cudaSuccess)
       return (int)err;
   }
-
-  const dim3 tile(kTileCols, kKSlices);
-  const unsigned row_tiles = ceil_div(d.B, kTileRows);
-  const dim3 cell_grid(ceil_div(d.U, kTileCols), row_tiles);
-  const dim3 inter_grid(ceil_div(d.H, kTileCols), row_tiles);
-  const dim3 out_grid(ceil_div(d.V, kTileCols), row_tiles);
+  const dim3 cell_grid(ceil_div(d.U, kTileCols), ceil_div(d.B, kTileRows));
 
   float* h_cur = d.h_a;
   float* h_next = d.h_b;
@@ -222,21 +214,11 @@ int run_decode(const Decode& d, int device, void* stream_ptr) {
         d.pre, d.features, d.v, d.bv, d.ctx, d.alphas, d.hw, d.R, d.A, d.D,
         d.attn_slope, d.T, t);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    // 3-5: the cell, then the head
+    // 3: the cell
     if constexpr (kLstm) {
       if ((err = launch(d.cell_plan,
                         {d.ctx, d.emb, h_cur, d.D, d.E, d.U, d.wx, d.wh,
                          d.D + d.E, d.b, d.B, d.U, 1.f, h_next, c_next, c_cur,
-                         nullptr},
-                        stream)) != cudaSuccess ||
-          (err = launch(d.inter_plan,
-                        {h_next, nullptr, nullptr, d.U, 0, 0, d.wi, nullptr,
-                         d.U, d.bi, d.B, d.H, d.slope, d.hi, nullptr, nullptr,
-                         nullptr},
-                        stream)) != cudaSuccess ||
-          (err = launch(d.out_plan,
-                        {d.hi, nullptr, nullptr, d.H, 0, 0, d.wo, nullptr,
-                         d.H, d.bo, d.B, d.V, 1.f, d.logits, nullptr, nullptr,
                          nullptr},
                         stream)) != cudaSuccess)
         return (int)err;
@@ -244,20 +226,25 @@ int run_decode(const Decode& d, int device, void* stream_ptr) {
       c_cur = c_next;
       c_next = tmp;
     } else {
-      rows_kernel<CELL><<<cell_grid, tile, cell_smem, stream>>>(
+      rows_kernel<CELL><<<cell_grid, dim3(kTileCols, kKSlices), cell_smem,
+                          stream>>>(
           d.ctx, d.D, d.emb, d.E, recurrent ? h_cur : nullptr,
           recurrent ? d.U : 0, d.wx, d.D + d.E, d.wh, d.b, d.b_rec, d.B, d.U,
-          1.f, h_next);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      rows_kernel<kDense><<<inter_grid, tile, inter_smem, stream>>>(
-          h_next, d.U, nullptr, 0, nullptr, 0, d.wi, d.U, nullptr, d.bi,
-          nullptr, d.B, d.H, d.slope, d.hi);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      rows_kernel<kDense><<<out_grid, tile, out_smem, stream>>>(
-          d.hi, d.H, nullptr, 0, nullptr, 0, d.wo, d.H, nullptr, d.bo, nullptr,
-          d.B, d.V, 1.f, d.logits);
+          h_next);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
+    // 4-5: the head
+    if ((err = launch(d.inter_plan,
+                      {h_next, nullptr, nullptr, d.U, 0, 0, d.wi, nullptr,
+                       d.U, d.bi, d.B, d.H, d.slope, d.hi, nullptr, nullptr,
+                       nullptr},
+                      stream)) != cudaSuccess ||
+        (err = launch(d.out_plan,
+                      {d.hi, nullptr, nullptr, d.H, 0, 0, d.wo, nullptr, d.H,
+                       d.bo, d.B, d.V, 1.f, d.logits, nullptr, nullptr,
+                       nullptr},
+                      stream)) != cudaSuccess)
+      return (int)err;
     // 6: the argmax and the next embedding
     argmax_embed_kernel<<<d.B, kThreads, 0, stream>>>(
         d.logits, d.emb_table, d.emb, d.words, d.V, d.E, d.T, t);
@@ -307,9 +294,10 @@ int mtt_fused_greedy_decode(
 }
 
 // K3: all T greedy steps of a GRU NIC, as mtt_fused_greedy_decode with the
-// input and recurrent biases b_in, b_rec (3U) in place of b, no c and one
-// plan, hw_*, that of h W2. zero_state != 0 restarts the recurrence from
-// zeros every step.
+// input and recurrent biases b_in, b_rec (3U) in place of b, no c and the
+// plans of h W2, the first head layer and the logits (the cell runs on
+// rows_kernel). zero_state != 0 restarts the recurrence from zeros every
+// step.
 int mtt_fused_greedy_decode_gru(
     const float* pre, const float* features, const float* w2, const float* b2,
     const float* v, const float* bv, const float* wx, const float* wh,
@@ -318,14 +306,15 @@ int mtt_fused_greedy_decode_gru(
     float* h_a, float* h_b, float* ctx, float* hi, float* logits, float* hw,
     int* words, float* alphas, int B, int R, int A, int D, int E, int U,
     int H, int V, int T, int zero_state, int hw_tile, int hw_feed,
-    int hw_slices, float slope, float attn_slope, int device,
-    void* stream_ptr) {
-  const Plan none{-1, 0, 0};
+    int hw_slices, int inter_tile, int inter_feed, int inter_slices,
+    int out_tile, int out_feed, int out_slices, float slope,
+    float attn_slope, int device, void* stream_ptr) {
   const Decode d{pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi,
                  wo, bo, emb_table, emb, h_a, h_b, nullptr, nullptr, ctx, hi,
                  logits, hw, words, alphas, B, R, A, D, E, U, H, V, T,
-                 zero_state != 0, {hw_tile, hw_feed, hw_slices}, none, none,
-                 none, slope, attn_slope};
+                 zero_state != 0, {hw_tile, hw_feed, hw_slices},
+                 {-1, 0, 0}, {inter_tile, inter_feed, inter_slices},
+                 {out_tile, out_feed, out_slices}, slope, attn_slope};
   return run_decode<kGRU>(d, device, stream_ptr);
 }
 

@@ -19,13 +19,13 @@
 //                      at once, in K2, K3 and K4 alike. attention_kernel<true>
 //                      reads pre and features in bf16 (the bf16-weight
 //                      decode's feat_bf16), widened, with fp32 sums;
-//   rows_kernel<cell>  a block owns 32 output columns x 8 batch rows, its 8
+//   rows_kernel<kGRU>  a block owns 32 output units x 8 batch rows, its 8
 //                      warps split the reduction axis [in0 | in1 | in2], each
-//                      lane reads its column's weights coalesced and forms
-//                      the epilogue itself (the GRU cell, or a dense layer's
-//                      activation): K3's cell and head. K2 and K4 run their
-//                      LSTM cell, and K2 its head, on the tile kernel, whose
-//                      sliced tiles sum in this kernel's order.
+//                      lane reads its unit's three gate columns coalesced
+//                      and forms the GRU cell itself: K3's cell. K2 and K4
+//                      run their LSTM cell, and K2 and K3 their head, on the
+//                      tile kernel, whose sliced tiles sum in this kernel's
+//                      order (the head ran here before).
 // The row inputs of a tile are staged once in shared memory and broadcast to
 // every lane, so the weights are the only stream from L2.
 //
@@ -45,20 +45,15 @@ constexpr int kTileCols = 32;   // rows_kernel: one lane per output column
 constexpr int kKSlices = 8;     // rows_kernel: warps splitting the K axis
 constexpr int kTileRows = 8;    // rows_kernel: batch rows per block
 
-// the decoder's cells (fused_decode.cu's run_decode) and rows_kernel's
-// epilogues (kDense, kGRU)
-constexpr int kDense = 0;       // act(z, slope)
+// the decoder's cells (fused_decode.cu's run_decode, decode_bf16.cu's
+// records)
 constexpr int kLSTM = 1;        // Keras LSTM cell (on the tile kernel)
-constexpr int kGRU = 2;         // Keras reset_after GRU cell
+constexpr int kGRU = 2;         // Keras reset_after GRU cell (rows_kernel)
 
-// rows_kernel's weight columns a unit, and accumulators a unit (the GRU's
-// h~ gate has two: its input part and its recurrent part)
-__host__ __device__ constexpr int gate_cols(int cell) {
-  return cell == kDense ? 1 : 3;
-}
-__host__ __device__ constexpr int gate_sums(int cell) {
-  return cell == kDense ? 1 : 4;
-}
+// rows_kernel's weight columns a unit, [z | r | h~], and accumulators a
+// unit (the h~ gate has two: its input part and its recurrent part)
+constexpr int kGruCols = 3;
+constexpr int kGruSums = 4;
 
 // the element type of a tensor that the bf16-weight decode may keep in bf16
 // (pre, features, the embedding table), and its value widened to fp32
@@ -214,16 +209,16 @@ __global__ void attention_kernel(
                sh_part);
 }
 
-// A tile of kTileRows batch rows and kTileCols units. The input is
-// x = [in0 | in1 | in2] (widths k0, k1, k2), the weights W have
-// gate_cols(CELL) * N columns, rows [0, ka) in wa and [ka, K) in wb, with
-// K = k0 + k1 + k2.
-//   kDense: out[b, n] = act(x W + bias, slope)            (slope 1: identity)
-//   kGRU:   gates [z | r | h~]; bias is b_in and bias2 b_rec; wa is Wx and
-//           wb Wh, so rows >= ka are the recurrent part; in2 is the carried
-//           h (k2 = N), or k2 = 0 under zero state, where h = 0. Writes h'.
-// Block (kTileCols, kKSlices); grid (ceil(N / kTileCols), ceil(B / kTileRows)).
-// Shared memory: rows_smem_bytes(K, CELL).
+// The GRU cell for a tile of kTileRows batch rows and kTileCols units. The
+// input is x = [in0 | in1 | in2] (widths k0, k1, k2), the weights W have
+// 3 N columns, gates [z | r | h~], rows [0, ka) in wa (Wx) and [ka, K) in
+// wb (Wh), with K = k0 + k1 + k2, so rows >= ka are the recurrent part;
+// bias is b_in and bias2 b_rec; in2 is the carried h (k2 = N), or k2 = 0
+// under zero state, where h = 0. Writes h'. CELL is kGRU, the only cell
+// left here; it stays a template argument so that the kernel keeps the
+// name rows_kernel<2> that profiles and the benchmark's readers match.
+// Block (kTileCols, kKSlices); grid (ceil(N / kTileCols),
+// ceil(B / kTileRows)). Shared memory: rows_smem_bytes(K).
 template <int CELL>
 __global__ void rows_kernel(
     const float* __restrict__ in0, int k0,
@@ -231,12 +226,13 @@ __global__ void rows_kernel(
     const float* __restrict__ in2, int k2,
     const float* __restrict__ wa, int ka,
     const float* __restrict__ wb,
-    const float* __restrict__ bias,   // (gate_cols * N,)
-    const float* __restrict__ bias2,  // (gate_cols * N,), kGRU only
-    int B, int N, float slope,
+    const float* __restrict__ bias,   // (3N,)
+    const float* __restrict__ bias2,  // (3N,)
+    int B, int N,
     float* __restrict__ out) {        // (B, N)
-  constexpr int NW = gate_cols(CELL);
-  constexpr int NS = gate_sums(CELL);
+  static_assert(CELL == kGRU, "rows_kernel runs the GRU cell");
+  constexpr int NW = kGruCols;
+  constexpr int NS = kGruSums;
   extern __shared__ float sm[];
   const int K = k0 + k1 + k2;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -264,7 +260,7 @@ __global__ void rows_kernel(
     for (int r = 0; r < kTileRows; ++r) acc[g][r] = 0.f;
 
   // one k: the unit's NW weight columns times the tile's 8 inputs; the
-  // GRU's h~ column goes to sum 3 in the recurrent rows
+  // h~ column goes to sum 3 in the recurrent rows
   auto step = [&](const float* wrow, int k, bool recurrent) {
     float w[NW];
 #pragma unroll
@@ -274,7 +270,7 @@ __global__ void rows_kernel(
       const float x = sm[r * K + k];
 #pragma unroll
       for (int g = 0; g < NW; ++g) {
-        if (CELL == kGRU && g == 2 && recurrent)
+        if (g == 2 && recurrent)
           acc[3][r] = fmaf(x, w[g], acc[3][r]);
         else
           acc[g][r] = fmaf(x, w[g], acc[g][r]);
@@ -308,22 +304,18 @@ __global__ void rows_kernel(
         s[g] += red[((ks * NS + g) * kTileRows + r) * kTileCols + tx];
     }
     const size_t o = (size_t)bb * N + col;
-    if constexpr (CELL == kGRU) {
-      const float hp = k2 > 0 ? in2[(size_t)bb * k2 + col] : 0.f;
-      const float z = sigmoid(s[0] + bias[col] + bias2[col]);
-      const float rg = sigmoid(s[1] + bias[N + col] + bias2[N + col]);
-      const float hh = tanhf(s[2] + bias[2 * N + col]
-                             + rg * (s[3] + bias2[2 * N + col]));
-      out[o] = z * hp + (1.f - z) * hh;
-    } else {
-      out[o] = lrelu(s[0] + bias[col], slope);
-    }
+    const float hp = k2 > 0 ? in2[(size_t)bb * k2 + col] : 0.f;
+    const float z = sigmoid(s[0] + bias[col] + bias2[col]);
+    const float rg = sigmoid(s[1] + bias[N + col] + bias2[N + col]);
+    const float hh = tanhf(s[2] + bias[2 * N + col]
+                           + rg * (s[3] + bias2[2 * N + col]));
+    out[o] = z * hp + (1.f - z) * hh;
   }
 }
 
-size_t rows_smem_bytes(int K, int cell) {
+size_t rows_smem_bytes(int K) {
   const int staged = kTileRows * K;
-  const int sums = kKSlices * gate_sums(cell) * kTileRows * kTileCols;
+  const int sums = kKSlices * kGruSums * kTileRows * kTileCols;
   return sizeof(float) * (size_t)(staged > sums ? staged : sums);
 }
 

@@ -1,7 +1,8 @@
 // The pipelined, register-blocked fp32 tile kernel of the decoder's row
-// products, for Hopper (sm_90a): K4's LSTM cell and the h W2 product that K3
-// and K4 hoist out of their attention. For a block tile of BM batch rows x
-// BN units it computes
+// products, for Hopper (sm_90a): K2's and K4's LSTM cell, the h W2 product
+// that K2, K3 and K4 hoist out of their attention, and K2's and K3's head
+// (h Wi and the logits). For a block tile of BM batch rows x BN units it
+// computes
 //
 //   Y = [in0 | in1 | in2] W + bias                 (widths k0, k1, k2; K)
 //
@@ -22,7 +23,10 @@
 // (~0.2 ms at 67 TFLOP/s) more than by the bytes (~63 us). At flagship
 // (B 64, U 512) the step is 0.28 GFLOP: a wave of 128 blocks leaves each SM
 // 256 of the batch's (row, unit) pairs, too few to fill its warps with
-// register tiles, and the time goes to latency.
+// register tiles, and the time goes to latency. The logits of a greedy
+// step (B 64 x Vp 5,120 over K 256 or 512) are the largest dense product:
+// on 32-row tiles every column of Wo streams once per row tile, on the
+// 64 x 40 tile once a step, in one wave of 128 blocks.
 //
 // The design. K is consumed a chunk at a time through a ring of STAGES
 // shared-memory stages, each holding the chunk of X (the block's BM rows)
@@ -59,7 +63,11 @@
 //     reproduces K2's alphas bit for bit. S slices also give an SM S times
 //     the warps to hide L2 latency with; a single chain over K (S = 1)
 //     left a dense tile latency-bound, so where block_vecmat does not split
-//     a column S is kKSlices as well.
+//     a column S is kKSlices as well. A thread's TM rows lie side by side,
+//     except where TM padded rows span a multiple of the 32 banks (TM 8):
+//     then the thread rows of a warp would read X from one bank, and its
+//     rows lie BM / TM apart instead. A TN that is not 1, 2 or a multiple
+//     of 4 reads W a float at a time.
 //
 // The tile, its feed and S are chosen in Python (ops/tiles.py: TILES is
 // kTiles below, in order); tile_prepare refuses an index it does not know
@@ -179,8 +187,11 @@ __device__ __forceinline__ void load_vec(const float* p, float* v) {
   } else if constexpr (n == 2) {
     const float2 q = *reinterpret_cast<const float2*>(p);
     v[0] = q.x; v[1] = q.y;
-  } else {
+  } else if constexpr (n == 1) {
     v[0] = p[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; ++i) v[i] = p[i];
   }
 }
 
@@ -244,9 +255,13 @@ tile_kernel(TileArgs a) {
   constexpr int TX = BN / TN, ST = TX * (BM / TM);
   constexpr int E = TM * G * TN;               // sums a thread
   static_assert(BK % 4 == 0 && BN % 4 == 0 && BN % TN == 0 &&
-                    BM % TM == 0 && (TN <= 2 || TN == 4) && ST % 32 == 0,
+                    BM % TM == 0 && ST % 32 == 0,
                 "tile shape");
   constexpr int XS = BK + 4;                   // X stage: BM rows of BK
+  // thread row ty's rows: ty RB + i RI for i < TM, side by side, or BM / TM
+  // apart where TM rows of XS floats would put a warp's rows in one bank
+  constexpr bool kApart = TM * XS % 32 == 0;
+  constexpr int RB = kApart ? 1 : TM, RI = kApart ? BM / TM : 1;
   constexpr int XSIZE = BM * XS;
   constexpr int WC = G * BN;                   // W stage: BK rows of G BN
   constexpr int STAGE = XSIZE + BK * WC;
@@ -329,11 +344,11 @@ tile_kernel(TileArgs a) {
 
     // this slice's class of the chunk: BKC is a multiple of S, so the
     // chunk's k = ks mod S are the slice's k, in order
-    const float* xs = tile_sm + (c % STAGES) * STAGE + ty * TM * XS;
+    const float* xs = tile_sm + (c % STAGES) * STAGE + ty * RB * XS;
     const float* ws = tile_sm + (c % STAGES) * STAGE + XSIZE + tx * TN;
 #pragma unroll 4
     for (int kk = ks; kk < BKC; kk += S)
-      k_product<G, BN, TM, TN, XS>(xs + kk, ws + kk * WC, acc);
+      k_product<G, BN, TM, TN, RI * XS>(xs + kk, ws + kk * WC, acc);
   }
   cp_async_wait<0>();
 
@@ -359,7 +374,7 @@ tile_kernel(TileArgs a) {
       for (int k = 0; k < S; ++k)
         z[g] += red[(k * E + (i * G + g) * TN + j) * ST + s];
     }
-    epilogue<G>(a, m0 + (s / TX) * TM + i, n0 + (s % TX) * TN + j, z);
+    epilogue<G>(a, m0 + (s / TX) * RB + i * RI, n0 + (s % TX) * TN + j, z);
   }
 }
 
@@ -516,6 +531,7 @@ const TileConfig kTiles[] = {
     sliced_tile<4, 32, 8, 2, 4, 128, 3, 8>(),       // l32x8
     sliced_tile<1, 32, 16, 2, 4, 128, 3, 16>(),     // d32x16
     sliced_tile<1, 16, 8, 1, 4, 128, 3, 32>(),      // d16x8
+    sliced_tile<1, 64, 40, 8, 5, 128, 3, 8>(),      // d64x40
 };
 constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 

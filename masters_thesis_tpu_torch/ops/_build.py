@@ -32,7 +32,7 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # mtt_fused_greedy_decode: 25 pointers, 9 sizes, the plans (tile, feed,
 # slices) of h W2, the cell, Wi and Wo, the two slopes, the device and the
 # stream; mtt_fused_greedy_decode_gru: 24 pointers, 9 sizes, the zero-state
-# flag, h W2's plan, then as K2; mtt_greedy_decode_bf16: the array of its
+# flag, the plans of h W2, Wi and Wo, then as K2; mtt_greedy_decode_bf16: the array of its
 # tensors' pointers, the launch record on the host and on the device
 # (ops/decode_plan.py), the two slopes, the device and the stream;
 # mtt_fused_seq_forward: 18 pointers, 7
@@ -46,7 +46,7 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "mtt_fused_greedy_decode": ([_P] * 25 + [_I] * 21 + [_F, _F, _I, _P],
                                 ctypes.c_int),
-    "mtt_fused_greedy_decode_gru": ([_P] * 24 + [_I] * 13 + [_F, _F, _I, _P],
+    "mtt_fused_greedy_decode_gru": ([_P] * 24 + [_I] * 19 + [_F, _F, _I, _P],
                                     ctypes.c_int),
     "mtt_greedy_decode_bf16": ([_P] * 3 + [_F, _F, _I, _P], ctypes.c_int),
     "mtt_fused_seq_forward": ([_P] * 18 + [_I] * 7 + [_F] + [_I] * 7 + [_P],

@@ -5,8 +5,8 @@ Counterpart of ``masters_thesis_tpu/ops/fused_decode.py``. The fp32
 kernels are in ``csrc/fused_decode.cu`` (its header says what bounds them
 on Hopper and how the design answers that); the products that run on the
 tile kernel of ``csrc/tile_kernels.cuh`` (K2's h W2, cell and head, K3's h
-W2) are planned here (``lstm_decode_plans``, ``gru_hw_plan``, by
-``ops.tiles.plan``) and the C side refuses a plan it cannot run. The
+W2 and head) are planned here (``lstm_decode_plans``, ``gru_decode_plans``,
+by ``ops.tiles.plan``) and the C side refuses a plan it cannot run. The
 bf16-weight K2 and K3 are one persistent cooperative kernel,
 ``csrc/decode_bf16.cu``, on the launch record of ``ops.decode_plan``
 (``bf16_decode_plan``), which the C side checks in the same way. ``fused_greedy_decode_reference`` and
@@ -216,8 +216,10 @@ def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
     ``feat_bf16``): the bf16-weight K2 (the module docstring).
 
     ``fused_greedy_decode.launches`` counts the fp32 kernel chain's
-    launches, ``fused_greedy_decode.launches_bf16`` the bf16 one's. The
-    call is the span ``decode.kernel`` (``utils.profiling.span``)."""
+    launches, ``fused_greedy_decode.launches_bf16`` the bf16 one's;
+    ``fused_greedy_decode.plans`` holds the tile plans (``ops.tiles.Plan``)
+    of the last fp32 launch. The call is the span ``decode.kernel``
+    (``utils.profiling.span``)."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo, bo,
             emb_table, emb0, h0, c0)
     with span("decode.kernel", pre):
@@ -236,6 +238,7 @@ def fused_greedy_decode(pre, features, w2, b2, v, bv, wx, wh, b, wi, bi, wo,
 
 fused_greedy_decode.launches = 0
 fused_greedy_decode.launches_bf16 = 0
+fused_greedy_decode.plans = ()
 
 
 def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
@@ -250,8 +253,10 @@ def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
     dtypes pick the mode as for K2.
 
     ``fused_greedy_decode_gru.launches`` counts the fp32 kernel chain's
-    launches, ``fused_greedy_decode_gru.launches_bf16`` the bf16 one's. The
-    call is the span ``decode.kernel``."""
+    launches, ``fused_greedy_decode_gru.launches_bf16`` the bf16 one's;
+    ``fused_greedy_decode_gru.plans`` holds the tile plans (h W2, Wi, Wo)
+    of the last fp32 launch. The call is the span
+    ``decode.kernel``."""
     args = (pre, features, w2, b2, v, bv, wx, wh, b_in, b_rec, wi, bi, wo,
             bo, emb_table, emb0, h0)
     with span("decode.kernel", pre):
@@ -270,6 +275,7 @@ def fused_greedy_decode_gru(pre, features, w2, b2, v, bv, wx, wh, b_in,
 
 fused_greedy_decode_gru.launches = 0
 fused_greedy_decode_gru.launches_bf16 = 0
+fused_greedy_decode_gru.plans = ()
 
 
 # the positional arguments of each cell's kernel, in order
@@ -354,14 +360,23 @@ def lstm_decode_plans(args, force=None) -> tuple[tiles.Plan, ...]:
             tiles.plan(B, Vp, (H,), 1, aligned(a["wo"]), wo, "rows"))
 
 
-def gru_hw_plan(args) -> tiles.Plan:
-    """The plan (``ops.tiles.plan``) of K3's h W2 product on ``args``
-    (``fused_greedy_decode_gru``'s tensors): B rows of h (K3's own
-    scratch) times W2 (U, A)."""
+def gru_decode_plans(args, force=None) -> tuple[tiles.Plan, ...]:
+    """The plans (``ops.tiles.plan``) of K3's three tile-kernel products on
+    ``args`` (``fused_greedy_decode_gru``'s tensors): h W2, B rows of h
+    times W2 (U, A); the first head layer, h times Wi (U, H); the logits,
+    hi times Wo (H, Vp). ``force`` (h W2, Wi, Wo) names tiles, each or
+    None, as a test forces them. h W2 sums in the tile's default order, the
+    head in rows_kernel's, which summed it before it ran on the tile
+    kernel. h and hi are K3's own scratch."""
     a = dict(zip(DECODE_ARGS["gru"], args))
     B, _, A = a["pre"].shape
     U = a["w2"].shape[0]
-    return tiles.plan(B, A, (U,), 1, tiles.aligned16(a["w2"]))
+    H, Vp = a["wo"].shape
+    hw, wi, wo = force if force is not None else (None,) * 3
+    aligned = tiles.aligned16
+    return (tiles.plan(B, A, (U,), 1, aligned(a["w2"]), hw),
+            tiles.plan(B, H, (U,), 1, aligned(a["wi"]), wi, "rows"),
+            tiles.plan(B, Vp, (H,), 1, aligned(a["wo"]), wo, "rows"))
 
 
 def _launch(cell: str, args, *, max_length: int, slope: float,
@@ -370,11 +385,14 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
     """Launch K2 (``cell`` "lstm") or K3 ("gru") in the mode that the
     arguments' dtypes select (``decode_precision``, which refuses a mixed
     set before any work). The fp32 K2 runs on ``plans`` (h W2, cell, Wi,
-    Wo), by default ``lstm_decode_plans``'s. The bf16-weight decode is one
-    cooperative launch of ``csrc/decode_bf16.cu`` on ``plan`` (an
-    ``ops.decode_plan.DecodePlan``, by default ``decode_plan``'s for the
-    card), and takes no tile plans; ``stamps`` (int64, 5 + 9 T, on the
-    device) receives its phases' ``%globaltimer`` stamps."""
+    Wo), by default ``lstm_decode_plans``'s, the fp32 K3 on ``plans`` (h
+    W2, Wi, Wo), by default ``gru_decode_plans``'s; the last ones run are
+    ``fused_greedy_decode.plans`` and ``fused_greedy_decode_gru.plans``.
+    The bf16-weight decode is one cooperative launch of
+    ``csrc/decode_bf16.cu`` on ``plan`` (an ``ops.decode_plan.DecodePlan``,
+    by default ``decode_plan``'s for the card), and takes no tile plans;
+    ``stamps`` (int64, 5 + 9 T, on the device) receives its phases'
+    ``%globaltimer`` stamps."""
     from masters_thesis_tpu_torch.ops import _build
 
     a = dict(zip(DECODE_ARGS[cell], args))
@@ -428,16 +446,21 @@ def _launch(cell: str, args, *, max_length: int, slope: float,
                empty(B, Vp), empty(B, A)]       # ..., hi, logits, h W2 + b2
     pointers = [t.data_ptr()
                 for t in [*inputs.values(), *scratch, words, alphas]]
-    if cell == "gru":      # h W2 + b2 on the tile kernel, before the attention
+    if plans is None:
+        plans = (gru_decode_plans if cell == "gru"
+                 else lstm_decode_plans)(planned)
+    plan_args = [x for p in plans for x in p.args]
+    if cell == "gru":
+        wrapper = fused_greedy_decode_gru
         code = lib.mtt_fused_greedy_decode_gru(
-            *pointers, *sizes, int(zero_state), *gru_hw_plan(planned).args,
-            slope, attn_slope, index, stream)
-    else:
-        plans = plans if plans is not None else lstm_decode_plans(planned)
-        code = lib.mtt_fused_greedy_decode(
-            *pointers, *sizes, *(x for p in plans for x in p.args), slope,
+            *pointers, *sizes, int(zero_state), *plan_args, slope,
             attn_slope, index, stream)
+    else:
+        wrapper = fused_greedy_decode
+        code = lib.mtt_fused_greedy_decode(
+            *pointers, *sizes, *plan_args, slope, attn_slope, index, stream)
     _build.check_error(code, f"fused greedy decode ({cell})")
+    wrapper.plans = tuple(plans)
     return words, alphas
 
 

@@ -32,6 +32,7 @@ tile cannot take, and TMA maps that cannot be encoded. Nothing falls back.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 NUM_SMS = 132               # H100 SXM
@@ -119,12 +120,15 @@ class Tile:
 
 
 # csrc/tile_kernels.cuh's kTiles, in order: for each kind, the tile of
-# the wide shape (B 256) and the one of flagship and CnnRnn (B 64)
+# the wide shape (B 256) and the one of flagship and CnnRnn (B 64); then
+# the dense tile that holds a batch of 64 whole, for the logits (one wave
+# of 128 blocks at Vp 5,120, each column of Wo staged once a step)
 TILES = (
     Tile("l128x32", 4, 128, 32, 8, 2, 32, 3, 1, tma=True),
     Tile("l32x8", 4, 32, 8, 2, 4, 128, 3, 8, tma=False),
     Tile("d32x16", 1, 32, 16, 2, 4, 128, 3, 16, tma=False),
     Tile("d16x8", 1, 16, 8, 1, 4, 128, 3, 32, tma=False),
+    Tile("d64x40", 1, 64, 40, 8, 5, 128, 3, 8, tma=False),
 )
 
 
@@ -181,6 +185,7 @@ def pick_tile(B: int, N: int, widths: tuple[int, ...], gates: int,
                                     TILES[i].staged_bytes(B, N, K)))
 
 
+@functools.lru_cache(maxsize=256)
 def plan(B: int, N: int, widths: tuple[int, ...], gates: int,
          aligned: bool = True, tile: int | None = None,
          order: str | None = None) -> Plan:
@@ -190,7 +195,8 @@ def plan(B: int, N: int, widths: tuple[int, ...], gates: int,
     cp.async with 16-byte copies of W where N is a multiple of 4 and of X
     where every width is, on 16-byte bases) and its slices in ``order``
     (``Tile.slices``; by default ``"rows"`` for the cell and ``"vecmat"``
-    for a dense product, h W2's)."""
+    for a dense product, h W2's). Cached: a decode plans its products on
+    every call, and the plan depends on nothing but these arguments."""
     if tile is None:
         tile = pick_tile(B, N, widths, gates, aligned)
     t = TILES[tile]

@@ -54,11 +54,17 @@ def kernels(lib: str, unit: str) -> dict[str, list[str]]:
             current = None
             if f"_{unit}_cu_" in name:
                 # e.g. ..._fused_decode_cu_<hash>11rows_kernelILi2EEEv...:
-                # the name, then its whole template argument list
+                # the name, then its whole template argument list; a name
+                # the pattern does not take (digits, type arguments: the
+                # bf16 decode's) is keyed by its mangled rest, hash left out
                 m = _KERNEL.search(name)
-                args = (m.group(2) or "").replace("Lb0E", "")
-                current = out.setdefault(
-                    m.group(1) + ("" if args == "IE" else args), [])
+                if m is None:
+                    key = re.sub(r"^[0-9a-f]{8}", "",
+                                 name.split(f"_{unit}_cu_", 1)[1])
+                else:
+                    args = (m.group(2) or "").replace("Lb0E", "")
+                    key = m.group(1) + ("" if args == "IE" else args)
+                current = out.setdefault(key, [])
             continue
         ins = _INSTRUCTION.search(line)
         if current is not None and ins:

@@ -5,7 +5,8 @@ attention, and with the tile of each of its tile-kernel products forced at
 shapes that cross the tiles' edges, and on the NIC variants (the learned
 initial carry, a frozen GloVe table, also over a padded vocab); the GRU
 whole-decode kernel (K3) in the cases of the CPU tests, with a learned
-initial carry and at full CnnRnn width; the beam and the sampler on CUDA
+initial carry and at full CnnRnn width, and with each dense tile forced on
+its head at shapes that cross the tiles' edges; the beam and the sampler on CUDA
 tensors against the CPU; the store row gather (K1) at small and flagship
 widths and through three train steps; the teacher-forced sequence forward
 (K4) at odd and flagship widths, through the custom backward, and against
@@ -229,9 +230,26 @@ def _decode_case(device, B, R, A, D, E, U, H, V, seed=0):
             emb_table, emb_table[1], carry, carry)
 
 
-def _launch_decode(args, plans):
-    return fused_decode._launch("lstm", args, max_length=DECODE_T, slope=0.2,
-                                attn_slope=0.2, plans=plans)
+def _launch_decode(args, plans, cell="lstm", zero_state=False):
+    return fused_decode._launch(cell, args, max_length=DECODE_T, slope=0.2,
+                                attn_slope=0.2, zero_state=zero_state,
+                                plans=plans)
+
+
+def _gru_decode_case(device, B, R, A, D, E, U, H, V, seed=0):
+    """K3's arguments, drawn as ``_decode_case`` draws K2's: Wx (D+E, 3U),
+    Wh (U, 3U) and the input and recurrent biases in place of the LSTM's,
+    no c0."""
+    lstm = _decode_case(device, B, R, A, D, E, U, H, V, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def rand(*shape, scale=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.as_tensor(x).to(device)
+
+    return (*lstm[:6], rand(D + E, 3 * U, scale=1 / (D + E) ** 0.5),
+            rand(U, 3 * U, scale=1 / U ** 0.5), rand(3 * U, scale=0.5),
+            rand(3 * U, scale=0.5), *lstm[9:16])
 
 
 @pytest.mark.parametrize("product, tile", [
@@ -304,6 +322,64 @@ def test_decode_kernel_refuses_plans_it_cannot_run(cuda, shape):
     words, _ = _launch_decode(args, good)         # the good plans still run
     torch.cuda.synchronize()
     assert words.shape == (DECODE_SHAPES[shape][0], DECODE_T)
+
+    # K3's entry point refuses bad plans of its three products in the same
+    # way: h W2, Wi and Wo are dense tiles, as K2's are
+    args = _gru_decode_case(cuda, *DECODE_SHAPES[shape])
+    good = fused_decode.gru_decode_plans(args)
+    _, wi, wo = good
+    bad = {0: bad[0], 1: bad[2], 2: bad[3]}
+    for product, plans in bad.items():
+        for p in plans:
+            forced = list(good)
+            forced[product] = p
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _launch_decode(args, forced, "gru")
+    words, _ = _launch_decode(args, good, "gru")
+    torch.cuda.synchronize()
+    assert words.shape == (DECODE_SHAPES[shape][0], DECODE_T)
+    assert fused_decode.fused_greedy_decode_gru.plans == good
+
+
+# K3 on seeded inputs at the edges of the tile kernel's tiles: DECODE_SHAPES
+# less the TMA one (K3's products are dense), and CnnRnn's widths with the
+# vocabulary of configs/cnn_rnn.yaml, where Wo takes the tile that holds
+# the whole batch
+GRU_DECODE_SHAPES = {
+    **{k: v for k, v in DECODE_SHAPES.items() if k != "tma"},
+    "cnn_rnn": (64, 64, 512, 256, 256, 512, 512, 5001),
+}
+GRU_DECODE_PRODUCTS = ("hW2", "Wi", "Wo")    # gru_decode_plans' order
+
+
+@pytest.mark.parametrize("zero_state", [True, False])
+@pytest.mark.parametrize("product, tile", [
+    pytest.param(product, i, id=f"{GRU_DECODE_PRODUCTS[product]}-{t.name}")
+    for product in (1, 2) for i, t in enumerate(TILES) if t.gates == 1])
+def test_every_tile_matches_plain_version_in_the_gru_decode(
+        cuda, product, tile, zero_state):
+    """K3 with the tile of one head product (Wi or Wo) forced through
+    ``gru_decode_plans``, whatever ``pick_tile`` would take, at every shape
+    of GRU_DECODE_SHAPES, in both zero-state modes: rows past B, units past
+    N, a K tail, 4-byte copies. Words equal except at near-ties, alphas
+    within 1e-6; the wrapper's record names the plans that ran."""
+    for shape in GRU_DECODE_SHAPES.values():
+        args = _gru_decode_case(cuda, *shape)
+        force = [None] * 3
+        force[product] = tile
+        plans = fused_decode.gru_decode_plans(args, force=force)
+        words, alphas = _launch_decode(args, plans, "gru", zero_state)
+        torch.cuda.synchronize()
+        assert fused_decode.fused_greedy_decode_gru.plans == plans
+        ref_words, ref_alphas, margins = (
+            fused_decode.fused_greedy_decode_gru_reference(
+                *args, max_length=DECODE_T, slope=0.2, attn_slope=0.2,
+                zero_state=zero_state, return_margins=True))
+        report = fused_decode.compare_with_reference(
+            words, alphas, ref_words, ref_alphas, margins)
+        assert report["bad_rows"] == [], (shape, report)
+        assert report["near_tie_rows"] <= len(words) // 4, (shape, report)
+        assert len(torch.unique(ref_words)) >= 4, shape
 
 
 # (n_patches, in_channels, units, vocab, true_vocab, batch): odd region

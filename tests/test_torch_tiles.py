@@ -9,7 +9,9 @@ kind, fits the shared memory of a block, covers every row and unit, and
 fills a wave of the card wherever B x N allows; its plan has a feed the
 tile can take and the slices of the kernel K2 ran for the same product
 before K2 itself ran on the tile kernel (``ops.fused_decode
-.lstm_decode_plans``: h W2, the cell, Wi and Wo).
+.lstm_decode_plans``: h W2, the cell, Wi and Wo), and K3's head the
+slices of the row kernel it ran on before (``ops.fused_decode
+.gru_decode_plans``: h W2, Wi and Wo).
 """
 
 import math
@@ -19,7 +21,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from masters_thesis_tpu_torch.ops.fused_decode import lstm_decode_plans
+from masters_thesis_tpu_torch.ops.fused_decode import (
+    gru_decode_plans,
+    lstm_decode_plans,
+)
 from masters_thesis_tpu_torch.ops.tiles import (
     FEED_TMA,
     FEED_W16,
@@ -42,17 +47,21 @@ CSRC = Path(__file__).resolve().parents[1] / "masters_thesis_tpu_torch" / "csrc"
 # None). The main path: K4's cell (N = U over [ctx | emb | h], widths
 # (D, E, U)) and h W2 (N = A over h, widths (U,)) at flagship and at the
 # wide shape, K2's head at LcNIC width (its h W2 and cell are K4's
-# flagship ones), and K3's h W2 at CnnRnn width; then the CUDA tests' K4 shapes
-# (SEQ_SHAPES (B, R, A, D, E, U, T), the LcNIC "small" model of the
-# greedy-words test) and K3's h W2 (GRU_SHAPES: A = U = units).
+# flagship ones), and K3's h W2 and head at CnnRnn width; then the CUDA
+# tests' K4 shapes (SEQ_SHAPES (B, R, A, D, E, U, T), the LcNIC "small"
+# model of the greedy-words test) and K3's h W2 (GRU_SHAPES: A = U =
+# units).
 CASES = {
     "k4-flagship-cell": (64, 512, (32, 512, 512), 4, "l32x8"),
     "k4-flagship-hw": (64, 32, (512,), 1, "d16x8"),
     "k4-wide-cell": (256, 2048, (128, 1024, 2048), 4, "l128x32"),
     "k4-wide-hw": (256, 256, (2048,), 1, "d32x16"),
     "k2-lcnic-wi": (64, 256, (512,), 1, "d16x8"),
-    "k2-lcnic-wo": (64, 5120, (256,), 1, "d32x16"),
+    "k2-lcnic-wo": (64, 5120, (256,), 1, "d64x40"),
+    "k2-lcnic-wo-b256": (256, 5120, (256,), 1, "d64x40"),
     "k3-cnn_rnn-hw": (64, 512, (512,), 1, "d16x8"),
+    "k3-cnn_rnn-wi": (64, 512, (512,), 1, "d16x8"),
+    "k3-cnn_rnn-wo": (64, 5120, (512,), 1, "d64x40"),
     "seq-small-odd-cell": (6, 24, (4, 16, 24), 4, None),
     "seq-small-odd-hw": (6, 8, (24,), 1, None),
     "seq-wide-cell": (11, 40, (260, 24, 40), 4, None),
@@ -110,15 +119,17 @@ def test_slice_rules_are_the_step_kernels():
 def test_every_tile_launches_as_declared(tile):
     """Its shared memory fits a block, its threads fill whole warps within
     a block's limit at its most slices, and its shape is one the kernel's
-    static_asserts and shared-memory vectors take."""
+    static_asserts and shared-memory vectors take (the TMA kernel reads a
+    thread's units as one vector; the sliced one, float by float, any
+    number)."""
     assert tile.smem_bytes <= SMEM_LIMIT
     assert tile.threads(tile.ks) % 32 == 0
     assert tile.threads(tile.ks) <= MAX_THREADS
     assert tile.bm % tile.tm == 0 and tile.bn % tile.tn == 0
-    assert tile.bk % 4 == 0 and tile.bn % 4 == 0 and tile.tn in (1, 2, 4)
+    assert tile.bk % 4 == 0 and tile.bn % 4 == 0
     assert tile.gates in (1, 4)
     if tile.tma:
-        assert tile.ks == 1
+        assert tile.ks == 1 and tile.tn in (1, 2, 4)
     else:
         # every slice whole warps; the slices' sums reuse the ring
         assert tile.slice_threads % 32 == 0
@@ -272,12 +283,14 @@ def _k2_args(B, R, A, D, E, U, H, Vp):
 
 @pytest.mark.parametrize("product, tile, blocks", [
     ("h W2", "d16x8", 4 * 4), ("cell", "l32x8", 64 * 2),
-    ("Wi", "d16x8", 32 * 4), ("Wo", "d32x16", 320 * 2)])
+    ("Wi", "d16x8", 32 * 4), ("Wo", "d64x40", 128 * 1)])
 def test_lstm_decode_plans_at_lcnic_widths(product, tile, blocks):
     """Flagship LcNIC's greedy decode (B 64, U 512, A 32, E 512, H 256, Vp
     5,120): every product on a sliced tile fed by 16-byte copies, in 8
-    slices, and the head's two filling a wave of the card (128 and 640
-    blocks, where rows_kernel had 64 and 1,280)."""
+    slices, and the head's two filling a wave of the card (128 and 128
+    blocks, where rows_kernel had 64 and 1,280); the logits on the tile
+    that holds the whole batch, which an H100 timed at 11.3 us a step
+    against 17.2 on 32 x 16 tiles."""
     B, R, A, D, E, U, H, Vp = K2_SHAPES["flagship"]
     plans = dict(zip(K2_PRODUCTS, lstm_decode_plans(_k2_args(*K2_SHAPES[
         "flagship"]))))
@@ -328,3 +341,86 @@ def test_a_forced_tile_of_the_wrong_kind_raises_in_k2s_plans(product):
 def test_plan_order_names_a_k2_kernel():
     with pytest.raises(ValueError):
         plan(64, 32, (512,), 1, order="columns")
+
+
+# K3's shapes (B, R, A, D, E, U, H, Vp): CnnRnn at configs/cnn_rnn.yaml's
+# widths, the GRU_SHAPES of tests/test_torch_kernels_cuda.py (embedding 64,
+# A = U = H = units, the vocabulary padded to 128), and its
+# GRU_DECODE_SHAPES, at the tiles' edges (vocabularies of 300, 40 and 5,001
+# padded to 384, 128 and 5,120)
+K3_SHAPES = {
+    "cnn_rnn": (64, 64, 512, 256, 256, 512, 512, 5120),
+    "small-odd-regions": (32, 7, 16, 64, 64, 16, 16, 128),
+    "padded-vocab": (32, 5, 16, 64, 64, 16, 16, 128),
+    "attention-300": (32, 9, 300, 64, 64, 300, 300, 128),
+    "b70-u40": (70, 11, 20, 12, 36, 40, 40, 384),
+    "b130-u300": (130, 9, 40, 36, 28, 300, 300, 128),
+    "unaligned": (9, 5, 9, 5, 3, 13, 13, 128),
+}
+K3_PRODUCTS = ("h W2", "Wi", "Wo")
+
+
+def _k3_args(B, R, A, D, E, U, H, Vp):
+    """``fused_greedy_decode_gru``'s tensors at these shapes
+    (uninitialised: the plans read shapes and bases only)."""
+    e = torch.empty
+    return (e(B, R, A), e(B, R, D), e(U, A), e(A), e(A), e(1),
+            e(D + E, 3 * U), e(U, 3 * U), e(3 * U), e(3 * U), e(U, H), e(H),
+            e(H, Vp), e(Vp), e(Vp, E), e(E), e(B, U))
+
+
+@pytest.mark.parametrize("product, tile, blocks", [
+    ("h W2", "d16x8", 64 * 4), ("Wi", "d16x8", 64 * 4),
+    ("Wo", "d64x40", 128 * 1)])
+def test_gru_decode_plans_at_cnn_rnn_widths(product, tile, blocks):
+    """CnnRnn's greedy decode (B 64, U 512, A 512, H 512, Vp 5,120): every
+    product on a sliced tile fed by 16-byte copies, in 8 slices, each grid
+    filling a wave of the card; the logits on the tile that holds the whole
+    batch, so that each column of Wo streams from L2 once a step, where
+    rows_kernel's 8-row blocks read it 8 times."""
+    B, R, A, D, E, U, H, Vp = K3_SHAPES["cnn_rnn"]
+    plans = dict(zip(K3_PRODUCTS, gru_decode_plans(_k3_args(
+        *K3_SHAPES["cnn_rnn"]))))
+    p = plans[product]
+    N = {"h W2": A, "Wi": H, "Wo": Vp}[product]
+    t = TILES[p.tile]
+    assert t.name == tile
+    assert (p.feed, p.slices) == (FEED_W16 | FEED_X16, ROW_SLICES)
+    assert t.blocks(B, N) == blocks >= WAVE_FILL
+    if product == "Wo":
+        assert t.grid(B, N)[1] == 1
+
+
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_gru_decode_plans_sum_as_the_row_kernel_did(shape):
+    """At every shape K3 is launched at, the head takes a sliced tile in
+    rows_kernel's 8 classes, the order K3 summed it in before it ran on the
+    tile kernel, so that K3's words and alphas stay what they were; h W2
+    keeps the plan it had (block_vecmat's 256 // A where that splits a
+    column, else 8)."""
+    B, R, A, D, E, U, H, Vp = K3_SHAPES[shape]
+    hw, wi, wo = gru_decode_plans(_k3_args(*K3_SHAPES[shape]))
+    for p in (hw, wi, wo):
+        assert not TILES[p.tile].tma
+    assert wi.slices == wo.slices == ROW_SLICES
+    assert hw == plan(B, A, (U,), 1)
+    assert (wi, wo) == (plan(B, H, (U,), 1, order="rows"),
+                        plan(B, Vp, (H,), 1, order="rows"))
+
+
+@pytest.mark.parametrize("product", range(len(K3_PRODUCTS)),
+                         ids=K3_PRODUCTS)
+def test_a_forced_tile_of_the_wrong_kind_raises_in_k3s_plans(product):
+    """An LSTM tile forced on any of K3's products raises; every dense tile
+    forced there is taken, with the slices of its order."""
+    args = _k3_args(*K3_SHAPES["cnn_rnn"])
+    lstm = next(i for i, t in enumerate(TILES) if t.gates == 4)
+    force = [None] * 3
+    force[product] = lstm
+    with pytest.raises(ValueError):
+        gru_decode_plans(args, force=force)
+    for i, t in enumerate(TILES):
+        if t.gates == 1:
+            force[product] = i
+            p = gru_decode_plans(args, force=force)[product]
+            assert p.tile == i and p.slices == ROW_SLICES
