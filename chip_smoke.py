@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives twelve paths, each at the full
+``nvcc`` a source, in parallel), then drives thirteen paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -29,6 +29,9 @@ width of its model or at its probe's own sizes:
   captions per second; then the bf16-weight K3, both zero-state values, as
   the bf16 K2, with its captions/s and one request through
   ``Captioner(weights_bf16=True)``;
+- the pixel CnnRnn's gather: holds K1 against its plain version on a store
+  of 1,000 299 x 299 x 3 images (1.07 MB rows, K1's 4-byte-load plan),
+  with repeated ids and ids out of range, and times it as below;
 - LcNIC training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
   on the card, holds the store row gather (K1) against its plain version and
   a 3-step dropout-off trajectory through K1 against the same steps through
@@ -315,6 +318,7 @@ BF16_FLOPS = 989e12         # bf16, dense, on the tensor cores
 TRAIN_KEYS = 2571
 SCAN_STEPS = 140
 GATHER_TURNS = 7            # K1 and index_select timed in turns, as P3
+PIXEL_KEYS = 1000           # the pixel CnnRnn's store: 1.07 GB of images
 EDGE_STEPS = 20             # the loss must fall from the first to the last
 TRAJ_STEPS, TRAJ_RTOL = 3, 1e-6
 STEP_WINDOW, STEP_REPS = 10, 5  # ms a step: calls of scanned steps, timed
@@ -1100,8 +1104,9 @@ def train_config(**kw):
     return cfg
 
 
-def check_gather(store, card: str) -> dict:
-    """K1 against its plain version on 64 rows of the store, with repeated
+def check_gather(data: torch.Tensor, card: str) -> dict:
+    """K1 against its plain version on 64 rows of the store ``data`` (a
+    store's ``device_array()``), with repeated
     ids and ids out of range, then K1 and ``index_select`` (the library's
     yardstick) on 64 ids in range, each split into its device time
     (``torch.profiler``) and its host time a call, and timed by CUDA events
@@ -1114,7 +1119,6 @@ def check_gather(store, card: str) -> dict:
     )
     from masters_thesis_tpu_torch.scripts import gather_timing
 
-    data = store.device_array()
     n = data.shape[0]
     gen = torch.Generator(device=data.device).manual_seed(SEED)
     ids = torch.randint(0, n, (BATCH,), generator=gen, device=data.device,
@@ -1150,6 +1154,28 @@ def check_gather(store, card: str) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
             "library_ms": split["index_select"]["median_us"] / 1e3,
             "stores": [{"store": list(data.shape), **split}]}
+
+
+def pixel_gather(device, card: str) -> dict:
+    """K1 on a store of 299 x 299 x 3 images as the pixel CnnRnn decode
+    gathers them: 268,203 fp32 values a row (1,072,812 B, a multiple of 4
+    but not of 8), which take K1's 4-byte-load plan; ``check_gather``'s
+    checks and timings there."""
+    from masters_thesis_tpu_torch.ops.gather import gather_plan, vector_bytes
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    data = torch.rand(PIXEL_KEYS, 299 * 299 * 3, generator=gen,
+                      device=device) * 2 - 1
+    row_bytes = data.shape[1] * data.element_size()
+    plan = gather_plan(row_bytes, vector_bytes(data.data_ptr() | row_bytes))
+    print(f"pixel store on the card: {tuple(data.shape)} fp32, "
+          f"{data.numel() * 4 / 1e9:.2f} GB; K1's plan {plan}")
+    if plan.vec_bytes != 4:
+        raise RuntimeError(f"pixel rows took {plan.vec_bytes}-byte loads, "
+                           f"not the 4-byte plan they are checked for")
+    k1 = check_gather(data, card)
+    del data
+    return k1
 
 
 def check_trajectory(layout, store, pipe, device, card: str) -> None:
@@ -1294,7 +1320,7 @@ def train(device, card: str, with_profile: bool):
           f" GB, pregathered, built in {time.perf_counter() - t0:.1f} s; "
           f"{len(train_pipe.pairs)} train pairs = {len(train_pipe)} steps, "
           f"{len(val_pipe)} val batches of {BATCH}")
-    k1 = check_gather(store, card)
+    k1 = check_gather(data, card)
     check_trajectory(layout, store, train_pipe, device, card)
 
     gather_rows.launches = 0
@@ -2728,7 +2754,7 @@ def check_ingest_kernels(label: str, bundle, device, card: str) -> tuple:
     from masters_thesis_tpu_torch.ops import fused_decode as fd
 
     store, model = bundle["store"], bundle["model"]
-    k1 = check_gather(store, card)
+    k1 = check_gather(store.device_array(), card)
     errs = {"K1": k1["max_abs_err"]}
     if not isinstance(model, NIC):
         return errs, k1["stores"]
@@ -3944,7 +3970,7 @@ def parallel(tok, device, card: str) -> dict:
         print(f"K1 on rank 0's store of a 1 x {PARALLEL_STORE_SHARD} mesh: "
               f"{tuple(store.device_array().shape)}, of the "
               f"{layout.padded_total} grouped columns")
-        k1 = check_gather(store, card)
+        k1 = check_gather(store.device_array(), card)
         del store
         release()
         k2, k2_launches = check_shard_serving(runs["single"]["run_path"],
@@ -4630,6 +4656,8 @@ def main(argv=None) -> int:
     k3 = cnn_rnn(device, tok, card, args.profile)
     k3b = k3.pop("bf16")
     release()
+    pix = pixel_gather(device, card)
+    release()
 
     k1, train_data = train(device, card, args.profile)
     k4 = fused_seq(train_data, device, card, args.profile)
@@ -4659,10 +4687,11 @@ def main(argv=None) -> int:
     k2["max_abs_err"] = max(k2["max_abs_err"], par["K2"]["max_abs_err"])
     shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k1["rank_store"] = {k: par["K1"][k] for k in shape_keys}
+    k1["pixel_store"] = {k: pix[k] for k in shape_keys}
     k2["vocab_5008"] = {k: par["K2"][k] for k in shape_keys}
     k1["max_abs_err"] = max([k1["max_abs_err"], *ingested["errors"]["K1"],
-                             swept["errors"]["K1"]])
-    k1["stores"] += ingested["k1_stores"] + swept["k1_stores"]
+                             swept["errors"]["K1"], pix["max_abs_err"]])
+    k1["stores"] += ingested["k1_stores"] + swept["k1_stores"] + pix["stores"]
     k2["max_abs_err"] = max([k2["max_abs_err"], *fam["errors"]["K2"],
                              *ingested["errors"]["K2"]])
     k3["max_abs_err"] = max([k3["max_abs_err"], *fam["errors"]["K3"],

@@ -443,6 +443,13 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
                 np.save(persisted, glove_table)
 
     row_shape = host_store.row_shape
+    if name == "cnn_rnn" and len(row_shape) == 3:
+        # model_for would put InceptionV3 inside the encoder, and the
+        # train step would move all of its 94 convolutions
+        raise ValueError(
+            f"cnn_rnn on image rows {tuple(row_shape)}: the port does not "
+            f"train InceptionV3; extract its patches with `features "
+            f"--backbone inception_v3 --pack` and train on those")
     n_voxels = row_shape[0]
     input_row_shape = [int(d) for d in row_shape]
     # on the card with the scanned trainer, permute the store into the

@@ -3,6 +3,9 @@
 Counterpart of ``masters_thesis_tpu/models/encoders.py``:
 
 - ``PatchDense``: (B, P, C) conv-feature patches -> (B, P, D);
+- ``InceptionPatchDense``: (B, H, W, 3) images -> InceptionV3's mixed10
+  patches -> the shared ``PatchDense`` -> (B, P, D), Show, Attend and Tell
+  from pixels (the CNN_RNN's extractor and encoder in one module);
 - ``FullyConnectedEncoder``: one Dense + BatchNorm + dropout over the whole
   flat input (AttemptFour/Model/fullyConnected.py:6-27) -> (B, 1, D);
 - ``ConcatLocallyDense``: linear per-group projections concatenated flat,
@@ -33,11 +36,13 @@ a region's features) and ``row_shape`` (one input row's shape).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 
+from masters_thesis_tpu_torch.models import inception
 from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
     Dense,
@@ -50,6 +55,7 @@ from masters_thesis_tpu_torch.models.common import (
 )
 from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
+from masters_thesis_tpu_torch.utils.profiling import span
 
 ACTIVATIONS = ("relu", "leaky_relu")
 
@@ -95,6 +101,49 @@ class PatchDense(nn.Module):
         if self.bn is not None:
             y = self.bn(y, training)
         return dropout(y, self.dropout, generator, training)
+
+
+class InceptionPatchDense(PatchDense):
+    """(B, H·W·3) or (B, H, W, 3) images, preprocessed to [-1, 1]
+    (``inception.preprocess``) -> (B, P, D): ``backbone``, the
+    ``inception.InceptionV3`` of the ``features`` command, gives the
+    mixed10 patches (P = ``inception.grid(H) · inception.grid(W)``, 64 at
+    299 x 299, of 2,048 channels), which the shared relu ``PatchDense``
+    (``proj``, the CNN_RNN's CNN_Encoder) projects. ``row_shape`` is
+    (H, W, 3). The backbone's forward is the span ``encode.backbone``
+    (``utils.profiling.span``). Its BatchNorms always take their running
+    statistics: nothing here trains the backbone. Its convolutions run in
+    fp32 whatever ``torch.backends.cudnn.allow_tf32`` says (PyTorch's
+    default lets cuDNN take TF32, which moves the greedy words of this
+    94-layer stack); the flag is the caller's again after the call."""
+
+    def __init__(self, image_size, out_dim: int, generator=None):
+        h, w = image_size
+        super().__init__(inception.grid(h) * inception.grid(w), 2048,
+                         out_dim, activation="relu", generator=generator)
+        self.backbone = inception.InceptionV3(generator=generator)
+        self.row_shape = (h, w, 3)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None) -> torch.Tensor:
+        images = x.reshape(x.shape[0], *self.row_shape)
+        with span("encode.backbone", images), fp32_convolutions():
+            patches = self.backbone(images)["patches"]
+        return super().forward(patches, training, generator)
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN's float32 convolutions without TF32 inside the block; the
+    flag is restored after it. The port runs a model on one thread at a
+    time (``server.DynamicBatcher``'s worker), so no other call sees the
+    flag changed."""
+    kept = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = kept
 
 
 class FullyConnectedEncoder(nn.Module):

@@ -10,7 +10,8 @@ tree's parameter names and layouts (``models.backbones``); the branches'
 ``AveragePooling2D(padding='same')``).
 
 ``InceptionV3()`` on (B, 299, 299, 3) NHWC in [-1, 1] gives patches
-(B, 64, 2048), pooled (B, 2048), and with ``include_top`` logits (B, 1000).
+(B, 64, 2048), pooled (B, 2048), and with ``include_top`` logits (B, 1000);
+``grid`` is the side of the patch map for another image side.
 """
 
 from __future__ import annotations
@@ -217,6 +218,20 @@ class InceptionV3(nn.Module):
         if self.include_top:
             out["logits"] = self.predictions(out["pooled"])
         return out
+
+
+def grid(size: int) -> int:
+    """The side of the mixed10 map (the patch grid) for an image side of
+    ``size`` pixels: stem1 (3x3, stride 2) and stem2 (3x3), a max pool and
+    stem5 (3x3), then three 3x3 stride-2 reductions (a max pool, mixed3,
+    mixed8), all VALID; 8 at 299, 1 at 75, the least side that runs."""
+    if size < 75:
+        raise ValueError(f"image side {size}: InceptionV3 needs 75 or more")
+    side = (size - 3) // 2 + 1 - 2
+    side = (side - 3) // 2 + 1 - 2
+    for _ in range(3):
+        side = (side - 3) // 2 + 1
+    return side
 
 
 def preprocess(images: np.ndarray) -> np.ndarray:

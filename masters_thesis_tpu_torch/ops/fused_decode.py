@@ -596,7 +596,8 @@ def decode_inputs(model, betas: torch.Tensor, start_id: int, *,
     """The positional arguments of the model's decode kernel
     (``decode_kernel``) for ``betas`` (B, ...).
 
-    Encodes, precomputes ``pre = act_a(features W1 + b1)``, pads the vocab
+    Encodes (through the backbone, span ``encode.backbone``, for a model
+    on pixels), precomputes ``pre = act_a(features W1 + b1)``, pads the vocab
     axis to a multiple of 128 with bias -1e30 from ``model.true_vocab`` on,
     and takes the start embedding and the model's own initial carry (zeros,
     or the learned one from the features); then casts as

@@ -33,9 +33,11 @@ is padded by repeating its final row (``padded_chunk_ids``, the port's copy
 of the JAX package's).
 
 A row is whatever the model reads: (n_voxels,) betas for the brain
-families, (P, C) patches for the image ones, a 512-wide GUSE vector for
+families, (P, C) patches for the image ones, (H, W, 3) images preprocessed
+to [-1, 1] for a ``cnn_rnn`` built on pixels, a 512-wide GUSE vector for
 ``guse_nic``. ``input_row_shape`` is that shape and ``input_width`` its last
-dimension, as in the JAX ``Captioner`` and server.
+dimension, as in the JAX ``Captioner`` and server; image rows are held to
+the whole shape.
 
 ``shard=N`` serves N replicas of the model, one a device (the JAX
 ``Captioner``'s data-parallel ``mesh``): each decodes an equal share of
@@ -347,6 +349,10 @@ class Captioner:
         """(N, *input_row_shape) inputs -> (N, T) token ids; pads to the
         service batch."""
         dec = self._decoder(decoder)
+        if (len(self.input_row_shape) == 3
+                and np.shape(inputs)[1:] != self.input_row_shape):
+            raise ValueError(f"image rows of shape {np.shape(inputs)[1:]} != "
+                             f"model's expected {self.input_row_shape}")
 
         def run_chunk(chunk):
             # torch wants writable memory; copies only a read-only view

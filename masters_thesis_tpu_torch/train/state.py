@@ -78,7 +78,8 @@ def model_for(cfg, layout=None, seed: int | None = None,
     at ``cfg``'s widths and dropouts, initialised on the CPU from ``seed``
     (default ``cfg.seed``). ``layout`` is the GroupLayout of the families
     that read one (``LAYOUT_MODELS``); ``row_shape`` one input row's shape,
-    (P, C) patches for ``img_nic`` and ``cnn_rnn``, by default
+    (P, C) patches for ``img_nic`` and ``cnn_rnn`` or (H, W, 3) images for
+    ``cnn_rnn`` (InceptionV3 inside the encoder), by default
     (layout.n_voxels,). ``pregathered`` (``lc_nic``/``ms_nic``) takes the
     grouped padded input of a permuted store. ``embedding_table`` is a
     resolved (vocab, E) GloVe table (``lc_nic``/``ms_nic``)."""
@@ -155,6 +156,12 @@ def model_for(cfg, layout=None, seed: int | None = None,
                       n_patches=row_shape[0], in_channels=row_shape[1],
                       **nic)
     if name == "cnn_rnn":
+        if len(row_shape) == 3:
+            if row_shape[2] != 3:
+                raise ValueError(f"cnn_rnn image rows {tuple(row_shape)}: "
+                                 f"expected (H, W, 3) RGB")
+            return CnnRnnNIC(embed_dim=256, image_size=tuple(row_shape[:2]),
+                             **nic)
         return CnnRnnNIC(embed_dim=256, n_patches=row_shape[0],
                          in_channels=row_shape[1], **nic)
     # the alternate brain encoders the reference swaps into lc_NIC

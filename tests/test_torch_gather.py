@@ -180,6 +180,7 @@ PLANS = {
     "lc_nic 1.64 MB": ((1_638_400, 16), (256, 200, 512, 0)),
     "flagship 1.89 MB": ((1_890_304, 16), (256, 231, 512, 0)),
     "flagship raw bf16": ((655_368, 8), (256, 81, 1_012, 1)),
+    "cnn_rnn pixels 1.07 MB": ((1_072_812, 4), (256, 524, 512, 0)),
     "one vector": ((4, 4), (32, 1, 1, 1)),
     "three bf16 vectors": ((6, 2), (32, 1, 3, 1)),
     "a warp": ((512, 16), (32, 1, 32, 1)),
@@ -245,6 +246,17 @@ def test_plan_copies_every_vector_once(row_vecs):
     wide = row_vecs * 16 >= gather.WIDE_ROW
     assert plan.stream == (not wide)
     assert not wide or plan.piece_vecs <= SWEEP // 2
+
+
+def test_pixel_rows_take_narrow_loads_and_are_copied_once():
+    """cnn_rnn on pixels stores 299 x 299 x 3 fp32 values a row (1,072,812
+    B, a multiple of 4 but not of 8): on a 256-byte aligned store K1 takes
+    4-byte loads, 524 pieces of 512, and copies each value once."""
+    row_bytes = 299 * 299 * 3 * 4
+    vec = vector_bytes(0x7F0000000000 | row_bytes)
+    assert vec == 4
+    plan = gather_plan(row_bytes, vec)
+    assert (walk(plan, row_bytes // vec, 2) == 1).all()
 
 
 @pytest.mark.parametrize("threads", [32, 96, 256])

@@ -20,7 +20,8 @@ ties, the first index on an argmax tie and the refusal of mixed dtypes;
 and their persistent kernel on batches past one row a block, bit for bit
 from call to call, on forced plans of few blocks, and refusing plans it
 cannot run; and the profiler's device spans of a gather and a decode,
-against the decode's kernels by name. A CUDA kernel has no CPU mode, so
+against the decode's kernels by name; and the pixel CnnRnn (InceptionV3 in
+its encoder) in fp32 with cuDNN's TF32 flag at PyTorch's default. A CUDA kernel has no CPU mode, so
 every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -496,6 +497,66 @@ def test_gru_kernel_with_a_learned_initial_carry(cuda, zero_state):
     _check_decode(model.to(cuda), rows.to(cuda), SMALL_MIN_DISTINCT)
 
 
+def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_pixel_cnn_rnn_keeps_fp32_under_the_default_tf32_flag(cuda):
+    """The pixel CnnRnn at the benchmark's configuration (InceptionV3 at
+    299 x 299, the published widths) and weights' rule, with cuDNN's flag
+    at PyTorch's default, which lets convolutions take TF32: its encoder
+    gives what it gives with the flag off, within the fp32 summation-order
+    tolerance of the CPU tests (5e-4 x max), while its backbone called
+    bare under the flag lies over 20 times farther; its decode through K3
+    is held to the fp32 reference within the cell's limits; and the flag
+    is the caller's again."""
+    import json
+    from pathlib import Path
+
+    from masters_thesis_tpu_torch.models.encoders import PatchDense
+    from port_bench.harness import port
+    from port_bench.programs import cnn_rnn_inception as program
+    from port_bench.reference import cnn_rnn_inception as ref
+    from port_bench.reference import compare
+
+    bench = Path(__file__).resolve().parents[1] / "port_bench"
+    cfg = json.loads((bench / "configs/cnn_rnn_inception_v3.json")
+                     .read_text())
+    limits = json.loads((bench / "limits/cnnrnn_inception_eval_greedy.json")
+                        .read_text())
+    B, start, tol = 16, cfg["tokens"]["start"], 5e-4
+    w = ref.weights(cfg, 2**40 + 299, cuda)
+    model = port.model(cfg, w, cuda).eval()
+    rows = ref.draw_rows(cfg, B, torch.Generator(device=cuda).manual_seed(5),
+                         cuda)
+    stored = program.to_store(model, rows)
+    decode = fused_decode.make_whole_fused_greedy_decoder(
+        model, cfg["max_length"])
+    with torch.inference_mode():
+        fp32 = model.encoder(stored)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            guarded = model.encoder(stored)
+            bare = PatchDense.forward(model.encoder, model.encoder.backbone(
+                stored.view(B, *model.row_shape))["patches"])
+        words, alphas = decode(stored, start)
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert _rel_gap(guarded, fp32) <= tol
+    assert _rel_gap(bare, fp32) > 20 * tol
+    assert len(torch.unique(words)) >= 3
+    tokens = torch.cat([torch.full_like(words[:, :1], start),
+                        words[:, :-1].long()], dim=1)
+    with torch.no_grad():
+        logits, want = ref.teacher_forced(w, cfg, rows, tokens)
+    ok, readings = compare.verdict(
+        compare.decode_readings(logits, want, words, alphas), limits)
+    assert ok, readings
+
+
 @pytest.mark.parametrize("decoder", ["beam-1", "beam-3", "beam-5",
                                      "sample"])
 def test_beam_and_sampler_on_the_card_match_the_cpu(cuda, decoder):
@@ -575,6 +636,8 @@ GATHER_SHAPES = {
     "cnn_rnn": (20, 131_072, 131_072),
     "img_nic": (20, 100_352, 100_352),
     "lc_nic": (20, 409_600, 409_600),
+    # cnn_rnn on pixels: 299 x 299 x 3 values a row, 4-byte loads
+    "pixels": (9, 268_203, 268_203),
     # gather_plan's edges, in fp32 columns: 1 and 3 columns (one 4-byte or
     # 12-byte row), a warp of 16-byte vectors and one vector past it, a
     # block of them (a vector a thread) and one past it, the last row a

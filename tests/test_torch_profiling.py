@@ -158,7 +158,30 @@ def _cnnrnn():
     return model, torch.randn(12, 5 * 12, generator=gen)
 
 
-MODELS = {"lcnic": _lcnic, "cnn_rnn": _cnnrnn}
+def _pixels():
+    """The CnnRnn on 75 x 75 images (one mixed10 patch), InceptionV3 at its
+    published widths inside the encoder; its store rows are the images
+    laid flat."""
+    from masters_thesis_tpu_torch.models.nic import CnnRnnNIC
+
+    gen = torch.Generator().manual_seed(0)
+    model = CnnRnnNIC(embed_dim=8, units=16, vocab_size=40,
+                      max_length=T_SPAN, image_size=(75, 75), generator=gen)
+    return model, 2 * torch.rand(12, 75 * 75 * 3, generator=gen) - 1
+
+
+MODELS = {"lcnic": _lcnic, "cnn_rnn": _cnnrnn, "pixels": _pixels}
+
+
+@pytest.fixture
+def one_thread():
+    """The pixel model's InceptionV3 gains little from more threads at 75 x
+    75, and under the suite's parallel workers their thread pools
+    oversubscribe the cores: one thread a worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _decode_rows(name, gather, weights_bf16=False):
@@ -207,6 +230,7 @@ def test_span_off_enters_no_range_and_records_no_device_span(monkeypatch):
     assert profiling.device_spans() == before
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("gather", ["gather_rows", "take_rows"])
 @pytest.mark.parametrize("name", list(MODELS))
 def test_spans_nest_once_a_call_inside_the_caller(name, gather):
@@ -234,6 +258,55 @@ def test_spans_nest_once_a_call_inside_the_caller(name, gather):
                 ("gather", "decode.inputs", "decode.kernel")]
 
 
+@pytest.mark.usefixtures("one_thread")
+def test_backbone_span_nests_once_inside_the_inputs_span():
+    """A decode of images emits ``encode.backbone`` once, inside
+    ``decode.inputs``, around all 94 convolutions of InceptionV3 and
+    before the patch projection."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    run = _decode_rows("pixels", gather_rows)
+    run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    ranges = {}
+    for e in prof.events():
+        ranges.setdefault(e.name, []).append((e.time_range.start,
+                                              e.time_range.end))
+    (inputs,) = ranges["span:decode.inputs"]
+    (backbone,) = ranges["span:encode.backbone"]
+    assert inputs[0] <= backbone[0] <= backbone[1] <= inputs[1]
+    inside = lambda name: [r for r in ranges.get(name, [])  # noqa: E731
+                           if backbone[0] <= r[0] <= backbone[1]]
+    assert len(inside("aten::convolution")) == 94
+    assert len(ranges["aten::convolution"]) == 94
+    # the patch projection (a Dense: ``x @ kernel``) follows the span
+    assert ranges["aten::matmul"] and not inside("aten::matmul")
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_backbone_span_off_is_a_flag_check(monkeypatch):
+    """With no profiler a decode of images opens no range and records no
+    event pair: the backbone's span is the shared no-op."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    run = _decode_rows("pixels", gather_rows)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function on the hot path")
+
+    before = profiling.device_spans()
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    assert not torch.autograd._profiler_enabled()
+    with profiling.span("encode.backbone", torch.zeros(2)) as inside:
+        assert inside is None
+    words, alphas = run()
+    assert words.shape == (5, T_SPAN) and alphas.shape == (5, T_SPAN, 1)
+    assert profiling.device_spans() == before
+
+
 def test_bf16_casts_lie_in_the_one_inputs_span():
     """With bf16 weights the casts are part of ``decode.inputs``: still one
     span of each name a call."""
@@ -253,6 +326,7 @@ def test_bf16_casts_lie_in_the_one_inputs_span():
     assert casts
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("name", list(MODELS))
 def test_words_and_alphas_do_not_change_under_the_profiler(name):
     from masters_thesis_tpu_torch.ops.gather import gather_rows
