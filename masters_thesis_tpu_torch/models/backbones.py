@@ -8,12 +8,17 @@ fc2 4096-d and block5-conv (196, 512) patches
 ResNet-50 (``models.resnet``).
 
 The modules take NHWC images and return the JAX modules' dict of heads;
-inside they run NCHW (the NHWC input permuted is channels-last memory, what
-cuDNN's convolutions prefer). Parameters keep the flax tree's names and
-layouts, so ``transplant.from_flax`` / ``to_flax`` move weights both ways:
-a conv kernel is flax's HWIO (turned into OIHW where ``F.conv2d`` is
-called), a Dense kernel (in, out), a BatchNorm's running statistics the
-buffers ``mean``/``var`` (flax's ``batch_stats``). Flax's "SAME" padding is
+inside they run NCHW-indexed tensors in the memory layout that
+``conv_memory_format`` picks once, at the stem, and every later layer
+keeps: NCHW-contiguous for float32 on CUDA with cuDNN's TF32 off, since
+cuDNN's float32 convolutions read NCHW and would wrap each channels-last
+one in layout transposes; channels-last otherwise (the NHWC input
+permuted, no copy), which the TF32 and half-type tensor-core kernels
+read. Parameters keep the flax tree's names and layouts, so
+``transplant.from_flax`` / ``to_flax`` move weights both ways: a conv
+kernel is flax's HWIO (turned into OIHW where ``F.conv2d`` is called), a
+Dense kernel (in, out), a BatchNorm's running statistics the buffers
+``mean``/``var`` (flax's ``batch_stats``). Flax's "SAME" padding is
 asymmetric when the stride is 2, the extra row and column going to the
 bottom and right (pad_total = max((ceil(H/s) - 1)·s + k - H, 0), before it
 pad_total // 2): ``Conv`` pads explicitly with ``F.pad`` where the two sides
@@ -117,9 +122,24 @@ class BatchNorm(nn.Module):
                 + self.bias[:, None, None])
 
 
+def conv_memory_format(device, dtype: torch.dtype) -> torch.memory_format:
+    """The memory layout in which cuDNN convolves tensors of ``dtype`` on
+    ``device`` without layout transposes: NCHW-contiguous for float32 on
+    CUDA while ``torch.backends.cudnn.allow_tf32`` is off (cuDNN's float32
+    kernels read NCHW), channels-last otherwise (its TF32 and half-type
+    tensor-core kernels read NHWC; on the CPU the permuted images as they
+    are)."""
+    if (torch.device(device).type == "cuda" and dtype == torch.float32
+            and not torch.backends.cudnn.allow_tf32):
+        return torch.contiguous_format
+    return torch.channels_last
+
+
 def nchw(images: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) images -> (B, C, H, W), channels-last in memory."""
-    return images.permute(0, 3, 1, 2)
+    """(B, H, W, C) images -> (B, C, H, W) in ``conv_memory_format``'s
+    layout: channels-last is the images permuted, without a copy."""
+    return images.permute(0, 3, 1, 2).contiguous(
+        memory_format=conv_memory_format(images.device, images.dtype))
 
 
 def patches(x: torch.Tensor) -> torch.Tensor:

@@ -115,7 +115,9 @@ class InceptionPatchDense(PatchDense):
     statistics: nothing here trains the backbone. Its convolutions run in
     fp32 whatever ``torch.backends.cudnn.allow_tf32`` says (PyTorch's
     default lets cuDNN take TF32, which moves the greedy words of this
-    94-layer stack); the flag is the caller's again after the call."""
+    94-layer stack), and so on CUDA in the NCHW-contiguous layout that
+    cuDNN's float32 kernels read (``backbones.conv_memory_format``); the
+    flag is the caller's again after the call."""
 
     def __init__(self, image_size, out_dim: int, generator=None):
         h, w = image_size

@@ -28,7 +28,7 @@ from masters_thesis_tpu_torch import experiment
 from masters_thesis_tpu_torch.config import Config
 from masters_thesis_tpu_torch.data.store import ArrayStore
 from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
-from masters_thesis_tpu_torch.models import inception
+from masters_thesis_tpu_torch.models import backbones, inception
 from masters_thesis_tpu_torch.models.encoders import (
     InceptionPatchDense,
     PatchDense,
@@ -152,6 +152,51 @@ def test_captioner_holds_image_rows_to_the_whole_shape(pair):
         cap.caption_ids(images[:, :-1])
     with pytest.raises(ValueError, match="image rows"):
         cap.caption_ids(images.reshape(B, -1, 3))
+
+
+def test_patches_in_nchw_memory_match_the_reference(pair, monkeypatch):
+    """The backbone with its activations NCHW-contiguous, the layout
+    ``conv_memory_format`` picks for fp32 on CUDA without TF32 (forced
+    here, on the CPU): every layer keeps it, and the patches are held to
+    the reference as in the channels-last run."""
+    cfg, w, model, rows = pair
+    monkeypatch.setattr(backbones, "conv_memory_format",
+                        lambda *_: torch.contiguous_format)
+    assert backbones.nchw(torch.zeros(2, 5, 7, 3)).is_contiguous()
+    assert patch_gap(model, w, cfg, rows) <= PATCH_TOL
+
+
+@pytest.mark.parametrize("device, dtype, tf32, layout", [
+    ("cuda", torch.float32, False, torch.contiguous_format),
+    ("cuda", torch.float32, True, torch.channels_last),
+    ("cuda", torch.bfloat16, False, torch.channels_last),
+    ("cuda", torch.float16, False, torch.channels_last),
+    ("cuda", torch.bfloat16, True, torch.channels_last),
+    ("cpu", torch.float32, False, torch.channels_last),
+    ("cpu", torch.float32, True, torch.channels_last),
+    ("cpu", torch.bfloat16, False, torch.channels_last),
+])
+def test_backbone_layout_follows_the_precision_in_force(device, dtype, tf32,
+                                                        layout):
+    """NCHW-contiguous where cuDNN's float32 kernels run (CUDA, TF32 off),
+    channels-last elsewhere; on the CPU ``nchw`` gives the images
+    themselves, permuted. The caller's flag is back after the test."""
+    kept = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        assert backbones.conv_memory_format(device, dtype) == layout
+        assert backbones.conv_memory_format(torch.device(device),
+                                            dtype) == layout
+        if device == "cpu":
+            images = torch.arange(2 * 5 * 7 * 3, dtype=dtype).view(
+                2, 5, 7, 3)
+            x = backbones.nchw(images)
+            assert x.data_ptr() == images.data_ptr()
+            assert x.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(x, images.permute(0, 3, 1, 2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = kept
+    assert torch.backends.cudnn.allow_tf32 is kept
 
 
 def test_the_reference_in_a_lower_precision_fails_the_tolerance(pair):

@@ -21,13 +21,18 @@ and their persistent kernel on batches past one row a block, bit for bit
 from call to call, on forced plans of few blocks, and refusing plans it
 cannot run; and the profiler's device spans of a gather and a decode,
 against the decode's kernels by name; and the pixel CnnRnn (InceptionV3 in
-its encoder) in fp32 with cuDNN's TF32 flag at PyTorch's default. A CUDA kernel has no CPU mode, so
+its encoder) in fp32 with cuDNN's TF32 flag at PyTorch's default, its
+backbone in the layout cuDNN's kernels read at each precision (no layout
+transposes in fp32). A CUDA kernel has no CPU mode, so
 every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -501,35 +506,45 @@ def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def test_pixel_cnn_rnn_keeps_fp32_under_the_default_tf32_flag(cuda):
-    """The pixel CnnRnn at the benchmark's configuration (InceptionV3 at
-    299 x 299, the published widths) and weights' rule, with cuDNN's flag
-    at PyTorch's default, which lets convolutions take TF32: its encoder
-    gives what it gives with the flag off, within the fp32 summation-order
-    tolerance of the CPU tests (5e-4 x max), while its backbone called
-    bare under the flag lies over 20 times farther; its decode through K3
-    is held to the fp32 reference within the cell's limits; and the flag
-    is the caller's again."""
-    import json
-    from pathlib import Path
+PORT_BENCH = Path(__file__).resolve().parents[1] / "port_bench"
 
-    from masters_thesis_tpu_torch.models.encoders import PatchDense
+
+def _pixel_cnn_rnn(device, B: int):
+    """The pixel CnnRnn at the benchmark's configuration (InceptionV3 at
+    299 x 299, the published widths) on weights drawn by its rule, and B
+    raw rows: (cfg, weights, model, rows, the model's stored rows)."""
     from port_bench.harness import port
     from port_bench.programs import cnn_rnn_inception as program
     from port_bench.reference import cnn_rnn_inception as ref
+
+    cfg = json.loads((PORT_BENCH / "configs/cnn_rnn_inception_v3.json")
+                     .read_text())
+    w = ref.weights(cfg, 2**40 + 299, device)
+    model = port.model(cfg, w, device).eval()
+    rows = ref.draw_rows(cfg, B,
+                         torch.Generator(device=device).manual_seed(5),
+                         device)
+    return cfg, w, model, rows, program.to_store(model, rows)
+
+
+def test_pixel_cnn_rnn_keeps_fp32_under_the_default_tf32_flag(cuda):
+    """The pixel CnnRnn at the benchmark's configuration and weights' rule,
+    with cuDNN's flag at PyTorch's default, which lets convolutions take
+    TF32: its encoder gives what it gives with the flag off, within the
+    fp32 summation-order tolerance of the CPU tests (5e-4 x max), while its
+    backbone called bare under the flag lies over 20 times farther; its
+    decode through K3 is held to the fp32 reference within the cell's
+    limits; and the flag is the caller's again."""
+    from masters_thesis_tpu_torch.models.encoders import PatchDense
+    from port_bench.reference import cnn_rnn_inception as ref
     from port_bench.reference import compare
 
-    bench = Path(__file__).resolve().parents[1] / "port_bench"
-    cfg = json.loads((bench / "configs/cnn_rnn_inception_v3.json")
-                     .read_text())
-    limits = json.loads((bench / "limits/cnnrnn_inception_eval_greedy.json")
-                        .read_text())
-    B, start, tol = 16, cfg["tokens"]["start"], 5e-4
-    w = ref.weights(cfg, 2**40 + 299, cuda)
-    model = port.model(cfg, w, cuda).eval()
-    rows = ref.draw_rows(cfg, B, torch.Generator(device=cuda).manual_seed(5),
-                         cuda)
-    stored = program.to_store(model, rows)
+    limits = json.loads(
+        (PORT_BENCH / "limits/cnnrnn_inception_eval_greedy.json")
+        .read_text())
+    B = 16
+    cfg, w, model, rows, stored = _pixel_cnn_rnn(cuda, B)
+    start, tol = cfg["tokens"]["start"], 5e-4
     decode = fused_decode.make_whole_fused_greedy_decoder(
         model, cfg["max_length"])
     with torch.inference_mode():
@@ -555,6 +570,76 @@ def test_pixel_cnn_rnn_keeps_fp32_under_the_default_tf32_flag(cuda):
     ok, readings = compare.verdict(
         compare.decode_readings(logits, want, words, alphas), limits)
     assert ok, readings
+
+
+TRANSPOSES = ("nhwcToNchw", "nchwToNhwc")
+
+
+def _conv_inputs(backbone) -> tuple[list, list]:
+    """Forward pre-hooks that keep the input of each of the backbone's
+    convolutions, and their handles."""
+    from masters_thesis_tpu_torch.models.backbones import Conv
+
+    seen, handles = [], []
+    for mod in backbone.modules():
+        if isinstance(mod, Conv):
+            handles.append(mod.register_forward_pre_hook(
+                lambda _, args: seen.append(args[0])))
+    return seen, handles
+
+
+def test_pixel_backbone_takes_the_layout_cudnn_reads(cuda, monkeypatch):
+    """The pixel encoder at 299 x 299, with the caller's cuDNN flag at
+    PyTorch's default: its fp32 backbone feeds every convolution an
+    NCHW-contiguous input, cuDNN launches none of its layout transposes
+    (a channels-last fp32 forward, forced, launches over 100), and the
+    patches lie within 1e-4 x max of the plain reference's on the same
+    weights. The bare backbone under TF32, as ``features`` runs it, feeds
+    its convolutions channels-last inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from masters_thesis_tpu_torch.models import backbones
+    from masters_thesis_tpu_torch.models.encoders import fp32_convolutions
+    from port_bench.reference import cnn_rnn_inception as ref
+
+    B = 16
+    cfg, w, model, rows, stored = _pixel_cnn_rnn(cuda, B)
+    backbone = model.encoder.backbone
+    images = stored.view(B, *model.row_shape)
+
+    def transposes(forward) -> int:
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if any(t in e.name for t in TRANSPOSES))
+
+    seen, handles = _conv_inputs(backbone)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert transposes(lambda: model.encoder(stored)) == 0
+        assert len(seen) == 94
+        assert all(x.is_contiguous() for x in seen)
+        seen.clear()
+        with torch.inference_mode():
+            backbone(images)
+        assert len(seen) == 94
+        assert all(x.is_contiguous(memory_format=torch.channels_last)
+                   and not x.is_contiguous() for x in seen)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        for h in handles:
+            h.remove()
+    with fp32_convolutions(), torch.inference_mode():
+        got = backbone(images)["patches"]
+        with monkeypatch.context() as m:
+            m.setattr(backbones, "conv_memory_format",
+                      lambda *_: torch.channels_last)
+            assert transposes(lambda: backbone(images)) > 100
+    with torch.no_grad():
+        want = ref.encode_patches(w, cfg, rows)
+    assert _rel_gap(got, want) <= 1e-4
 
 
 @pytest.mark.parametrize("decoder", ["beam-1", "beam-3", "beam-5",
