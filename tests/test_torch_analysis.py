@@ -24,6 +24,8 @@ from masters_thesis_tpu_torch import cli, experiment
 from masters_thesis_tpu_torch.config import Config
 from masters_thesis_tpu_torch.evalsuite import analysis as pan
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _same(a, b, where="result"):
     """Equal, exactly: nested dicts, lists and tuples, arrays (NaN equal

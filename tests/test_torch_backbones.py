@@ -26,6 +26,8 @@ from masters_thesis_tpu_torch.models import inception as inception_t
 from masters_thesis_tpu_torch.models import resnet as resnet_t
 from masters_thesis_tpu_torch.transplant import from_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 jb = importlib.import_module("masters_thesis_tpu.models.backbones")
 jr = importlib.import_module("masters_thesis_tpu.models.resnet")
 ji = importlib.import_module("masters_thesis_tpu.models.inception")

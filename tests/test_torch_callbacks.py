@@ -29,6 +29,8 @@ from masters_thesis_tpu_torch.train.loop import Callback, Trainer
 from masters_thesis_tpu_torch.train.state import new_state
 from masters_thesis_tpu_torch.utils import logging as plogging
 
+from torch_threads import one_thread  # noqa: F401
+
 EPOCHS = 4
 KEYS = [3, 5, 7, 9, 11]
 

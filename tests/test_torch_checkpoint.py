@@ -28,6 +28,8 @@ from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
 from masters_thesis_tpu_torch.train.optim import Optimizer
 from masters_thesis_tpu_torch.train.state import TrainState, init_model
 
+from torch_threads import one_thread  # noqa: F401
+
 CFG = dict(units=16, attn_units=4, group_size=4, embedding_text=8,
            max_length=5, top_k=29, batch_size=6, seed=3)
 N_VOXELS, B = 96, 6

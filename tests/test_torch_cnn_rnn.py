@@ -23,6 +23,8 @@ from masters_thesis_tpu_torch.models.nic import NIC, CnnRnnNIC
 from masters_thesis_tpu_torch.ops.fused_decode import spread_for_check
 from masters_thesis_tpu_torch.transplant import from_flax, to_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 P, C, EMB, UNITS, VOCAB, T, B = 6, 24, 64, 16, 40, 6, 8
 

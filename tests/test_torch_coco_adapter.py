@@ -9,6 +9,8 @@ import pytest
 from masters_thesis_tpu.evalsuite import coco_adapter as jca
 from masters_thesis_tpu_torch.evalsuite import coco_adapter as pca
 
+from torch_threads import one_thread  # noqa: F401
+
 STIM = ("Unnamed: 0,nsdId,cocoId,cocoSplit\n"
         "0,0,531124,train2017\n"
         "1,1,104612,val2017\n"

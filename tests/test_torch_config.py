@@ -17,6 +17,8 @@ from masters_thesis_tpu_torch.config import (
     load_yaml,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 CONFIGS = sorted((Path(__file__).resolve().parents[1] / "configs")
                  .glob("*.yaml"))
 

@@ -46,6 +46,8 @@ from masters_thesis_tpu_torch.server import make_caption_server
 from masters_thesis_tpu_torch.utils import logging as plogging
 from masters_thesis_tpu_torch.utils import tensorboard as ptensorboard
 
+from torch_threads import one_thread  # noqa: F401
+
 CAPTIONS = jsynthetic.synthetic_captions(range(1, 13), seed=3)
 TEXTS = [jpairs.clean_caption(c) for lines in CAPTIONS.values()
          for c in lines] + ["A Zebra, unseen!  words; here.", ""]

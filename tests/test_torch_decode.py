@@ -47,6 +47,7 @@ from masters_thesis_tpu_torch.serve import Captioner
 from masters_thesis_tpu_torch.transplant import to_flax
 from test_decode import _shrinking_beam_oracle, _TableModel
 from test_torch_cnn_rnn import nic_pair
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 UNITS, T, VOCAB, START, B = 16, 6, 40, 1, 8

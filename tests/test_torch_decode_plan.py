@@ -43,6 +43,8 @@ from masters_thesis_tpu_torch.ops.decode_plan import (
 )
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 
+from torch_threads import one_thread  # noqa: F401
+
 BLOCK_SMEM = 232_448          # an H100 block's shared memory
 FLAGSHIP = dict(R=360, A=32, D=32, E=512, U=512, H=256, V=5120)
 CNN_RNN = dict(R=64, A=512, D=2048, E=256, U=512, H=512, V=5120)

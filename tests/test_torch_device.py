@@ -18,6 +18,8 @@ from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.serve import Captioner
 from masters_thesis_tpu_torch.train.state import init_model
 
+from torch_threads import one_thread  # noqa: F401
+
 CFG = dict(batch_size=4, max_length=4, top_k=19, units=8, attn_units=4,
            group_size=4, embedding_text=8)
 

@@ -31,6 +31,8 @@ from masters_thesis_tpu_torch.evalsuite import (
     stem,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 TESTS = Path(__file__).resolve().parent
 
 

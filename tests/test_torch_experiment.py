@@ -50,6 +50,8 @@ from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
 from masters_thesis_tpu_torch.train.state import new_state
 from masters_thesis_tpu_torch.transplant import from_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "configs" / "smoke.yaml"
 KEYS = 24

@@ -49,6 +49,8 @@ from masters_thesis_tpu_torch.train.checkpoint import CheckpointManager
 from masters_thesis_tpu_torch.train.state import new_state
 from masters_thesis_tpu_torch.transplant import from_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 WIDTHS = dict(model="lc_nic", epochs=1, batch_size=4, max_length=6,
               top_k=40, units=16, attn_units=8, group_size=4,
               embedding_text=8)

@@ -38,6 +38,8 @@ from masters_thesis_tpu_torch.train import steps
 from masters_thesis_tpu_torch.train.state import new_state
 from masters_thesis_tpu_torch.transplant import from_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 FWD = dict(rtol=1e-5, atol=1e-5)
 TRAJ = dict(rtol=2e-5, atol=2e-5)
 N_VOXELS, N_GROUPS, B, P, C = 96, 5, 4, 6, 12

@@ -23,6 +23,8 @@ from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.ops import fused_decode
 from masters_thesis_tpu_torch.transplant import from_flax, to_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 UNITS, T, START = 16, 6, 1
 KW = dict(units=UNITS, group_size=4, embedding_text=8, attn_units=8,
           max_length=T)

@@ -29,6 +29,8 @@ from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.serve import Captioner
 from masters_thesis_tpu_torch.transplant import to_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 START = 1
 TOL = dict(rtol=1e-5, atol=1e-5)
 

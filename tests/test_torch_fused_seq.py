@@ -41,6 +41,7 @@ from test_torch_train import (
     _leaves,
     _randomise,
 )
+from torch_threads import one_thread  # noqa: F401
 
 N_VOXELS, N_GROUPS, B, T = 192, 6, 6, 7
 R, A, D, E, U = N_GROUPS, 8, 4, 16, 24

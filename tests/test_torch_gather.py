@@ -33,6 +33,8 @@ from masters_thesis_tpu_torch.ops.gather import (
     vector_bytes,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 # repeated ids, both ends, and ids past both ends (clamped)
 IDS = [5, 0, 5, 6, -1, 9, 2, -7, 2]
 

@@ -31,6 +31,8 @@ from masters_thesis_tpu_torch.ops.gather import (
 )
 from masters_thesis_tpu_torch.scripts import gather_probe as probe
 
+from torch_threads import one_thread  # noqa: F401
+
 JAX_PROBE = Path(__file__).resolve().parents[1] / "scripts" / "gather_probe.py"
 TAKEN = ("_gather_kernel", "make_pallas_take", "make_dma_take", "xla_take",
          "_check")

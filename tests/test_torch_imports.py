@@ -20,6 +20,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "masters_thesis_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "triton",

@@ -43,6 +43,8 @@ from port_bench.programs import cnn_rnn_inception as program
 from port_bench.reference import cnn_rnn_inception as ref
 from port_bench.reference import compare
 
+from torch_threads import one_thread  # noqa: F401
+
 PATCH_TOL, ALPHA_TOL, LOGIT_TOL = 5e-4, 1e-3, 1e-3
 B, START = 3, 2
 CPU = torch.device("cpu")
@@ -53,17 +55,6 @@ def config(size: int) -> dict:
     return {"model": "cnn_rnn_inception", "image_size": [size, size],
             "n_patches": side * side, "in_channels": 2048, "embed_dim": 256,
             "units": 512, "vocab_size": 5001, "max_length": 15}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """InceptionV3 on a few small images gains little from more threads
-    (17 s on 8, 21 s on 1), and under the suite's parallel workers their
-    thread pools oversubscribe the cores (726 s): one thread a worker."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", params=[107, 139])

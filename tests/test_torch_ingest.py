@@ -38,6 +38,7 @@ from masters_thesis_tpu_torch.data.store import (
     upload_rows,
 )
 from test_sessions_ingest import _write_fixture
+from torch_threads import one_thread  # noqa: F401
 
 
 def _tree(root: Path) -> dict:

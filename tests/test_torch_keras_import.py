@@ -24,6 +24,8 @@ from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.transplant import from_flax, to_flax
 from masters_thesis_tpu_torch.utils import keras_import
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)        # tests/test_torch_models.py
 WIDTHS = dict(units=12, group_size=4, embedding_text=8, attn_units=6,
               vocab_size=30, max_length=5)

@@ -66,6 +66,7 @@ from test_torch_train import (
     _setup,
     _t,
 )
+from torch_threads import one_thread  # noqa: F401
 
 LOSS_ATOL = 1e-5
 GRAD_RTOL = 1e-5          # of max(1, the leaf's largest entry)

@@ -18,6 +18,8 @@ from masters_thesis_tpu_torch.models.lstm import KerasLSTMCell
 from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.transplant import from_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 UNITS, GSIZE, EMB, ATTN, VOCAB, T = 16, 4, 8, 8, 40, 6
 

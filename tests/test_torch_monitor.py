@@ -12,6 +12,8 @@ import torch
 from masters_thesis_tpu.utils import monitor as jmonitor
 from masters_thesis_tpu_torch.utils import monitor
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def test_cpu_device_has_no_stats_as_in_jax():
     cpu = jax.devices("cpu")[0]

@@ -63,6 +63,7 @@ from masters_thesis_tpu_torch.train.state import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_parallel_child import run_ranks  # noqa: E402
+from torch_threads import one_thread  # noqa: E402, F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_ATOL, NORM_ATOL = 1e-5, 1e-4       # tests/test_parallel.py:219-224

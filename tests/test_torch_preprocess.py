@@ -33,6 +33,8 @@ from masters_thesis_tpu_torch import cli, experiment
 from masters_thesis_tpu_torch.data.pack import open_pack
 from masters_thesis_tpu_torch.data.preprocess import pca
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-4
 V_HALF = 20                  # vertices per hemisphere
 TRAIN, SHARED, TEST = list(range(1, 21)), list(range(100, 106)), [100, 101]

@@ -24,6 +24,8 @@ from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
 from masters_thesis_tpu_torch.train import callbacks as pcb
 from masters_thesis_tpu_torch.utils import tensorboard as ptb
 
+from torch_threads import one_thread  # noqa: F401
+
 EPOCHS = 11
 
 

@@ -23,6 +23,8 @@ from masters_thesis_tpu_torch.ops.fused_decode import (
 )
 from masters_thesis_tpu_torch.serve import Captioner
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(p.stem for p in (ROOT / "configs").glob("*.yaml"))
 KEYS, ROWS = "16", 5

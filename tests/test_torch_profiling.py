@@ -31,6 +31,8 @@ from masters_thesis_tpu_torch.train.callbacks import (
 )
 from masters_thesis_tpu_torch.utils import profiling
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -173,17 +175,6 @@ def _pixels():
 MODELS = {"lcnic": _lcnic, "cnn_rnn": _cnnrnn, "pixels": _pixels}
 
 
-@pytest.fixture
-def one_thread():
-    """The pixel model's InceptionV3 gains little from more threads at 75 x
-    75, and under the suite's parallel workers their thread pools
-    oversubscribe the cores: one thread a worker."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _decode_rows(name, gather, weights_bf16=False):
     """A tiny model's greedy decode of store rows 3, 0, 7, 11, 5 gathered by
     ``gather``, the rows of the CnnRnn's store its patches laid flat."""
@@ -230,7 +221,6 @@ def test_span_off_enters_no_range_and_records_no_device_span(monkeypatch):
     assert profiling.device_spans() == before
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("gather", ["gather_rows", "take_rows"])
 @pytest.mark.parametrize("name", list(MODELS))
 def test_spans_nest_once_a_call_inside_the_caller(name, gather):
@@ -258,7 +248,6 @@ def test_spans_nest_once_a_call_inside_the_caller(name, gather):
                 ("gather", "decode.inputs", "decode.kernel")]
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_backbone_span_nests_once_inside_the_inputs_span():
     """A decode of images emits ``encode.backbone`` once, inside
     ``decode.inputs``, around all 94 convolutions of InceptionV3 and
@@ -285,7 +274,6 @@ def test_backbone_span_nests_once_inside_the_inputs_span():
     assert ranges["aten::matmul"] and not inside("aten::matmul")
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_backbone_span_off_is_a_flag_check(monkeypatch):
     """With no profiler a decode of images opens no range and records no
     event pair: the backbone's span is the shared no-op."""
@@ -326,7 +314,6 @@ def test_bf16_casts_lie_in_the_one_inputs_span():
     assert casts
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("name", list(MODELS))
 def test_words_and_alphas_do_not_change_under_the_profiler(name):
     from masters_thesis_tpu_torch.ops.gather import gather_rows

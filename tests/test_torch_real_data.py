@@ -42,6 +42,7 @@ from masters_thesis_tpu_torch.transplant import from_flax
 from test_real_data_path import _make_dataset, _make_two_subject_dataset
 from test_torch_families import KEYS as STEP_KEYS
 from test_torch_families import _jax_state, _randomise
+from torch_threads import one_thread  # noqa: F401
 
 TRAJ = dict(rtol=2e-5, atol=2e-5)       # tests/test_torch_trainer.py:38
 WIDTHS = dict(epochs=1, batch_size=8, max_length=8, top_k=30, units=16,

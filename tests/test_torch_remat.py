@@ -34,6 +34,7 @@ from test_torch_families import _configs as family_configs
 from test_torch_families import _row_shape
 from test_torch_train import _assert_state_close, _jax_state, _setup, _t
 from torch_parallel_child import run_ranks
+from torch_threads import one_thread  # noqa: F401
 
 SAME = 1e-6               # remat against no remat, dropout on
 TRAJ_ATOL = 2e-5          # against the JAX package, dropout off

@@ -37,6 +37,7 @@ from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.transplant import from_flax
 from test_torch_families import _randomise
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CFG = JConfig(top_k=40, batch_size=4, max_length=6, units=16, attn_units=8,

@@ -23,6 +23,8 @@ from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.serve import Captioner
 from masters_thesis_tpu_torch.server import make_caption_server
 
+from torch_threads import one_thread  # noqa: F401
+
 N_VOXELS, UNITS, T, BATCH = 128, 16, 6, 4
 KW = dict(units=UNITS, group_size=4, embedding_text=8, attn_units=8,
           vocab_size=40, max_length=T)

@@ -41,6 +41,8 @@ from masters_thesis_tpu_torch.ops.tiles import (
     plan,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "masters_thesis_tpu_torch" / "csrc"
 
 # (B, N, K's segment widths, gates, the tile the main path must get or

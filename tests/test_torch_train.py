@@ -32,6 +32,8 @@ from masters_thesis_tpu_torch.train import losses, optim, steps
 from masters_thesis_tpu_torch.train.state import init_model
 from masters_thesis_tpu_torch.transplant import from_flax, to_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 FWD = dict(rtol=1e-5, atol=1e-5)
 TRAJ = dict(rtol=2e-5, atol=2e-5)
 N_VOXELS, N_GROUPS, B = 96, 5, 4

@@ -35,6 +35,8 @@ from masters_thesis_tpu_torch.train.losses import lc_nic_l2_rules
 from masters_thesis_tpu_torch.train.state import init_model
 from masters_thesis_tpu_torch.transplant import from_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 TRAJ = dict(rtol=2e-5, atol=2e-5)
 N_VOXELS = 64
 CFG = dict(top_k=30, batch_size=4, max_length=5, units=12, attn_units=6,

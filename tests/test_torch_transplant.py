@@ -12,6 +12,8 @@ from masters_thesis_tpu.ops.group_layout import GroupLayout
 from masters_thesis_tpu_torch.models.nic import LcNIC
 from masters_thesis_tpu_torch.transplant import from_flax, to_flax
 
+from torch_threads import one_thread  # noqa: F401
+
 KW = dict(units=16, group_size=4, embedding_text=8, attn_units=8,
           vocab_size=40, max_length=5)
 

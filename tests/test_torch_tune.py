@@ -28,6 +28,8 @@ from masters_thesis_tpu.tune import runner as jrunner
 from masters_thesis_tpu.tune import search as jsearch
 from masters_thesis_tpu_torch.tune import asha, dispatch, runner, search
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 QUEUES = {"jax": "masters_thesis_tpu.tune.dispatch",
           "port": "masters_thesis_tpu_torch.tune.dispatch"}

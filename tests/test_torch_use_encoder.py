@@ -28,6 +28,8 @@ from masters_thesis_tpu.utils import farmhash as jfarmhash
 from masters_thesis_tpu_torch.models import use_encoder as tuse
 from masters_thesis_tpu_torch.utils import farmhash as tfarmhash
 
+from torch_threads import one_thread  # noqa: F401
+
 TESTS = Path(__file__).resolve().parent
 WIDTHS = dict(embed_dim=32, hidden=(32, 32), out_dim=32)
 OOV = 16

@@ -51,6 +51,7 @@ from masters_thesis_tpu_torch.transplant import from_flax
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_parallel_child import run_ranks  # noqa: E402
+from torch_threads import one_thread  # noqa: E402, F401
 
 ATOL = 1e-6
 TRUE, PADDED = 61, 64
