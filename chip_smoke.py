@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/csrc`` (one
-``nvcc`` a source, in parallel), then drives thirteen paths, each at the full
+``nvcc`` a source, in parallel), then drives fourteen paths, each at the full
 width of its model or at its probe's own sizes:
 
 - LcNIC serving: holds the LSTM whole-decode kernel (K2) against its plain
@@ -32,6 +32,11 @@ width of its model or at its probe's own sizes:
 - the pixel CnnRnn's gather: holds K1 against its plain version on a store
   of 1,000 299 x 299 x 3 images (1.07 MB rows, K1's 4-byte-load plan),
   with repeated ids and ids out of range, and times it as below;
+- the pixel CnnRnn's backbone: InceptionV3 with its BatchNorm folded into
+  each convolution (64 images at 299, fp32 NCHW and TF32 channels-last),
+  every layer equal bit for bit to its folded convolution with the bias
+  and the ReLU as separate passes, and one fp32 forward's kernels, none
+  of them a BatchNorm, ReLU or weight-copy pass;
 - LcNIC training: puts the flagship store (2,571 keys, pregathered, 4.86 GB fp32)
   on the card, holds the store row gather (K1) against its plain version and
   a 3-step dropout-off trajectory through K1 against the same steps through
@@ -1176,6 +1181,117 @@ def pixel_gather(device, card: str) -> dict:
     k1 = check_gather(data, card)
     del data
     return k1
+
+
+FOLD_IMAGES = 64    # the pixel cell's request
+FOLD_SIDE = 299
+
+
+def inception_fold(device, card: str) -> dict:
+    """InceptionV3 with each ConvBN's BatchNorm folded into its
+    convolution, on FOLD_IMAGES images at FOLD_SIDE, its BatchNorm
+    statistics and shifts moved off their init values: in fp32 with TF32
+    off in NCHW (the pixel cell's backbone) and under TF32 in channels-last
+    (``features``), every layer's output, at the input the forward gives
+    it, equal bit for bit to the folded convolution followed by the bias
+    and the ReLU as separate passes (in fp32 the layer takes them in
+    cuDNN's convolution, ``torch.cudnn_convolution_relu``, which must run
+    once a layer; under TF32 it runs the passes), and its gap to conv ->
+    BatchNorm -> ReLU; then one fp32 forward under ``torch.profiler``, its
+    fold kept from the forward before: its kernels and device ms, none of
+    them a BatchNorm, ReLU or weight-copy pass."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from masters_thesis_tpu_torch.models.inception import ConvBN, InceptionV3
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = InceptionV3(generator=gen).eval()
+    layers = [m for m in model.modules() if isinstance(m, ConvBN)]
+    with torch.no_grad():
+        for m in layers:
+            c = m.bn.bias.shape[0]
+            m.bn.mean.copy_(0.3 * torch.randn(c, generator=gen))
+            m.bn.var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+            m.bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    model = model.to(device)
+    images = (torch.rand(FOLD_IMAGES, FOLD_SIDE, FOLD_SIDE, 3,
+                         generator=gen) * 2 - 1).to(device)
+    seen = []
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0]))) for m in layers]
+    out = {"layers": len(layers)}
+    kept = torch.backends.cudnn.allow_tf32
+    try:
+        for label, tf32 in (("fp32", False), ("tf32", True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            seen.clear()
+            unequal, gap = 0, 0.0
+            with torch.inference_mode():
+                model(images)
+                inputs = list(seen)     # the calls below add to seen
+                fused = torch.cudnn_convolution_relu
+                calls = []
+                torch.cudnn_convolution_relu = (
+                    lambda *args: calls.append(1) or fused(*args))
+                try:
+                    outs = [m(x) for m, x in inputs]
+                finally:
+                    torch.cudnn_convolution_relu = fused
+                for (m, x), got in zip(inputs, outs):
+                    w, b = m._folded(
+                        torch.contiguous_format if x.is_contiguous()
+                        else torch.channels_last)
+                    xp, pad = m.conv.padded(x)
+                    passes = F.conv2d(xp, w, None, m.conv.strides, pad).add_(
+                        b[:, None, None]).relu_()
+                    want = F.relu(m.bn(m.conv(x)))
+                    unequal += not torch.equal(got, passes)
+                    gap = max(gap, float((got - want).abs().max()
+                                         / want.abs().max()))
+            layouts = {"nchw" if x.is_contiguous() else "channels_last"
+                       for _, x in inputs}
+            print(f"InceptionV3 folded ConvBN, {label} ({sorted(layouts)}), "
+                  f"{FOLD_IMAGES} images at {FOLD_SIDE}: {len(inputs)} layers, "
+                  f"{len(calls)} through cuDNN's fused call, "
+                  f"{unequal} unequal to the separate passes, at most "
+                  f"{gap:.2e} x max from conv -> BatchNorm -> ReLU [{card}]")
+            if (len(inputs) != len(layers) or unequal or len(calls)
+                    != (0 if tf32 or device.type != "cuda" else len(layers))):
+                raise RuntimeError(f"folded ConvBN ({label}): {unequal} of "
+                                   f"{len(inputs)} layers differ from the "
+                                   f"separate passes, {len(calls)} through "
+                                   f"cuDNN's fused call")
+            out[label] = {"fused": len(calls), "unequal": unequal,
+                          "max_rel_gap": gap,
+                          "layouts": sorted(layouts)}
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            model(images)       # the fold again in NCHW, kept from here
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model(images)
+                torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = kept
+        for h in handles:
+            h.remove()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    passes = [e.name for e in kernels if any(
+        k in e.name for k in ("Functor", "clamp", "rsqrt"))]
+    copies = sum("direct_copy" in e.name for e in kernels)
+    out["launches"] = len(kernels)
+    out["device_ms"] = sum(e.device_time_total for e in kernels) / 1e3
+    print(f"InceptionV3 fp32 forward of {FOLD_IMAGES} images: "
+          f"{out['launches']} kernels, {out['device_ms']:.3f} ms; "
+          f"{len(passes)} BatchNorm or ReLU passes, {copies} copies (the "
+          f"images' layout at the stem) [{card}]")
+    if passes or copies > 1:
+        raise RuntimeError(f"the folded forward launched {len(passes)} "
+                           f"passes ({sorted({n[:80] for n in passes})}) "
+                           f"and {copies} copies")
+    del model, images, seen, inputs, outs
+    return out
 
 
 def check_trajectory(layout, store, pipe, device, card: str) -> None:
@@ -4658,6 +4774,8 @@ def main(argv=None) -> int:
     release()
     pix = pixel_gather(device, card)
     release()
+    fold = inception_fold(device, card)
+    release()
 
     k1, train_data = train(device, card, args.profile)
     k4 = fused_seq(train_data, device, card, args.profile)
@@ -4742,6 +4860,7 @@ def main(argv=None) -> int:
         "replaces": "masters_thesis_tpu/ops/fused_seq.py:204",
         **prec["K4"], **bf16_parts["flagship"]},
         *probes]}))
+    print(json.dumps({"inception_fold": fold}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

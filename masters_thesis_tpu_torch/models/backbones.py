@@ -85,16 +85,20 @@ class Conv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
 
+    def padded(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+        """(x, pad): ``x`` padded where the two sides differ, and the
+        symmetric (top, left) padding left for the convolution."""
+        if self.padding == "VALID":
+            return x, (0, 0)
+        (top, bottom), (left, right) = (
+            same_pads(x.shape[2], self.kernel_size[0], self.strides[0]),
+            same_pads(x.shape[3], self.kernel_size[1], self.strides[1]))
+        if top == bottom and left == right:
+            return x, (top, left)
+        return F.pad(x, (left, right, top, bottom)), (0, 0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pad = 0
-        if self.padding == "SAME":
-            (top, bottom), (left, right) = (
-                same_pads(x.shape[2], self.kernel_size[0], self.strides[0]),
-                same_pads(x.shape[3], self.kernel_size[1], self.strides[1]))
-            if top == bottom and left == right:
-                pad = (top, left)
-            else:
-                x = F.pad(x, (left, right, top, bottom))
+        x, pad = self.padded(x)
         return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
                         stride=self.strides, padding=pad, groups=self.groups)
 

@@ -5,7 +5,8 @@ CNN_RNN generation extracts (8, 8, 2048) feature maps from Keras
 ``InceptionV3`` and trains Show-Attend-Tell on the flattened (64, 2048)
 patches (CNN_RNN/train.py). The canonical graph (mixed0..mixed10),
 Conv -> BatchNorm (no scale, eps 1e-3) -> ReLU throughout, with the flax
-tree's parameter names and layouts (``models.backbones``); the branches'
+tree's parameter names and layouts (``models.backbones``), each run as one
+convolution with the BatchNorm folded into it (``ConvBN``); the branches'
 3x3 average pool divides by the count of real elements (Keras
 ``AveragePooling2D(padding='same')``).
 
@@ -30,8 +31,37 @@ from masters_thesis_tpu_torch.models.backbones import (
 from masters_thesis_tpu_torch.models.common import Dense
 
 
+def _cudnn_fuses(x: torch.Tensor) -> bool:
+    """Whether ``ConvBN`` convolves ``x`` through
+    ``torch.cudnn_convolution_relu``: float32 on CUDA with cuDNN's TF32
+    off, where cuDNN keeps each of InceptionV3's convolutions on the kernel
+    it picks for the bare one (under TF32 the fused call's output differed
+    from the separate passes' on 3 of the 94, another kernel there)."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and not torch.backends.cudnn.allow_tf32)
+
+
 class ConvBN(nn.Module):
-    """conv2d (no bias) + BatchNorm(center, no scale) + ReLU."""
+    """conv2d (no bias) + BatchNorm(center, no scale) + ReLU, run as one
+    convolution with the BatchNorm folded into it.
+
+    The BatchNorm always takes its running statistics, so it is an affine
+    map of each output channel, which folds into the convolution: with
+    s = rsqrt(var + eps), the OIHW weight w' = w · s and the bias
+    b' = bias - mean · s. On float32 CUDA tensors with cuDNN's TF32 off
+    ``torch.cudnn_convolution_relu`` adds b' and takes the ReLU in the
+    convolution kernel's epilogue (``_cudnn_fuses``; the result is the
+    separate passes' bit for bit); elsewhere the bias and the ReLU are two
+    passes in place. The parameters stay flax's (``conv.kernel`` HWIO,
+    ``bn.bias``, ``bn.mean``, ``bn.var``), so the transplant and the npz
+    loaders are as before. The fold is made from them and kept, in the
+    memory layout of the input, until one of them changes: an in-place
+    write (``copy_``, as ``load_state_dict`` writes) moves its version, a
+    swapped tensor its data pointer, and ``.to`` or a new dtype drops the
+    fold. A write through ``.data`` moves neither and is not seen. Where autograd records (the
+    input or a parameter requires grad), the fold is made anew each call
+    and the passes run out of place, so that gradients reach the input,
+    ``conv.kernel`` and ``bn.bias``."""
 
     def __init__(self, in_features: int, features: int, kernel,
                  strides=(1, 1), padding: str = "SAME", generator=None):
@@ -39,9 +69,49 @@ class ConvBN(nn.Module):
         self.conv = Conv(in_features, features, kernel, strides, padding,
                          use_bias=False, generator=generator)
         self.bn = BatchNorm(features, epsilon=1e-3, use_scale=False)
+        # (key, the sources it names, w', b')
+        self._fold = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._fold = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(w', b'): the folded OIHW weight and the bias, made anew."""
+        s = torch.rsqrt(self.bn.var + self.bn.epsilon)
+        return (self.conv.kernel.permute(3, 2, 0, 1) * s[:, None, None, None],
+                self.bn.bias - self.bn.mean * s)
+
+    def _folded(self, memory_format) -> tuple[torch.Tensor, torch.Tensor]:
+        sources = (self.conv.kernel, self.bn.bias, self.bn.mean, self.bn.var)
+        key = (memory_format,
+               *[(t.data_ptr(), t._version) for t in sources])
+        if self._fold is None or self._fold[0] != key:
+            with torch.no_grad():
+                w, b = self.fold()
+            # the sources are held, so that no other tensor takes their
+            # storage (and data pointer) while the key names it
+            self._fold = (key, [t.detach() for t in sources],
+                          w.contiguous(memory_format=memory_format), b)
+        return self._fold[2], self._fold[3]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        x, pad = self.conv.padded(x)
+        stride = self.conv.strides
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.conv.kernel.requires_grad
+                                        or self.bn.bias.requires_grad):
+            w, b = self.fold()
+            return F.relu(F.conv2d(x, w, b, stride, pad))
+        channels_last = (x.is_contiguous(memory_format=torch.channels_last)
+                         and not x.is_contiguous())
+        w, b = self._folded(torch.channels_last if channels_last
+                            else torch.contiguous_format)
+        if _cudnn_fuses(x):
+            return torch.cudnn_convolution_relu(x, w, b, stride, pad,
+                                                (1, 1), 1)
+        return F.conv2d(x, w, None, stride, pad).add_(
+            b[:, None, None]).relu_()
 
 
 def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:
