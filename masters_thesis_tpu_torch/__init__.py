@@ -16,10 +16,11 @@ under ``csrc/``, with a plain PyTorch version beside it.
 Ported so far, in fp32: LcNIC greedy serving (``serve.Captioner`` ->
 ``models.nic`` -> ``ops.fused_decode``, K2) and CnnRnn (GRU) greedy serving
 on InceptionV3 patch rows (the same path, K3) or on pixels, InceptionV3
-inside the encoder (``models.encoders.InceptionPatchDense``), behind the
-port's ``server.make_caption_server``; LcNIC training (``data.store`` ->
-``ops.gather``, K1 -> ``models`` in training mode -> ``train.losses``,
-``train.optim``, ``train.steps`` -> ``train.loop.Trainer`` over
+or EfficientNet-B3 inside the encoder (``models.encoders.PixelPatchDense``),
+behind the port's ``server.make_caption_server``; LcNIC training
+(``data.store`` -> ``ops.gather``, K1 -> ``models`` in training mode ->
+``train.losses``, ``train.optim``, ``train.steps`` ->
+``train.loop.Trainer`` over
 ``data.pipeline.BatchPipeline``), which under ``tpu.fused_seq`` trains the
 decoder through the fused teacher-forced sequence's custom backward
 (``ops.fused_seq``, whose eval-mode forward is K4); and the training

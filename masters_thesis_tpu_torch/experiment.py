@@ -84,6 +84,10 @@ from masters_thesis_tpu_torch.decode.beam import make_beam_decoder
 from masters_thesis_tpu_torch.decode.greedy import make_greedy_decoder
 from masters_thesis_tpu_torch.device import resolve_device
 from masters_thesis_tpu_torch.evalsuite.tokens import ids_to_caption
+from masters_thesis_tpu_torch.models.encoders import (
+    DEFAULT_BACKBONE,
+    pixel_backbone,
+)
 from masters_thesis_tpu_torch.models.multisubject import DualSubjectEncoder
 from masters_thesis_tpu_torch.models.nic import NIC
 from masters_thesis_tpu_torch.models.showtell import showtell_l2_rules
@@ -444,12 +448,14 @@ def run_training(cfg: Config, epochs: int | None = None, smoke_keys: int = 48,
 
     row_shape = host_store.row_shape
     if name == "cnn_rnn" and len(row_shape) == 3:
-        # model_for would put InceptionV3 inside the encoder, and the
-        # train step would move all of its 94 convolutions
+        # model_for would put its default backbone inside the encoder, and
+        # the train step would move all of its convolutions
         raise ValueError(
             f"cnn_rnn on image rows {tuple(row_shape)}: the port does not "
-            f"train InceptionV3; extract its patches with `features "
-            f"--backbone inception_v3 --pack` and train on those")
+            f"train {pixel_backbone(DEFAULT_BACKBONE).title} (the "
+            f"{DEFAULT_BACKBONE} backbone model_for would build); extract "
+            f"its patches with `features --backbone {DEFAULT_BACKBONE} "
+            f"--pack` and train on those")
     n_voxels = row_shape[0]
     input_row_shape = [int(d) for d in row_shape]
     # on the card with the scanned trainer, permute the store into the

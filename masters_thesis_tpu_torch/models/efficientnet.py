@@ -8,7 +8,12 @@ grouped by channel; squeeze-excite with ratio 0.25 of the block *input*
 channels; width by ``round_filters`` (divisor 8), depth by ceil-scaled
 repeats; flax's "SAME" padding and parameter names (``models.backbones``).
 
-``efficientnet("b3")`` -> (B, 300, 300, 3) NHWC -> pooled (B, 1536).
+``efficientnet("b3")`` -> (B, 300, 300, 3) NHWC -> pooled (B, 1536) and
+the top map's patches (B, 100, 1536); ``grid`` is the side of that map for
+another image side. Each MBConv's depthwise convolution, its BatchNorm and
+swish, and its squeeze-excite up to the gated output are the span
+``encode.depthwise_se`` (``utils.profiling.span``), a no-op while no
+profiler records.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from masters_thesis_tpu_torch.models.backbones import (
     patches,
 )
 from masters_thesis_tpu_torch.models.common import Dense
+from masters_thesis_tpu_torch.utils.profiling import span
 
 # B0 baseline: (kernel, stride, expand, in_ch, out_ch, repeats)
 _B0_BLOCKS = (
@@ -100,11 +106,14 @@ class MBConv(nn.Module):
         inp = x
         if self.expand is not None:
             x = self.expand(x)
-        x = self.depthwise(x)
-        # squeeze-excite: global pool -> reduce -> swish -> expand -> sigmoid
-        se = x.mean(dim=(2, 3), keepdim=True)
-        se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se))))
-        x = self.project(x * se)
+        with span("encode.depthwise_se", x):
+            x = self.depthwise(x)
+            # squeeze-excite: global pool -> reduce -> swish -> expand ->
+            # sigmoid -> the gate on every channel
+            se = x.mean(dim=(2, 3), keepdim=True)
+            se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se))))
+            x = x * se
+        x = self.project(x)
         if self.skip:
             x = x + inp  # (drop-connect omitted: inference extractor)
         return x
@@ -154,6 +163,16 @@ def efficientnet(variant: str = "b3", include_top: bool = False,
     width, depth, res, _ = SCALINGS[variant]
     return EfficientNet(width=width, depth=depth, include_top=include_top,
                         generator=generator), res
+
+
+def grid(size: int) -> int:
+    """The side of the top map (the patch grid) for an image side of
+    ``size`` pixels: the stem and the first block of four stages halve it,
+    each "SAME" at stride 2 rounding up; 10 at 300, 2 at 64. The same in
+    every variant."""
+    for stride in (2,) + tuple(b[1] for b in _B0_BLOCKS):
+        size = -(-size // stride)
+    return size
 
 
 def preprocess(images: np.ndarray) -> np.ndarray:

@@ -3,8 +3,9 @@
 Counterpart of ``masters_thesis_tpu/models/encoders.py``:
 
 - ``PatchDense``: (B, P, C) conv-feature patches -> (B, P, D);
-- ``InceptionPatchDense``: (B, H, W, 3) images -> InceptionV3's mixed10
-  patches -> the shared ``PatchDense`` -> (B, P, D), Show, Attend and Tell
+- ``PixelPatchDense``: (B, H, W, 3) images -> a named CNN backbone's top
+  map as patches (InceptionV3's mixed10 by default, or EfficientNet-B3's
+  head) -> the shared ``PatchDense`` -> (B, P, D), Show, Attend and Tell
   from pixels (the CNN_RNN's extractor and encoder in one module);
 - ``FullyConnectedEncoder``: one Dense + BatchNorm + dropout over the whole
   flat input (AttemptFour/Model/fullyConnected.py:6-27) -> (B, 1, D);
@@ -38,11 +39,12 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 
-from masters_thesis_tpu_torch.models import inception
+from masters_thesis_tpu_torch.models import efficientnet, inception
 from masters_thesis_tpu_torch.models.common import (
     BatchNorm,
     Dense,
@@ -103,27 +105,64 @@ class PatchDense(nn.Module):
         return dropout(y, self.dropout, generator, training)
 
 
-class InceptionPatchDense(PatchDense):
-    """(B, H·W·3) or (B, H, W, 3) images, preprocessed to [-1, 1]
-    (``inception.preprocess``) -> (B, P, D): ``backbone``, the
-    ``inception.InceptionV3`` of the ``features`` command, gives the
-    mixed10 patches (P = ``inception.grid(H) · inception.grid(W)``, 64 at
-    299 x 299, of 2,048 channels), which the shared relu ``PatchDense``
-    (``proj``, the CNN_RNN's CNN_Encoder) projects. ``row_shape`` is
-    (H, W, 3). The backbone's forward is the span ``encode.backbone``
+class PixelBackbone(NamedTuple):
+    """A CNN that a pixel encoder runs: its name in prose, its module
+    built from a generator, the side of its top map for an image side, and
+    that map's channels."""
+
+    title: str
+    build: Callable
+    grid: Callable
+    channels: int
+
+
+# the backbones of ``PixelPatchDense``, by the ``features`` command's names
+PIXEL_BACKBONES = {
+    "inception_v3": PixelBackbone(
+        "InceptionV3", lambda g: inception.InceptionV3(generator=g),
+        inception.grid, 2048),
+    "efficientnet_b3": PixelBackbone(
+        "EfficientNet-B3", lambda g: efficientnet.efficientnet(
+            "b3", generator=g)[0], efficientnet.grid, 1536),
+}
+DEFAULT_BACKBONE = "inception_v3"
+
+
+def pixel_backbone(name: str) -> PixelBackbone:
+    """The pixel backbone called ``name``; an unknown name raises."""
+    if name not in PIXEL_BACKBONES:
+        raise ValueError(f"backbone {name!r}: expected one of "
+                         f"{sorted(PIXEL_BACKBONES)}")
+    return PIXEL_BACKBONES[name]
+
+
+class PixelPatchDense(PatchDense):
+    """(B, H·W·3) or (B, H, W, 3) images, preprocessed as the ``features``
+    command preprocesses them for the backbone (``inception.preprocess``
+    to [-1, 1], ``efficientnet.preprocess`` to ImageNet's mean and
+    deviation) -> (B, P, D): ``backbone``, the module of the ``features``
+    command named ``backbone_name`` (``PIXEL_BACKBONES``), gives the
+    patches of its top map (InceptionV3's mixed10, 8 x 8 x 2,048 at 299 x
+    299; EfficientNet-B3's head, 10 x 10 x 1,536 at 300 x 300; P =
+    ``grid(H) · grid(W)``), which the shared relu ``PatchDense`` (``proj``,
+    the CNN_RNN's CNN_Encoder) projects. ``row_shape`` is (H, W, 3). The
+    backbone's forward is the span ``encode.backbone``
     (``utils.profiling.span``). Its BatchNorms always take their running
     statistics: nothing here trains the backbone. Its convolutions run in
     fp32 whatever ``torch.backends.cudnn.allow_tf32`` says (PyTorch's
-    default lets cuDNN take TF32, which moves the greedy words of this
-    94-layer stack), and so on CUDA in the NCHW-contiguous layout that
+    default lets cuDNN take TF32, which moves the greedy words of these
+    deep stacks), and so on CUDA in the NCHW-contiguous layout that
     cuDNN's float32 kernels read (``backbones.conv_memory_format``); the
     flag is the caller's again after the call."""
 
-    def __init__(self, image_size, out_dim: int, generator=None):
+    def __init__(self, image_size, out_dim: int,
+                 backbone: str = DEFAULT_BACKBONE, generator=None):
         h, w = image_size
-        super().__init__(inception.grid(h) * inception.grid(w), 2048,
+        spec = pixel_backbone(backbone)
+        super().__init__(spec.grid(h) * spec.grid(w), spec.channels,
                          out_dim, activation="relu", generator=generator)
-        self.backbone = inception.InceptionV3(generator=generator)
+        self.backbone_name = backbone
+        self.backbone = spec.build(generator)
         self.row_shape = (h, w, 3)
 
     def forward(self, x: torch.Tensor, training: bool = False,

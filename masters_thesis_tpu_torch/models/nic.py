@@ -12,7 +12,8 @@ configurations:
   shared relu ``PatchDense``, linear attention, a GRU cell whose recurrence
   restarts from zeros every step (``gru_zero_state``), and a linear
   Dense(units) + Dense(vocab) head; with ``image_size`` the same captioner
-  on pixels, InceptionV3 inside its encoder (``InceptionPatchDense``).
+  on pixels, a named backbone (InceptionV3 or EfficientNet-B3) inside its
+  encoder (``PixelPatchDense``).
 
 Forward:
 
@@ -72,8 +73,9 @@ from masters_thesis_tpu_torch.models.common import (
     widen_carry,
 )
 from masters_thesis_tpu_torch.models.encoders import (
-    InceptionPatchDense,
+    DEFAULT_BACKBONE,
     PatchDense,
+    PixelPatchDense,
 )
 from masters_thesis_tpu_torch.models.locally_dense import LocallyDense
 from masters_thesis_tpu_torch.models.lstm import KerasGRUCell, KerasLSTMCell
@@ -372,7 +374,8 @@ def ImgNIC(embed_dim: int = 32, units: int = 512, attn_units: int = 32,
 
 def CnnRnnNIC(embed_dim: int = 256, units: int = 512, vocab_size: int = 5001,
               max_length: int = 15, n_patches: int = 64,
-              in_channels: int = 2048, image_size=None, generator=None,
+              in_channels: int = 2048, image_size=None,
+              backbone: str = DEFAULT_BACKBONE, generator=None,
               **kw) -> NIC:
     """The CNN_RNN GRU captioner (CNN_RNN/model.py) on (``n_patches``,
     ``in_channels``) patch rows, by default InceptionV3's (64, 2048): relu
@@ -380,18 +383,19 @@ def CnnRnnNIC(embed_dim: int = 256, units: int = 512, vocab_size: int = 5001,
     attention (model.py:38-61), a linear fc1 Dense(units) head
     (model.py:77-78), and the zero-initial-state GRU recurrence
     (model.py:103, ``NIC.gru_zero_state``). With ``image_size`` (H, W) it
-    reads (H, W, 3) images instead, InceptionV3 giving the patches
-    (``encoders.InceptionPatchDense``; ``n_patches`` and ``in_channels``
-    then follow from it). Initialised on the CPU from ``generator``; extra
-    kwargs pass through to ``NIC``."""
+    reads (H, W, 3) images instead, the CNN named ``backbone``
+    (``encoders.PIXEL_BACKBONES``: ``inception_v3`` or ``efficientnet_b3``)
+    giving the patches (``encoders.PixelPatchDense``; ``n_patches`` and
+    ``in_channels`` then follow from it). Initialised on the CPU from
+    ``generator``; extra kwargs pass through to ``NIC``."""
     kw.setdefault("dropout_attn", 0.0)
     kw.setdefault("gru_zero_state", True)
     if image_size is None:
         encoder = PatchDense(n_patches, in_channels, embed_dim,
                              activation="relu", generator=generator)
     else:
-        encoder = InceptionPatchDense(image_size, embed_dim,
-                                      generator=generator)
+        encoder = PixelPatchDense(image_size, embed_dim, backbone,
+                                  generator=generator)
     return NIC(
         encoder=encoder,
         units=units,

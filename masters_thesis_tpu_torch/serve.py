@@ -34,10 +34,11 @@ of the JAX package's).
 
 A row is whatever the model reads: (n_voxels,) betas for the brain
 families, (P, C) patches for the image ones, (H, W, 3) images preprocessed
-to [-1, 1] for a ``cnn_rnn`` built on pixels, a 512-wide GUSE vector for
-``guse_nic``. ``input_row_shape`` is that shape and ``input_width`` its last
-dimension, as in the JAX ``Captioner`` and server; image rows are held to
-the whole shape.
+for the backbone of a ``cnn_rnn`` built on pixels (InceptionV3's to [-1, 1],
+EfficientNet-B3's to ImageNet's mean and deviation), a 512-wide GUSE vector
+for ``guse_nic``. ``input_row_shape`` is that shape and ``input_width`` its
+last dimension, as in the JAX ``Captioner`` and server; image rows are held
+to the whole shape.
 
 ``shard=N`` serves N replicas of the model, one a device (the JAX
 ``Captioner``'s data-parallel ``mesh``): each decodes an equal share of

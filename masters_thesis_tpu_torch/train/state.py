@@ -25,9 +25,11 @@ from torch import nn
 
 from masters_thesis_tpu_torch.device import resolve_device
 from masters_thesis_tpu_torch.models.encoders import (
+    DEFAULT_BACKBONE,
     ConcatLocallyDense,
     DeepLocallyDense,
     FullyConnectedEncoder,
+    pixel_backbone,
 )
 from masters_thesis_tpu_torch.models.multisubject import Ms2NIC
 from masters_thesis_tpu_torch.models.nic import NIC, CnnRnnNIC, ImgNIC, LcNIC
@@ -73,19 +75,23 @@ def _nic_dropouts(cfg) -> dict:
 
 def model_for(cfg, layout=None, seed: int | None = None,
               pregathered: bool = False, row_shape=None,
-              embedding_table=None) -> nn.Module:
+              embedding_table=None,
+              backbone: str = DEFAULT_BACKBONE) -> nn.Module:
     """The model family of ``cfg.model`` (the JAX ``experiment.build_model``)
     at ``cfg``'s widths and dropouts, initialised on the CPU from ``seed``
     (default ``cfg.seed``). ``layout`` is the GroupLayout of the families
     that read one (``LAYOUT_MODELS``); ``row_shape`` one input row's shape,
     (P, C) patches for ``img_nic`` and ``cnn_rnn`` or (H, W, 3) images for
-    ``cnn_rnn`` (InceptionV3 inside the encoder), by default
+    ``cnn_rnn`` (the CNN named ``backbone`` inside the encoder,
+    ``encoders.PIXEL_BACKBONES``: ``inception_v3`` or ``efficientnet_b3``;
+    the configuration has no key for it), by default
     (layout.n_voxels,). ``pregathered`` (``lc_nic``/``ms_nic``) takes the
     grouped padded input of a permuted store. ``embedding_table`` is a
     resolved (vocab, E) GloVe table (``lc_nic``/``ms_nic``)."""
     name = cfg.model.lower()
     if name not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
+    pixel_backbone(backbone)
     if embedding_table is not None and name not in ("lc_nic", "ms_nic"):
         raise ValueError(
             f"glove_path is only supported for lc_nic/ms_nic (the glove_NIC "
@@ -161,7 +167,7 @@ def model_for(cfg, layout=None, seed: int | None = None,
                 raise ValueError(f"cnn_rnn image rows {tuple(row_shape)}: "
                                  f"expected (H, W, 3) RGB")
             return CnnRnnNIC(embed_dim=256, image_size=tuple(row_shape[:2]),
-                             **nic)
+                             backbone=backbone, **nic)
         return CnnRnnNIC(embed_dim=256, n_patches=row_shape[0],
                          in_channels=row_shape[1], **nic)
     # the alternate brain encoders the reference swaps into lc_NIC

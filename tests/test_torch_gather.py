@@ -183,6 +183,7 @@ PLANS = {
     "flagship 1.89 MB": ((1_890_304, 16), (256, 231, 512, 0)),
     "flagship raw bf16": ((655_368, 8), (256, 81, 1_012, 1)),
     "cnn_rnn pixels 1.07 MB": ((1_072_812, 4), (256, 524, 512, 0)),
+    "efficientnet pixels 1.08 MB": ((1_080_000, 16), (256, 132, 512, 0)),
     "one vector": ((4, 4), (32, 1, 1, 1)),
     "three bf16 vectors": ((6, 2), (32, 1, 3, 1)),
     "a warp": ((512, 16), (32, 1, 32, 1)),
@@ -258,6 +259,18 @@ def test_pixel_rows_take_narrow_loads_and_are_copied_once():
     vec = vector_bytes(0x7F0000000000 | row_bytes)
     assert vec == 4
     plan = gather_plan(row_bytes, vec)
+    assert (walk(plan, row_bytes // vec, 2) == 1).all()
+
+
+def test_efficientnet_pixel_rows_take_wide_loads_and_are_copied_once():
+    """cnn_rnn on EfficientNet-B3's pixels stores 300 x 300 x 3 fp32 values
+    a row (1,080,000 B, a multiple of 16): on a 256-byte aligned store K1
+    takes 16-byte loads, 132 pieces of 512, and copies each value once."""
+    row_bytes = 300 * 300 * 3 * 4
+    vec = vector_bytes(0x7F0000000000 | row_bytes)
+    assert vec == 16
+    plan = gather_plan(row_bytes, vec)
+    assert (plan.pieces, plan.piece_vecs) == (132, 512)
     assert (walk(plan, row_bytes // vec, 2) == 1).all()
 
 

@@ -1,10 +1,15 @@
-"""Show, Attend and Tell from pixels: the port's CnnRnn with InceptionV3
-inside its encoder (``encoders.InceptionPatchDense``, ``CnnRnnNIC(
-image_size=...)``) against the benchmark's plain reference
-(``port_bench/reference/cnn_rnn_inception.py``, which follows Keras'
-``inception_v3.py`` and imports nothing of the port), on weights drawn by
-the benchmark's rule, at the published widths on small images: 107 x 107
-(a 2 x 2 mixed10 map, 4 patches) and 139 x 139 (9 patches), batch 3.
+"""Show, Attend and Tell from pixels: the port's CnnRnn with a CNN
+backbone inside its encoder (``encoders.PixelPatchDense``, ``CnnRnnNIC(
+image_size=..., backbone=...)``) against the benchmark's plain reference
+of each backbone, which imports nothing of the port, on weights drawn by
+the benchmark's rule, at the published widths on small images, batch 3:
+InceptionV3 (``port_bench/reference/cnn_rnn_inception.py``, after Keras'
+``inception_v3.py``) at 107 x 107 (a 2 x 2 mixed10 map, 4 patches) and
+139 x 139 (9 patches); EfficientNet-B3
+(``port_bench/reference/cnn_rnn_efficientnet.py``, after Keras'
+``efficientnet.py``) at 64 x 64 (a 2 x 2 top map) and 96 x 96 (9
+patches). ``tests/test_torch_efficientnet_captioner.py`` holds what only
+EfficientNet-B3 has.
 
 Tolerances. The random network is slightly chaotic: fp32 rounding grows
 by ~15% a layer through its 94 convolutions, and the reference's own fp32
@@ -18,7 +23,18 @@ that error reaches the alphas at 1.1e-4 (107) and 3.5e-5 (139):
 and 0.5. Words are held by the top-2 margin: the served word's reference
 logit lies within ``LOGIT_TOL`` (1e-3) of the best at every step (0 on
 these rows: every served word is the reference's best).
+
+EfficientNet-B3's random network is not chaotic under the rule (its
+BatchNorm statistics over 800 top-map positions): the reference's fp32
+patches lie ~1e-5 x max from its float64 ones at 64, 96 and 300, and the
+program's on the CPU 0.9e-5 to 1.8e-5 x max from the reference's (3 seeds
+at each size): its ``patch_tol`` (1e-4 x max) leaves 5.5x room, and a gate
+left out or a residual dropped moves the patches by 0.1 x max or more.
+The alphas lie 2e-6 to 7.3e-6 from the reference's: its ``alpha_tol``
+(1e-4) leaves 13x room.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -28,10 +44,14 @@ from masters_thesis_tpu_torch import experiment
 from masters_thesis_tpu_torch.config import Config
 from masters_thesis_tpu_torch.data.store import ArrayStore
 from masters_thesis_tpu_torch.data.tokenizer import Tokenizer
-from masters_thesis_tpu_torch.models import backbones, inception
+from masters_thesis_tpu_torch.models import (
+    backbones,
+    efficientnet,
+    inception,
+)
 from masters_thesis_tpu_torch.models.encoders import (
-    InceptionPatchDense,
     PatchDense,
+    PixelPatchDense,
 )
 from masters_thesis_tpu_torch.ops.fused_decode import (
     make_whole_fused_greedy_decoder,
@@ -39,53 +59,88 @@ from masters_thesis_tpu_torch.ops.fused_decode import (
 from masters_thesis_tpu_torch.serve import Captioner
 from masters_thesis_tpu_torch.train.state import model_for
 from port_bench.harness import port
-from port_bench.programs import cnn_rnn_inception as program
-from port_bench.reference import cnn_rnn_inception as ref
+from port_bench.programs import cnn_rnn_efficientnet, cnn_rnn_inception
+from port_bench.reference import cnn_rnn_efficientnet as effnet_ref
+from port_bench.reference import cnn_rnn_inception as inception_ref
 from port_bench.reference import compare
 
 from torch_threads import one_thread  # noqa: F401
 
-PATCH_TOL, ALPHA_TOL, LOGIT_TOL = 5e-4, 1e-3, 1e-3
+LOGIT_TOL = 1e-3
 B, START = 3, 2
 CPU = torch.device("cpu")
 
 
-def config(size: int) -> dict:
-    side = inception.grid(size)
-    return {"model": "cnn_rnn_inception", "image_size": [size, size],
-            "n_patches": side * side, "in_channels": 2048, "embed_dim": 256,
-            "units": 512, "vocab_size": 5001, "max_length": 15}
+class Backbone(NamedTuple):
+    """A backbone's family in the benchmark (its reference and program
+    modules), its module in the port, its top map's channels, the image
+    sides the tests run it at, and its tolerances (the module docstring)."""
+
+    model: str
+    ref: object
+    program: object
+    module: object
+    channels: int
+    sizes: tuple
+    patch_tol: float
+    alpha_tol: float
 
 
-@pytest.fixture(scope="module", params=[107, 139])
-def pair(request):
-    """(cfg, reference weights, the program's model holding them, raw
-    pixel rows (B, H·W·3))."""
-    cfg = config(request.param)
-    w = ref.weights(cfg, 2**40 + request.param, CPU)
+BACKBONES = {
+    "inception_v3": Backbone("cnn_rnn_inception", inception_ref,
+                             cnn_rnn_inception, inception, 2048, (107, 139),
+                             5e-4, 1e-3),
+    "efficientnet_b3": Backbone("cnn_rnn_efficientnet", effnet_ref,
+                                cnn_rnn_efficientnet, efficientnet, 1536,
+                                (64, 96), 1e-4, 1e-4),
+}
+CASES = [(name, size) for name, b in BACKBONES.items() for size in b.sizes]
+
+
+def config(backbone: str, size: int) -> dict:
+    b = BACKBONES[backbone]
+    side = b.module.grid(size)
+    return {"model": b.model, "image_size": [size, size],
+            "n_patches": side * side, "in_channels": b.channels,
+            "embed_dim": 256, "units": 512, "vocab_size": 5001,
+            "max_length": 15}
+
+
+def build(backbone: str, size: int) -> tuple:
+    """(backbone, cfg, reference weights, the program's model holding
+    them, raw pixel rows (B, H·W·3))."""
+    b = BACKBONES[backbone]
+    cfg = config(backbone, size)
+    w = b.ref.weights(cfg, 2**40 + size, CPU)
     model = port.model(cfg, w, CPU).eval()
-    rows = ref.draw_rows(cfg, B, torch.Generator().manual_seed(5), CPU)
-    return cfg, w, model, rows
+    rows = b.ref.draw_rows(cfg, B, torch.Generator().manual_seed(5), CPU)
+    return b, cfg, w, model, rows
 
 
-def patch_gap(model, w, cfg, rows) -> float:
-    """The program's mixed10 patches against the reference's, over the
+@pytest.fixture(scope="module", params=CASES,
+                ids=[f"{name}-{size}" for name, size in CASES])
+def pair(request):
+    return build(*request.param)
+
+
+def patch_gap(b, model, w, cfg, rows) -> float:
+    """The program's top-map patches against the reference's, over the
     reference's largest."""
-    stored = program.to_store(model, rows)
+    stored = b.program.to_store(model, rows)
     with torch.inference_mode():
         got = model.encoder.backbone(stored.view(
             B, *model.row_shape))["patches"]
-        want = ref.encode_patches(w, cfg, rows)
+        want = b.ref.encode_patches(w, cfg, rows)
     return float((got - want).abs().max() / want.abs().max())
 
 
-def readings(model, w, cfg, rows, words, alphas) -> dict:
+def readings(b, w, cfg, rows, words, alphas) -> dict:
     """``logit_gap`` and ``alpha_err`` of served words and alphas against
     the reference teacher-forced on the same words."""
     tokens = torch.cat([torch.full_like(words[:, :1], START),
                         words[:, :-1].long()], dim=1)
     with torch.no_grad():
-        logits, want = ref.teacher_forced(w, cfg, rows, tokens)
+        logits, want = b.ref.teacher_forced(w, cfg, rows, tokens)
     return compare.decode_readings(logits, want, words, alphas)
 
 
@@ -98,16 +153,17 @@ def tokenizer() -> Tokenizer:
 
 def test_grid_is_the_reference_side():
     for size, side in ((75, 1), (107, 2), (139, 3), (299, 8)):
-        assert inception.grid(size) == ref.sides(size)["s7"] == side
+        assert inception.grid(size) == inception_ref.sides(size)["s7"] \
+            == side
     with pytest.raises(ValueError, match="75 or more"):
         inception.grid(74)
 
 
 def test_patches_match_the_reference(pair):
-    cfg, w, model, rows = pair
+    b, cfg, w, model, rows = pair
     assert model.row_shape == (*cfg["image_size"], 3)
     assert model.encoder.row_shape == model.row_shape
-    assert patch_gap(model, w, cfg, rows) <= PATCH_TOL
+    assert patch_gap(b, model, w, cfg, rows) <= b.patch_tol
 
 
 @pytest.mark.parametrize("route", ["decoder", "captioner"])
@@ -115,8 +171,8 @@ def test_greedy_words_and_alphas_match_the_reference(pair, route):
     """The decode kernel's plain version on flat rows, and ``Captioner`` on
     (B, H, W, 3) images: the same words, held by the reference's top-2
     margin, and the kernel's alphas."""
-    cfg, w, model, rows = pair
-    stored = program.to_store(model, rows)
+    b, cfg, w, model, rows = pair
+    stored = b.program.to_store(model, rows)
     decode = make_whole_fused_greedy_decoder(model, cfg["max_length"])
     words, alphas = decode(stored, START)
     assert words.shape == (B, cfg["max_length"])
@@ -128,13 +184,13 @@ def test_greedy_words_and_alphas_match_the_reference(pair, route):
         images = stored.view(B, *cap.input_row_shape).numpy()
         served = cap.caption_ids(images)            # a padded second chunk
         np.testing.assert_array_equal(served, words.numpy())
-    r = readings(model, w, cfg, rows, words, alphas)
-    assert r["logit_gap"] <= LOGIT_TOL and r["alpha_err"] <= ALPHA_TOL, r
+    r = readings(b, w, cfg, rows, words, alphas)
+    assert r["logit_gap"] <= LOGIT_TOL and r["alpha_err"] <= b.alpha_tol, r
     assert len(torch.unique(words)) >= 3
 
 
 def test_captioner_holds_image_rows_to_the_whole_shape(pair):
-    cfg, _, model, rows = pair
+    _, cfg, _, model, rows = pair
     cap = Captioner(model, tokenizer(), cfg["units"], cfg["max_length"],
                     device="cpu")
     h, wd = cfg["image_size"]
@@ -150,11 +206,11 @@ def test_patches_in_nchw_memory_match_the_reference(pair, monkeypatch):
     ``conv_memory_format`` picks for fp32 on CUDA without TF32 (forced
     here, on the CPU): every layer keeps it, and the patches are held to
     the reference as in the channels-last run."""
-    cfg, w, model, rows = pair
+    b, cfg, w, model, rows = pair
     monkeypatch.setattr(backbones, "conv_memory_format",
                         lambda *_: torch.contiguous_format)
     assert backbones.nchw(torch.zeros(2, 5, 7, 3)).is_contiguous()
-    assert patch_gap(model, w, cfg, rows) <= PATCH_TOL
+    assert patch_gap(b, model, w, cfg, rows) <= b.patch_tol
 
 
 @pytest.mark.parametrize("device, dtype, tf32, layout", [
@@ -193,38 +249,44 @@ def test_backbone_layout_follows_the_precision_in_force(device, dtype, tf32,
 def test_the_reference_in_a_lower_precision_fails_the_tolerance(pair):
     """bfloat16, the nearest precision under the fp32 the configuration
     states that the CPU runs (TF32 is the card's control), moves the
-    patches far past ``PATCH_TOL``: the tolerance can tell the two."""
-    cfg, w, _, rows = pair
+    patches far past the backbone's ``patch_tol``: the tolerance can tell
+    the two."""
+    b, cfg, w, _, rows = pair
     low = {k: v.to(torch.bfloat16) for k, v in w.items()}
     with torch.no_grad():
-        want = ref.encode_patches(w, cfg, rows)
-        got = ref.encode_patches(low, cfg, rows.to(torch.bfloat16)).float()
+        want = b.ref.encode_patches(w, cfg, rows)
+        got = b.ref.encode_patches(low, cfg,
+                                   rows.to(torch.bfloat16)).float()
     assert float((got - want).abs().max() / want.abs().max()) \
-        > 20 * PATCH_TOL
+        > 20 * b.patch_tol
 
 
+@pytest.mark.parametrize("backbone, size", [("inception_v3", 107),
+                                            ("efficientnet_b3", 64)])
 @pytest.mark.parametrize("flag", [True, False])
-def test_backbone_convolves_without_tf32_and_keeps_the_callers_flag(flag):
+def test_backbone_convolves_without_tf32_and_keeps_the_callers_flag(
+        flag, backbone, size):
     """PyTorch's default (True) lets cuDNN take TF32: the backbone runs
     with it off whatever the caller set, and the caller's value is back
     after the call, also after one that raises."""
-    encoder = InceptionPatchDense((107, 107), 8).eval()
+    encoder = PixelPatchDense((size, size), 8, backbone).eval()
+    channels = BACKBONES[backbone].channels
     seen = []
 
-    def backbone(images):
+    def fake(images):
         seen.append(torch.backends.cudnn.allow_tf32)
         if len(seen) > 1:
             raise RuntimeError("a failing backbone")
-        return {"patches": torch.zeros(images.shape[0], 4, 2048)}
+        return {"patches": torch.zeros(images.shape[0], 4, channels)}
 
-    encoder.backbone.forward = backbone
+    encoder.backbone.forward = fake
     kept = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = flag
     try:
-        encoder(torch.zeros(2, 107 * 107 * 3))
+        encoder(torch.zeros(2, size * size * 3))
         assert torch.backends.cudnn.allow_tf32 is flag
         with pytest.raises(RuntimeError, match="a failing backbone"):
-            encoder(torch.zeros(2, 107 * 107 * 3))
+            encoder(torch.zeros(2, size * size * 3))
         assert torch.backends.cudnn.allow_tf32 is flag
     finally:
         torch.backends.cudnn.allow_tf32 = kept
@@ -243,19 +305,36 @@ def drop_one_shift(model):
     model.encoder.backbone.mixed8.b7x7x3_4.bn.bias.data.zero_()
 
 
-@pytest.mark.parametrize("fault", [zero_pool_branch, drop_one_shift],
-                         ids=lambda f: f.__name__)
-def test_a_fault_fails_the_comparison(fault):
-    cfg = config(107)
-    w = ref.weights(cfg, 2**40 + 107, CPU)
-    model = port.model(cfg, w, CPU).eval()
-    rows = ref.draw_rows(cfg, B, torch.Generator().manual_seed(5), CPU)
+def se_gate_left_out(model):
+    """block10's squeeze-and-excitation gate is 1 on every channel: its
+    depthwise output goes to the projection ungated."""
+    block = model.encoder.backbone.block10
+    block.se_expand.forward = lambda s: torch.full(
+        (s.shape[0], block.se_expand.kernel.shape[-1], 1, 1), 40.0)
+
+
+def residual_dropped(model):
+    """block12 (stride 1, widths equal) loses its residual."""
+    block = model.encoder.backbone.block12
+    assert block.skip
+    block.skip = False
+
+
+FAULTS = [("inception_v3", zero_pool_branch), ("inception_v3", drop_one_shift),
+          ("efficientnet_b3", se_gate_left_out),
+          ("efficientnet_b3", residual_dropped)]
+
+
+@pytest.mark.parametrize("backbone, fault", FAULTS,
+                         ids=[f.__name__ for _, f in FAULTS])
+def test_a_fault_fails_the_comparison(backbone, fault):
+    b, cfg, w, model, rows = build(backbone, BACKBONES[backbone].sizes[0])
     fault(model)
-    assert patch_gap(model, w, cfg, rows) > 20 * PATCH_TOL
+    assert patch_gap(b, model, w, cfg, rows) > 20 * b.patch_tol
     words, alphas = make_whole_fused_greedy_decoder(
-        model, cfg["max_length"])(program.to_store(model, rows), START)
-    r = readings(model, w, cfg, rows, words, alphas)
-    assert r["alpha_err"] > 5 * ALPHA_TOL, r
+        model, cfg["max_length"])(b.program.to_store(model, rows), START)
+    r = readings(b, w, cfg, rows, words, alphas)
+    assert r["alpha_err"] > 5 * b.alpha_tol, r
 
 
 def small_config(**changes) -> Config:
@@ -267,7 +346,8 @@ def test_model_for_builds_the_pixel_encoder_from_image_rows():
     cfg = small_config()
     pixels = model_for(cfg, row_shape=(107, 107, 3))
     patches = model_for(cfg, row_shape=(4, 2048))
-    assert type(pixels.encoder) is InceptionPatchDense
+    assert type(pixels.encoder) is PixelPatchDense
+    assert pixels.encoder.backbone_name == "inception_v3"
     assert type(patches.encoder) is PatchDense
     assert pixels.row_shape == (107, 107, 3)
     assert patches.row_shape == (4, 2048)
@@ -291,32 +371,43 @@ def test_run_training_refuses_image_rows(tmp_path, monkeypatch):
         experiment.run_training(cfg, epochs=1, smoke_keys=12, device="cpu")
 
 
-def test_features_output_is_the_backbone_of_the_pixel_encoder(tmp_path,
-                                                              capsys):
-    """``features --backbone inception_v3`` writes what its InceptionV3
-    (seed 0) gives, and the pixel encoder's backbone, holding the same
-    weights, gives the same patches bit for bit."""
+# the backbone the ``features`` command builds, its default head, and the
+# image side the test feeds it
+FEATURES = {
+    "inception_v3": (lambda g: inception.InceptionV3(generator=g),
+                     "patches", 107),
+    "efficientnet_b3": (lambda g: efficientnet.efficientnet(
+        "b3", generator=g)[0], "pooled", 64),
+}
+
+
+@pytest.mark.parametrize("backbone", list(FEATURES))
+def test_features_output_is_the_backbone_of_the_pixel_encoder(
+        tmp_path, capsys, backbone):
+    """``features --backbone <name>`` writes what its backbone (seed 0)
+    gives at its default head, and the pixel encoder's backbone, holding
+    the same weights, gives the same output bit for bit."""
     from masters_thesis_tpu_torch import cli
 
-    images = np.random.default_rng(3).integers(0, 256, (3, 107, 107, 3))
+    make, head, size = FEATURES[backbone]
+    module = BACKBONES[backbone].module
+    images = np.random.default_rng(3).integers(0, 256, (3, size, size, 3))
     np.save(tmp_path / "imgs.npy", images.astype(np.uint8))
-    assert cli.main(["features", "--backbone", "inception_v3", "--images",
+    assert cli.main(["features", "--backbone", backbone, "--images",
                      str(tmp_path / "imgs.npy"), "--out",
                      str(tmp_path / "f.npy"), "--batch-size", "2",
                      "--device", "cpu"]) == 0
     capsys.readouterr()
     got = np.load(tmp_path / "f.npy")
-    backbone = inception.InceptionV3(
-        generator=torch.Generator().manual_seed(0)).eval()
-    x = torch.from_numpy(inception.preprocess(images))
+    net = make(torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(module.preprocess(images))
     with torch.inference_mode():
-        want = torch.cat([backbone(x[i:i + 2])["patches"]
-                          for i in (0, 2)]).numpy()
+        want = torch.cat([net(x[i:i + 2])[head] for i in (0, 2)]).numpy()
     np.testing.assert_array_equal(got, want)
-    encoder = InceptionPatchDense((107, 107), 8).eval()
-    encoder.backbone.load_state_dict(backbone.state_dict())
+    encoder = PixelPatchDense((size, size), 8, backbone).eval()
+    encoder.backbone.load_state_dict(net.state_dict())
     with torch.inference_mode():
         # as the encoder shapes a flat (B, H·W·3) row
         mine = torch.cat([encoder.backbone(x[i:i + 2].flatten(1).view(
-            -1, *encoder.row_shape))["patches"] for i in (0, 2)]).numpy()
+            -1, *encoder.row_shape))[head] for i in (0, 2)]).numpy()
     np.testing.assert_array_equal(mine, got)

@@ -172,7 +172,28 @@ def _pixels():
     return model, 2 * torch.rand(12, 75 * 75 * 3, generator=gen) - 1
 
 
-MODELS = {"lcnic": _lcnic, "cnn_rnn": _cnnrnn, "pixels": _pixels}
+def _effnet():
+    """The CnnRnn on 64 x 64 images (a 2 x 2 top map, 4 patches),
+    EfficientNet-B3 at its published widths inside the encoder, holding
+    the benchmark's weights (``port_bench/reference/cnn_rnn_efficientnet.
+    py``: the initialisers' BatchNorm statistics give every image the same
+    patches); its store rows are the images laid flat."""
+    from port_bench.harness import port
+    from port_bench.reference import cnn_rnn_efficientnet as ref
+
+    cpu = torch.device("cpu")
+    cfg = {"model": "cnn_rnn_efficientnet", "image_size": [64, 64],
+           "n_patches": 4, "in_channels": 1536, "embed_dim": 8, "units": 16,
+           "vocab_size": 40, "max_length": T_SPAN}
+    model = port.model(cfg, ref.weights(cfg, 3, cpu), cpu)
+    gen = torch.Generator().manual_seed(0)
+    return model, 2 * torch.rand(12, 64 * 64 * 3, generator=gen) - 1
+
+
+MODELS = {"lcnic": _lcnic, "cnn_rnn": _cnnrnn, "pixels": _pixels,
+          "effnet": _effnet}
+# the pixel models: their backbone's convolutions, and the patches
+PIXEL_MODELS = {"pixels": (94, 1), "effnet": (130, 4)}
 
 
 def _decode_rows(name, gather, weights_bf16=False):
@@ -248,38 +269,77 @@ def test_spans_nest_once_a_call_inside_the_caller(name, gather):
                 ("gather", "decode.inputs", "decode.kernel")]
 
 
-def test_backbone_span_nests_once_inside_the_inputs_span():
-    """A decode of images emits ``encode.backbone`` once, inside
-    ``decode.inputs``, around all 94 convolutions of InceptionV3 and
-    before the patch projection."""
-    from masters_thesis_tpu_torch.ops.gather import gather_rows
-
-    run = _decode_rows("pixels", gather_rows)
-    run()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        run()
+def _ranges(prof) -> dict:
     ranges = {}
     for e in prof.events():
         ranges.setdefault(e.name, []).append((e.time_range.start,
                                               e.time_range.end))
+    return ranges
+
+
+@pytest.mark.parametrize("name", list(PIXEL_MODELS))
+def test_backbone_span_nests_once_inside_the_inputs_span(name):
+    """A decode of images emits ``encode.backbone`` once, inside
+    ``decode.inputs``, around all the backbone's convolutions (94 of
+    InceptionV3, 130 of EfficientNet-B3) and before the patch
+    projection."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    convolutions, _ = PIXEL_MODELS[name]
+    run = _decode_rows(name, gather_rows)
+    run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    ranges = _ranges(prof)
     (inputs,) = ranges["span:decode.inputs"]
     (backbone,) = ranges["span:encode.backbone"]
     assert inputs[0] <= backbone[0] <= backbone[1] <= inputs[1]
     inside = lambda name: [r for r in ranges.get(name, [])  # noqa: E731
                            if backbone[0] <= r[0] <= backbone[1]]
-    assert len(inside("aten::convolution")) == 94
-    assert len(ranges["aten::convolution"]) == 94
+    assert len(inside("aten::convolution")) == convolutions
+    assert len(ranges["aten::convolution"]) == convolutions
     # the patch projection (a Dense: ``x @ kernel``) follows the span
     assert ranges["aten::matmul"] and not inside("aten::matmul")
 
 
-def test_backbone_span_off_is_a_flag_check(monkeypatch):
-    """With no profiler a decode of images opens no range and records no
-    event pair: the backbone's span is the shared no-op."""
+def test_depthwise_se_spans_nest_inside_the_backbone_span():
+    """A decode of images through EfficientNet-B3 emits
+    ``encode.depthwise_se`` 26 times, one a block, in order and apart,
+    all inside the one ``encode.backbone``; each holds its block's
+    depthwise convolution and squeeze-and-excitation pair (3 of the 130
+    convolutions), the expansions, projections, stem and head lie
+    outside."""
     from masters_thesis_tpu_torch.ops.gather import gather_rows
 
-    run = _decode_rows("pixels", gather_rows)
+    run = _decode_rows("effnet", gather_rows)
+    run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    ranges = _ranges(prof)
+    (backbone,) = ranges["span:encode.backbone"]
+    blocks = sorted(ranges["span:encode.depthwise_se"])
+    assert len(blocks) == 26
+    assert all(backbone[0] <= s <= e <= backbone[1] for s, e in blocks)
+    assert all(a[1] <= b[0] for a, b in zip(blocks, blocks[1:]))
+    convs = ranges["aten::convolution"]
+    for s, e in blocks:
+        assert len([c for c in convs if s <= c[0] <= e]) == 3
+    assert len(convs) == 130
+    assert not [s for s in profiling.device_spans()
+                if s[0] == "encode.depthwise_se"]
+
+
+@pytest.mark.parametrize("name", list(PIXEL_MODELS))
+def test_backbone_span_off_is_a_flag_check(monkeypatch, name):
+    """With no profiler a decode of images opens no range and records no
+    event pair: the backbone's span, and EfficientNet-B3's
+    ``encode.depthwise_se``, are the shared no-op."""
+    from masters_thesis_tpu_torch.ops.gather import gather_rows
+
+    _, patches = PIXEL_MODELS[name]
+    run = _decode_rows(name, gather_rows)
 
     def refuse(*args, **kwargs):
         raise AssertionError("record_function on the hot path")
@@ -288,10 +348,12 @@ def test_backbone_span_off_is_a_flag_check(monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.cuda, "Event", refuse)
     assert not torch.autograd._profiler_enabled()
-    with profiling.span("encode.backbone", torch.zeros(2)) as inside:
-        assert inside is None
+    for span_name in ("encode.backbone", "encode.depthwise_se"):
+        with profiling.span(span_name, torch.zeros(2)) as inside:
+            assert inside is None
     words, alphas = run()
-    assert words.shape == (5, T_SPAN) and alphas.shape == (5, T_SPAN, 1)
+    assert words.shape == (5, T_SPAN)
+    assert alphas.shape == (5, T_SPAN, patches)
     assert profiling.device_spans() == before
 
 
